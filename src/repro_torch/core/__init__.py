@@ -1,0 +1,86 @@
+"""repro_torch.core — PATSMA (Parameter Auto-Tuning for Shared Memory
+Algorithms) on PyTorch: staged numerical optimizers (CSA, Nelder–Mead), the
+Autotuning driver with Single-Iteration / Entire-Execution × Runtime /
+user-cost modes, search-space codecs, and the cost backends.
+
+Counterpart of the JAX package's ``repro.core``.  The optimizers and search
+spaces are copies (same trajectories, bit for bit); measurement synchronizes
+CUDA instead of blocking on JAX arrays; the roofline bound comes from
+analytic FLOP and byte counts over :data:`H100_SXM`.  The search strategies
+(``strategy.py``, ``grid_random.py``) and ``tuned_jit.py`` are not ported
+yet.
+"""
+from .autotuning import Autotuning
+from .costs import (
+    H100_SXM,
+    CachePartition,
+    ExecutableCache,
+    HardwareSpec,
+    RooflineTerms,
+    RuntimeCost,
+    compile_fanout,
+    roofline_terms,
+)
+from .csa import CSA
+from .guard import (
+    CircuitBreaker,
+    FaultPolicy,
+    GuardTimeout,
+    Quarantine,
+    SandboxCrash,
+    SandboxUnavailable,
+    deterministic_backoff,
+    guarded_call,
+    is_transient_failure,
+    sandboxed_probe,
+)
+from .measure import (
+    MeasureEngine,
+    MeasurePolicy,
+    MeasureResult,
+    NoiseEstimate,
+    block_until_ready,
+    resolve_measure_policy,
+    time_rep,
+)
+from .nelder_mead import NelderMead
+from .optimizer import NumericalOptimizer
+from .space import ChoiceDim, Constraint, FloatDim, IntDim, LogIntDim, SearchSpace
+
+__all__ = [
+    "Autotuning",
+    "CSA",
+    "NelderMead",
+    "NumericalOptimizer",
+    "SearchSpace",
+    "Constraint",
+    "IntDim",
+    "FloatDim",
+    "LogIntDim",
+    "ChoiceDim",
+    "RuntimeCost",
+    "MeasurePolicy",
+    "MeasureResult",
+    "MeasureEngine",
+    "NoiseEstimate",
+    "resolve_measure_policy",
+    "time_rep",
+    "block_until_ready",
+    "ExecutableCache",
+    "CachePartition",
+    "compile_fanout",
+    "FaultPolicy",
+    "GuardTimeout",
+    "SandboxCrash",
+    "SandboxUnavailable",
+    "CircuitBreaker",
+    "Quarantine",
+    "guarded_call",
+    "sandboxed_probe",
+    "is_transient_failure",
+    "deterministic_backoff",
+    "HardwareSpec",
+    "RooflineTerms",
+    "H100_SXM",
+    "roofline_terms",
+]

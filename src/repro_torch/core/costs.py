@@ -1,0 +1,492 @@
+"""Cost backends for the tuner.
+
+* :class:`RuntimeCost` — the paper's Runtime mode: wall time of a callable,
+  synchronizing the CUDA device its output lives on so asynchronous kernel
+  launches are included.
+* :class:`ExecutableCache` + :func:`compile_fanout` — the batched
+  measurement layer: candidate builds (a knob check plus one warm launch of
+  the hand-written kernel, see :mod:`repro_torch.kernels.autotuned`) fanned
+  out over a thread pool with a process-level cache, so revisited
+  candidates — across tuning rounds, optimizer resets, and pretune grid
+  cells — never rebuild.  Wall-clock *measurement* stays strictly serial for
+  timing fidelity; only builds overlap.
+* :class:`HardwareSpec` + :func:`roofline_terms` — the analytic lower bound
+  of a kernel call from the FLOP and byte counts its shapes imply, over the
+  card's data-sheet peaks (:data:`H100_SXM`).
+"""
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+from collections import OrderedDict
+from concurrent.futures import FIRST_COMPLETED, Future, ThreadPoolExecutor
+from concurrent.futures import wait as futures_wait
+from typing import Any, Callable, Hashable, List, Optional, Sequence, Tuple
+
+from repro_torch.obs import metrics as _metrics
+from repro_torch.obs.trace import tracer as _tracer
+
+__all__ = [
+    "HardwareSpec",
+    "H100_SXM",
+    "RooflineTerms",
+    "RuntimeCost",
+    "ExecutableCache",
+    "CachePartition",
+    "compile_fanout",
+    "roofline_terms",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class HardwareSpec:
+    """Per-card peak numbers for the roofline (data sheet, not measured)."""
+
+    name: str
+    peak_flops: float  # FLOP/s, bf16 / fp16 dense on the tensor cores
+    peak_flops_fp32: float  # FLOP/s, fp32 outside the tensor cores
+    hbm_bw: float  # bytes/s
+
+    def peak_for(self, dtype: str) -> float:
+        """Peak FLOP/s for arithmetic on inputs of ``dtype`` (numpy name)."""
+        return self.peak_flops if dtype in ("bfloat16", "float16") else self.peak_flops_fp32
+
+    def __str__(self) -> str:
+        return self.name
+
+
+#: NVIDIA H100 SXM data sheet: 989 TFLOP/s bf16 dense, 67 TFLOP/s fp32
+#: non-tensor, 3.35 TB/s HBM3 — peaks that assume the 700 W power limit.
+H100_SXM = HardwareSpec("h100-sxm", 989e12, 67e12, 3.35e12)
+
+
+class RuntimeCost:
+    """Wall time of ``fn(*args)`` over ``repeats`` runs (after ``warmup``
+    discarded runs — the `ignore` idea at measurement level); the returned
+    statistic is the ``objective`` over those reps (median by default,
+    ``"p95"``/``"p99"`` for tail-latency tuning — see
+    :data:`repro_torch.core.measure.OBJECTIVES`).
+
+    The per-repeat raw times of the most recent call are kept on
+    :attr:`last_times` (:attr:`last_std` is their sample standard deviation),
+    so callers can surface measurement confidence — ``cost_std`` /
+    ``repeats_spent`` on committed :class:`~repro_torch.tuning.TuningRecord`\\ s —
+    without re-measuring.  Control-flow exceptions (``KeyboardInterrupt``,
+    ``SystemExit``) raised by the measured callable always propagate; they
+    must never be classified into a candidate failure cost by the layers
+    above."""
+
+    def __init__(
+        self, warmup: int = 1, repeats: int = 3, objective: str = "median"
+    ) -> None:
+        from .measure import objective_quantile
+
+        self.warmup = warmup
+        self.repeats = repeats
+        objective_quantile(objective)  # raises on unknown names
+        self.objective = str(objective).strip().lower()
+        self.last_times: list = []  # raw measured reps of the latest call
+
+    def __call__(self, fn: Callable, *args, **kwargs) -> float:
+        from .measure import block_until_ready as block
+
+        self.last_times = []
+        try:
+            for _ in range(self.warmup):
+                block(fn(*args, **kwargs))
+            times = []
+            for _ in range(self.repeats):
+                t0 = time.perf_counter()
+                block(fn(*args, **kwargs))
+                times.append(time.perf_counter() - t0)
+        except (KeyboardInterrupt, SystemExit):
+            # an interrupt mid-measurement is a user action, not a candidate
+            # cost — re-raise before any classifying handler can eat it
+            raise
+        self.last_times = list(times)
+        if self.objective not in ("median", "p50"):
+            from .measure import objective_value
+
+            return objective_value(times, self.objective)
+        times.sort()
+        return times[len(times) // 2]
+
+    @property
+    def last_std(self) -> float:
+        """Sample standard deviation of the latest call's measured reps."""
+        ts = self.last_times
+        if len(ts) < 2:
+            return 0.0
+        mean = sum(ts) / len(ts)
+        return (sum((t - mean) ** 2 for t in ts) / (len(ts) - 1)) ** 0.5
+
+
+# ------------------------------------------------------------ build cache
+class ExecutableCache:
+    """Thread-safe process-level cache of compiled executables.
+
+    Keys are caller-chosen hashables (the tuning layer uses the context
+    fingerprint + decoded knobs).  Values are whatever ``build`` returns —
+    or the exception it raised: an illegal tile stays illegal, so a revisited
+    crashing candidate should not pay a recompile either.  ``cache_failures``
+    (a predicate on the exception) can veto that for failures that may be
+    transient — e.g. RESOURCE_EXHAUSTED under concurrent compile load — so a
+    revisit rebuilds instead of replaying a stale error; ``None`` caches every
+    failure.  Concurrent requests for the same key share one build (per-key
+    future).
+
+    Stats: ``hits`` / ``misses`` count lookups, ``recompiles`` counts builds
+    of a key that had already been built once (only possible after an LRU
+    eviction — the acceptance gate for the batched tuner is that this stays
+    at zero on the smoke grid; an uncached transient failure counts as a
+    plain miss on retry, not a recompile).
+
+    Multi-tenant budgets (default off): ``max_entries`` caps live entries
+    below ``maxsize`` and ``max_bytes`` caps the summed ``size_of(result)``
+    of *completed* builds — both evict least-recently-used completed entries
+    (in-flight builds are never dropped mid-compile: racing waiters hold the
+    future).  Every eviction increments :attr:`evictions` and the process
+    registry counter ``cache.evictions``.
+    """
+
+    def __init__(
+        self,
+        maxsize: int = 1024,
+        *,
+        max_entries: Optional[int] = None,
+        max_bytes: Optional[int] = None,
+        size_of: Optional[Callable[[Any], int]] = None,
+        cache_failures: Optional[Callable[[BaseException], bool]] = None,
+        guard: Optional[Callable[[Callable[[], Any]], Callable[[], Any]]] = None,
+    ) -> None:
+        if maxsize < 1:
+            raise ValueError(f"maxsize must be >= 1, got {maxsize}")
+        if max_entries is not None and max_entries < 1:
+            raise ValueError(f"max_entries must be >= 1, got {max_entries}")
+        if max_bytes is not None and max_bytes < 1:
+            raise ValueError(f"max_bytes must be >= 1, got {max_bytes}")
+        self.maxsize = int(maxsize)
+        self.max_entries = int(max_entries) if max_entries is not None else None
+        self.max_bytes = int(max_bytes) if max_bytes is not None else None
+        self._size_of = size_of
+        self._cache_failures = cache_failures
+        # optional resilience hook: wraps every owner build (e.g.
+        # ``FaultPolicy.wrap`` adds a watchdog timeout + transient retries)
+        # without callers having to wrap each build thunk themselves
+        self._guard = guard
+        self._lock = threading.Lock()
+        self._entries: "OrderedDict[Hashable, Future]" = OrderedDict()
+        self._built: set = set()  # keys ever built (recompile accounting)
+        self._sizes: dict = {}  # key -> size_of(result), completed builds only
+        self._bytes = 0
+        # lookup accounting on the obs metric primitive (repro_torch.obs.metrics):
+        # stats() below is a snapshot of these counters, not a parallel copy
+        self.hits = _metrics.Counter()
+        self.misses = _metrics.Counter()
+        self.recompiles = _metrics.Counter()
+        self.evictions = _metrics.Counter()
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._entries)
+
+    def _evict_one(self, key: Hashable) -> None:
+        # caller holds self._lock
+        del self._entries[key]
+        self._bytes -= self._sizes.pop(key, 0)
+        self.evictions.inc()
+        _metrics.counter("cache.evictions").inc()
+
+    def _enforce_caps(self) -> None:
+        # caller holds self._lock; in-flight builds (no recorded size — their
+        # future is unresolved) are skipped so waiters never lose their build
+        entry_cap = self.maxsize
+        if self.max_entries is not None:
+            entry_cap = min(entry_cap, self.max_entries)
+        while len(self._entries) > entry_cap:
+            victim = next(
+                (k for k in self._entries if k in self._sizes or
+                 self._entries[k].done()),
+                None,
+            )
+            if victim is None:
+                break
+            self._evict_one(victim)
+        if self.max_bytes is not None:
+            while self._bytes > self.max_bytes:
+                victim = next((k for k in self._entries if k in self._sizes), None)
+                if victim is None:
+                    break
+                self._evict_one(victim)
+
+    def get_or_build(self, key: Hashable, build: Callable[[], Any]) -> Any:
+        """Return the cached executable for ``key``, building it (once) on a
+        miss.  Build failures are returned (and cached) as the exception
+        object rather than raised — the measurement layer classifies them."""
+        with self._lock:
+            fut = self._entries.get(key)
+            if fut is not None:
+                self.hits.inc()
+                self._entries.move_to_end(key)
+                owner = False
+            else:
+                fut = Future()
+                self._entries[key] = fut
+                self.misses.inc()
+                if key in self._built:
+                    self.recompiles.inc()
+                self._built.add(key)
+                owner = True
+                self._enforce_caps()
+        if owner:
+            t_build = time.perf_counter()
+            try:
+                run = self._guard(build) if self._guard is not None else build
+                result: Any = run()
+            except Exception as e:  # cached: deterministic for a fixed context
+                result = e
+                _metrics.counter("compile.failed").inc()
+                if self._cache_failures is not None and not self._cache_failures(e):
+                    # possibly transient: answer current waiters with the
+                    # error but drop the entry so a revisit rebuilds
+                    with self._lock:
+                        if self._entries.get(key) is fut:
+                            del self._entries[key]
+                        self._built.discard(key)
+            except BaseException as e:
+                # never cache (e.g. KeyboardInterrupt mid-compile would
+                # poison the key): drop the entry, unblock waiters, propagate
+                with self._lock:
+                    if self._entries.get(key) is fut:
+                        del self._entries[key]
+                    self._built.discard(key)
+                fut.set_result(e)
+                raise
+            if not isinstance(result, BaseException):
+                _metrics.histogram("compile.seconds").observe(
+                    time.perf_counter() - t_build
+                )
+                if self.max_bytes is not None:
+                    size = self._measure_size(result)
+                    with self._lock:
+                        if self._entries.get(key) is fut:
+                            self._bytes += size - self._sizes.get(key, 0)
+                            self._sizes[key] = size
+                            self._enforce_caps()
+            fut.set_result(result)
+        return fut.result()
+
+    def _measure_size(self, result: Any) -> int:
+        """Byte size of one completed build for the ``max_bytes`` budget:
+        the caller's ``size_of`` when given, else a ``sys.getsizeof``
+        floor."""
+        if self._size_of is not None:
+            try:
+                return max(0, int(self._size_of(result)))
+            except Exception:
+                return 0
+        import sys
+
+        try:
+            return int(sys.getsizeof(result))
+        except Exception:
+            return 0
+
+    def peek(self, key: Hashable, default: Any = None) -> Any:
+        """Non-building, non-blocking lookup: the cached value (executable or
+        cached exception object) if the build for ``key`` has *completed*,
+        else ``default``.  Does not count toward hit/miss stats and does not
+        touch LRU order — this is the serving hot path's "is it ready yet?"
+        probe, which must never trigger or wait on a compile."""
+        with self._lock:
+            fut = self._entries.get(key)
+        if fut is not None and fut.done():
+            return fut.result()
+        return default
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {
+                "size": len(self._entries),
+                "bytes": self._bytes,
+                "hits": self.hits.value,
+                "misses": self.misses.value,
+                "recompiles": self.recompiles.value,
+                "evictions": self.evictions.value,
+            }
+
+    def clear(self) -> None:
+        with self._lock:
+            self._entries.clear()
+            self._built.clear()
+            self._sizes.clear()
+            self._bytes = 0
+            for c in (self.hits, self.misses, self.recompiles, self.evictions):
+                c.inc(-c.value)
+
+    def partition(self, tag: Hashable) -> "CachePartition":
+        """A namespaced view of this cache: every key is transparently
+        prefixed with ``tag``.  Fleet workers pinned to different devices
+        compile the *same* candidate into device-specific executables —
+        partitioned views keep those from colliding under one key while
+        still sharing the process-wide LRU budget, stats, and per-key
+        build deduplication."""
+        return CachePartition(self, tag)
+
+
+class CachePartition:
+    """A key-prefixed view over a shared :class:`ExecutableCache` (see
+    :meth:`ExecutableCache.partition`).  Same surface as the base cache;
+    ``stats()``/``clear()`` act on the *shared* underlying cache."""
+
+    def __init__(self, base: ExecutableCache, tag: Hashable) -> None:
+        self.base = base
+        self.tag = tag
+
+    def _key(self, key: Hashable) -> Hashable:
+        return ("__partition__", self.tag, key)
+
+    def get_or_build(self, key: Hashable, build: Callable[[], Any]) -> Any:
+        return self.base.get_or_build(self._key(key), build)
+
+    def peek(self, key: Hashable, default: Any = None) -> Any:
+        return self.base.peek(self._key(key), default)
+
+    def partition(self, tag: Hashable) -> "CachePartition":
+        return CachePartition(self.base, (self.tag, tag))
+
+    def stats(self) -> dict:
+        return self.base.stats()
+
+    def clear(self) -> None:
+        self.base.clear()
+
+    def __len__(self) -> int:
+        return len(self.base)
+
+
+def compile_fanout(
+    items: Sequence[Tuple[Hashable, Callable[[], Any]]],
+    *,
+    cache: Optional[ExecutableCache] = None,
+    jobs: int = 1,
+    deadline: Optional[float] = None,
+    fatal: Optional[Callable[[BaseException], bool]] = None,
+) -> List[Any]:
+    """Compile ``items`` = [(key, build), ...] concurrently, deduped through
+    ``cache``.  Returns one executable-or-exception per item, in order.
+
+    A build's kernel launch and its synchronization run in native code with
+    the GIL released, so a thread pool overlaps them; the Python around each
+    ``build`` stays GIL-bound.
+
+    ``deadline`` bounds the *whole round* in seconds: builds not finished at
+    the deadline are cancelled where possible (never-started futures) or
+    abandoned (in-flight builds keep running in the background and still
+    populate the cache for a later round), and their items come back as
+    :class:`~repro_torch.core.guard.GuardTimeout` failure objects.
+
+    ``fatal`` is a predicate on completed failure results: the first failure
+    it marks fatal cancels every outstanding future and is **raised** instead
+    of returned — a poisoned round (e.g. a TypeError that would hit every
+    candidate identically) fails fast instead of silently draining the
+    executor.  Non-fatal failures keep the classic returned-not-raised
+    contract.
+    """
+    from .guard import GuardTimeout
+
+    if cache is None:
+        cache = ExecutableCache(maxsize=max(len(items), 1))
+    if jobs <= 1 or len(items) <= 1:
+        t0 = time.monotonic()
+        results: List[Any] = []
+        for k, b in items:
+            if deadline is not None and (time.monotonic() - t0) >= deadline:
+                results.append(GuardTimeout(
+                    f"compile round exceeded deadline of {deadline:.3g}s"
+                ))
+                continue
+            # span the build thunk, not the lookup: a cache hit never runs
+            # ``b``, so hits cost no span and the trace shows real compiles
+            r = cache.get_or_build(k, _tracer().wrap(b, "compile"))
+            if fatal is not None and isinstance(r, BaseException) and fatal(r):
+                raise r
+            results.append(r)
+        return results
+    pool = ThreadPoolExecutor(max_workers=min(jobs, len(items)))
+    # wrap() captures *this* thread's current span, so worker-side compile
+    # spans attach to the round that submitted them (pool threads have no
+    # ambient span of their own); wrapping the build thunk rather than the
+    # lookup means cache hits cost no span and the trace shows real compiles
+    tr = _tracer()
+    futs = [pool.submit(cache.get_or_build, k, tr.wrap(b, "compile"))
+            for k, b in items]
+    results = [None] * len(items)
+    pending = {f: i for i, f in enumerate(futs)}
+    try:
+        t0 = time.monotonic()
+        while pending:
+            budget = None
+            if deadline is not None:
+                budget = deadline - (time.monotonic() - t0)
+                if budget <= 0:
+                    break
+            done, _ = futures_wait(
+                list(pending), timeout=budget, return_when=FIRST_COMPLETED
+            )
+            if not done:
+                break  # deadline expired with builds still in flight
+            for f in done:
+                i = pending.pop(f)
+                r = f.result()
+                results[i] = r
+                if fatal is not None and isinstance(r, BaseException) and fatal(r):
+                    for pf in pending:
+                        pf.cancel()
+                    raise r
+        for f, i in pending.items():
+            f.cancel()
+            results[i] = GuardTimeout(
+                f"compile round exceeded deadline of {deadline:.3g}s"
+            )
+    finally:
+        # never wait: a hung build must not block the round past its deadline
+        pool.shutdown(wait=False)
+    return results
+
+
+# ----------------------------------------------------------------- roofline
+@dataclasses.dataclass
+class RooflineTerms:
+    """The two single-card roofline terms of one kernel call, in seconds."""
+
+    compute_s: float
+    memory_s: float
+    flops: float
+    bytes_accessed: float
+    hw: HardwareSpec
+
+    @property
+    def dominant(self) -> str:
+        """``"operations"`` or ``"bytes"``: the side that sets the bound."""
+        return "operations" if self.compute_s >= self.memory_s else "bytes"
+
+    @property
+    def bound_s(self) -> float:
+        return max(self.compute_s, self.memory_s)
+
+
+def roofline_terms(
+    flops: float, nbytes: float, dtype: str, hw: HardwareSpec = H100_SXM
+) -> RooflineTerms:
+    """Analytic roofline of a call that does ``flops`` operations on
+    ``dtype`` inputs and must move ``nbytes`` (each input read once, each
+    output written once): the least time the card could take."""
+    return RooflineTerms(
+        compute_s=float(flops) / hw.peak_for(dtype),
+        memory_s=float(nbytes) / hw.hbm_bw,
+        flops=float(flops),
+        bytes_accessed=float(nbytes),
+        hw=hw,
+    )

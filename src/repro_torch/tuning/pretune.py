@@ -1,0 +1,374 @@
+"""Offline pre-tuning sweep — fill the tuning DB before anyone pays online.
+
+    PYTHONPATH=src python -m repro_torch.tuning.pretune --db tuned/cuda.json --smoke
+    PYTHONPATH=src python -m repro_torch.tuning.pretune --db tuned/cuda.json \
+        --kernel matmul --kernel flash_attention
+    PYTHONPATH=src python -m repro_torch.tuning.pretune --db tuned/cuda.json --list
+    PYTHONPATH=src python -m repro_torch.tuning.pretune --db /tmp/p.json --smoke --interpret
+
+The sweep runs the CUDA kernels on the card.  ``--interpret`` asks for the
+CPU instead: the kernels' plain PyTorch versions on CPU tensors, keyed
+``{"interpret": true}`` like the JAX package's interpret-mode records.
+Without ``--interpret`` and without a card the sweep stops with an error;
+it never carries on on the CPU.
+
+Sweeps the registered (kernel, shape) grid (matmul and flash attention;
+inputs made from numpy seeds), runs the PATSMA search per context, and
+commits every record atomically.  A context already in the DB is an exact
+hit: it replays with zero measurements, and the run summary counts it.
+``--measure adaptive`` (the default) races each round's candidates;
+``--measure fixed`` keeps the classic ``RuntimeCost`` fixed-repeat loop.
+
+**Fleet sharding**: ``--shard i/n`` keeps only the contexts whose stable
+fingerprint hash lands in shard ``i``; n workers with shards 0..n-1
+partition the grid exactly, with zero coordination, and
+:func:`repro_torch.tuning.fleet.merge_dbs` folds their DBs.
+``--no-warm-start`` removes sweep-order dependence.
+
+**Crash resume**: every sweep writes a write-ahead journal next to the DB
+(``<db>.journal`` — one fsynced JSONL event per case).  A worker killed
+mid-sweep restarts with ``--resume`` and re-measures nothing already
+completed.
+
+``--list`` prints the grid with each case's DB status (exact hit / warm
+neighbor / cold) without tuning anything, and ``--only <glob>`` restricts a
+sweep to matching cases.  Not ported yet: ``--launch`` (launch-level
+tuning), ``--strategy`` (search strategy specs) and ``--cost analytic``.
+"""
+from __future__ import annotations
+
+import argparse
+import fnmatch
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+
+def _cases(smoke: bool, device, abstract: bool = False):
+    """(kernel name, case label, thunk building the call args) grid.  Thunks
+    defer tensor construction so filtering never materializes unused inputs.
+    ``abstract=True`` yields meta tensors — enough for fingerprints and
+    search spaces (both read only shape/dtype), so ``--list`` allocates
+    nothing."""
+    if abstract:
+        def rnd(seed, shape):
+            return torch.empty(shape, dtype=torch.float32, device="meta")
+    else:
+        def rnd(seed, shape):
+            x = np.random.RandomState(seed).standard_normal(shape).astype(np.float32)
+            return torch.from_numpy(x).to(device)
+
+    if smoke:
+        mm_shapes = [(64, 64, 64), (128, 128, 128)]
+        fa_shapes = [(1, 2, 2, 64, 16)]
+    else:
+        mm_shapes = [(128,) * 3, (256,) * 3, (512, 512, 256)]
+        fa_shapes = [(1, 2, 2, 64, 16), (1, 4, 2, 128, 32), (2, 4, 4, 256, 32)]
+
+    cases = []
+    for m, n, k in mm_shapes:
+        cases.append(
+            ("matmul", f"{m}x{n}x{k}",
+             lambda m=m, n=n, k=k: (rnd(0, (m, k)), rnd(1, (k, n))))
+        )
+    for b, h, kh, s, hd in fa_shapes:
+        cases.append(
+            (
+                "flash_attention",
+                f"b{b}h{h}kh{kh}s{s}d{hd}",
+                lambda b=b, h=h, kh=kh, s=s, hd=hd: (
+                    rnd(0, (b, s, h, hd)),
+                    rnd(1, (b, kh, s, hd)),
+                    rnd(2, (b, kh, s, hd)),
+                ),
+            )
+        )
+    return cases
+
+
+def _case_key(name: str, call_args, interpret: bool, device: tuple):
+    """The context fingerprint :func:`tune_call` computes for this case,
+    with ``device`` = (backend, device_kind) given explicitly so meta-tensor
+    stand-ins key like the real inputs."""
+    from repro_torch.kernels.autotuned import get_spec
+    from repro_torch.tuning import make_key
+
+    space = get_spec(name).space(*call_args)
+    return make_key(name, args=call_args, space=space,
+                    extra={"interpret": bool(interpret)},
+                    backend=device[0], device_kind=device[1])
+
+
+def _selected(cases, wanted, only):
+    """Filter the grid by --kernel names and --only globs (case ids match as
+    ``kernel`` or ``kernel/label``)."""
+    out = []
+    for name, label, build in cases:
+        if wanted is not None and name not in wanted:
+            continue
+        case_id = f"{name}/{label}"
+        if only and not any(
+            fnmatch.fnmatch(case_id, pat) or fnmatch.fnmatch(name, pat)
+            for pat in only
+        ):
+            continue
+        out.append((name, label, build))
+    return out
+
+
+def _space_size_str(space) -> str:
+    """`size=raw/feasible` — the resolved product-space size and what is left
+    after the validity predicates prune (equal when unconstrained)."""
+    raw = space.size()
+    if raw is None:
+        return "size=∞"
+    feas = space.constrained_size()
+    return f"size={raw}/{feas if feas is not None else '?'}"
+
+
+def _list_grid(cases, db, interpret: bool, device: tuple) -> int:
+    """Print each case with its resolved space size and DB status: exact
+    hit, warm neighbor, or cold."""
+    from repro_torch.kernels.autotuned import get_spec
+
+    for name, label, build in cases:
+        call_args = build()
+        space = get_spec(name).space(*call_args)
+        key = _case_key(name, call_args, interpret, device)
+        rec, exact = db.lookup(key)
+        case_id = f"{name}/{label}"
+        case_id = f"{case_id:<28} {_space_size_str(space):<14}"
+        if exact:
+            print(f"  {case_id:<42} HIT   best={rec.point} "
+                  f"cost={rec.cost * 1e3:.2f}ms source={rec.source}")
+        elif rec is not None and key.distance(rec.key) != float("inf"):
+            print(f"  {case_id:<42} warm  neighbor={rec.point} "
+                  f"(shapes {rec.key.shapes()})")
+        else:
+            print(f"  {case_id:<42} cold")
+    return 0
+
+
+def main(argv=None, prog: str = "repro_torch.tuning.pretune") -> int:
+    ap = argparse.ArgumentParser(
+        prog=prog, description="offline tuning sweep -> JSON DB"
+    )
+    ap.add_argument("--db", type=str, default="tuned/cuda.json", help="DB file to fill")
+    ap.add_argument("--smoke", action="store_true", help="tiny grid + budget (CI lane)")
+    ap.add_argument(
+        "--kernel", action="append", default=None, help="restrict to kernel(s); repeatable"
+    )
+    ap.add_argument(
+        "--only", action="append", default=None, metavar="GLOB",
+        help="restrict to matching cases, e.g. 'matmul/128*'; repeatable",
+    )
+    ap.add_argument(
+        "--list", action="store_true", dest="list_grid",
+        help="print the registered grid with DB hit status; tune nothing",
+    )
+    ap.add_argument("--num-opt", type=int, default=3, help="CSA coupled solvers")
+    ap.add_argument("--max-iter", type=int, default=None, help="CSA iterations (default 2 smoke / 4)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument(
+        "--interpret", action="store_true",
+        help="run the kernels' plain PyTorch versions on the CPU instead of the CUDA kernels",
+    )
+    ap.add_argument(
+        "--jobs", type=int, default=None,
+        help="concurrent candidate builds per tuning round (default: REPRO_TUNE_JOBS or cpu count)",
+    )
+    ap.add_argument(
+        "--measure", choices=("adaptive", "fixed"), default=None,
+        help="measurement policy: adaptive racing + roofline prefilter, or the "
+             "classic fixed-repeat loop (default: REPRO_TUNE_MEASURE or adaptive)",
+    )
+    ap.add_argument(
+        "--objective", choices=("median", "p95", "p99"), default=None,
+        help="statistic a candidate's measured repetitions reduce to "
+             "(default median — classic PATSMA; p95/p99 tune for tail latency)",
+    )
+    ap.add_argument(
+        "--shard", type=str, default=None, metavar="I/N",
+        help="tune only this worker's deterministic slice of the grid "
+             "(stable context-fingerprint hash mod N)",
+    )
+    ap.add_argument(
+        "--no-warm-start", action="store_true",
+        help="disable DB neighbor seeding: each context's search is "
+             "independent of sweep order and of what the DB already holds",
+    )
+    ap.add_argument(
+        "--obs-dir", type=str, default=None, metavar="DIR",
+        help="write observability artifacts (events.jsonl, trace.json, "
+             "metrics.json) into DIR (default: the REPRO_OBS env var, else off)",
+    )
+    ap.add_argument(
+        "--resume", action="store_true",
+        help="resume a killed sweep from its run journal (<db>.journal): "
+             "cases already committed or failed are skipped",
+    )
+    args = ap.parse_args(argv)
+
+    from repro_torch import obs
+    from repro_torch.kernels.autotuned import exec_cache, registered, tune_call
+    from repro_torch.tuning import RunJournal, TuningDB
+
+    interpret = bool(args.interpret)
+    if interpret:
+        device = torch.device("cpu")
+        dev_key = ("cpu", "cpu")
+    else:
+        if not torch.cuda.is_available():
+            print("pretune: no CUDA device: the sweep runs the CUDA kernels on the card "
+                  "(pass --interpret for the plain versions on the CPU)", file=sys.stderr)
+            return 1
+        device = torch.device("cuda", torch.cuda.current_device())
+        dev_key = ("cuda", torch.cuda.get_device_name(device))
+
+    wanted = set(args.kernel) if args.kernel else None
+    unknown = (wanted or set()) - set(registered())
+    if unknown:
+        print(f"pretune: unknown kernel(s) {sorted(unknown)}", file=sys.stderr)
+        return 2
+
+    if args.obs_dir:
+        obs.configure(args.obs_dir)
+    else:
+        obs.configure_from_env()
+
+    max_iter = args.max_iter if args.max_iter is not None else (2 if args.smoke else 4)
+    db = TuningDB(args.db)
+    print(f"pretune: db={args.db} ({len(db)} records) device={dev_key[0]}/{dev_key[1]}")
+
+    cases = _selected(_cases(args.smoke, device, abstract=args.list_grid), wanted, args.only)
+    if not cases:
+        print("pretune: no cases match the given filters", file=sys.stderr)
+        return 2
+    if args.shard is not None:
+        from repro_torch.tuning.fleet import in_shard, parse_shard
+
+        index, num = parse_shard(args.shard)
+        total = len(cases)
+        abstract = {
+            (n, label): build
+            for n, label, build in _selected(_cases(args.smoke, device, abstract=True),
+                                             wanted, args.only)
+        }
+        cases = [
+            (n, label, build) for n, label, build in cases
+            if in_shard(_case_key(n, abstract[(n, label)](), interpret, dev_key), index, num)
+        ]
+        print(f"pretune: shard {index}/{num}: {len(cases)}/{total} cases")
+        if not cases:
+            # an empty shard is a fleet worker with nothing to do, not an error
+            db.save()
+            return 0
+    if args.list_grid:
+        return _list_grid(cases, db, interpret, dev_key)
+
+    # write-ahead run journal: 'start' before each case's measurement,
+    # 'commit'/'failed' after — a killed shard restarts with --resume
+    # re-measuring nothing already completed
+    jpath = RunJournal.path_for(args.db)
+    done_keys: set = set()
+    if args.resume:
+        journal = RunJournal(jpath)
+        s = journal.summary()
+        done_keys = set(s["committed"]) | set(s["failed"])
+        if s["committed"]:
+            db.merge(journal.to_db())  # even a DB save torn by the kill is rebuilt
+        journal.resume()
+        print(
+            f"pretune: resume from {jpath}: {len(s['committed'])} committed, "
+            f"{len(s['failed'])} failed, {len(s['interrupted'])} interrupted; "
+            f"skipping {len(done_keys)} completed cases"
+        )
+    else:
+        if os.path.exists(jpath):
+            os.remove(jpath)  # a fresh sweep owns a fresh journal
+        journal = RunJournal(jpath)
+
+    n_done = n_hits = n_skipped = 0
+    t_all = time.perf_counter()
+    totals = {"reps": 0, "warmup_reps": 0, "calibration_reps": 0,
+              "culled": 0, "pruned_roofline": 0, "measured": 0, "failed": 0}
+    sweep_span = obs.span("pretune", cases=len(cases))
+    sweep_span.__enter__()
+    try:
+        for name, label, build in cases:
+            call_args = build()
+            key = _case_key(name, call_args, interpret, dev_key)
+            if key.encode() in done_keys:
+                n_skipped += 1
+                continue
+            _, exact = db.lookup(key)
+            t0 = time.perf_counter()
+            mstats: dict = {}
+            journal.start(key)
+            rec = tune_call(
+                name,
+                *call_args,
+                db=db,
+                interpret=interpret,
+                num_opt=args.num_opt,
+                max_iter=max_iter,
+                seed=args.seed,
+                jobs=args.jobs,
+                source="pretune",
+                measure=args.measure,
+                measure_stats=mstats,
+                objective=args.objective,
+                warm_start=not args.no_warm_start,
+            )
+            dt = time.perf_counter() - t0
+            for k in totals:
+                totals[k] += int(mstats.get(k, 0))
+            if rec is None:
+                journal.failed(key, "every candidate failed")
+                print(f"  {name}/{label}: every candidate failed; nothing stored ({dt:.1f}s)",
+                      file=sys.stderr)
+                continue
+            journal.commit(key, rec)
+            n_hits += bool(exact and not args.no_warm_start)
+            crashed = f" crashed={rec.crashed}" if rec.crashed else ""
+            obj = f" objective={rec.objective}" if rec.objective and rec.objective != "median" else ""
+            raced = ""
+            if mstats.get("mode") == "adaptive" and mstats.get("measured"):
+                raced = (f" reps={mstats['reps']}"
+                         f" culled={mstats['culled']}"
+                         f" pruned={mstats['pruned_roofline']}")
+            hit = " exact-hit" if exact and not args.no_warm_start else ""
+            print(
+                f"  {name}/{label}: best={rec.point} cost={rec.cost * 1e3:.4f}ms "
+                f"evals={rec.evals}{crashed}{obj}{raced}{hit} ({dt:.1f}s)"
+            )
+            n_done += 1
+        db.save()
+        cs = exec_cache().stats()
+        skipped = f", {n_skipped} resumed-as-done" if n_skipped else ""
+        print(
+            f"pretune: {n_done} contexts tuned ({n_hits} exact hits, {n_done - n_hits} searched)"
+            f"{skipped}, {len(db)} records in {args.db} "
+            f"({time.perf_counter() - t_all:.1f}s); exec cache: {cs['misses']} builds, "
+            f"{cs['hits']} hits, {cs['recompiles']} rebuilds"
+        )
+        if totals["measured"] or totals["reps"]:
+            print(
+                f"pretune: measurement: {totals['reps']} reps "
+                f"(+{totals['warmup_reps']} warmup, {totals['calibration_reps']} "
+                f"calibration) over {totals['measured']} candidates; "
+                f"{totals['culled']} culled by racing, "
+                f"{totals['pruned_roofline']} roofline-pruned, "
+                f"{totals['failed']} failed"
+            )
+        return 0
+    finally:
+        sweep_span.__exit__(None, None, None)
+        obs.shutdown()
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,133 @@
+"""The port's CUDA kernels on the card (``cuda`` marker; each test skips
+without a card).  This file imports neither JAX nor ``repro``, so it runs on
+a machine that has only PyTorch:
+
+    python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+The kernels are held against their plain PyTorch versions on the same
+inputs: fp32 at atol=rtol=1e-5 (the same fp32 arithmetic summed in another
+order), bf16 at 2e-2 (plus output rounding).
+"""
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import matmul as tmm
+from repro_torch.kernels import ops
+from repro_torch.kernels.autotuned import autotuned, get_spec, tune_call
+from repro_torch.tuning import TuningDB
+
+TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def _card() -> torch.device:
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _randn(seed, shape, dtype, dev, scale=1.0):
+    x = np.random.RandomState(seed).standard_normal(shape).astype(np.float32) * scale
+    return torch.from_numpy(x).to(dtype).to(dev)
+
+
+def _close(got, want):
+    tol = TOL[got.dtype]
+    torch.testing.assert_close(got.float().cpu(), want.float().cpu(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bm,bn,bk", [(32, 32, 32), (64, 32, 96), (128, 64, 48), (16, 64, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_matmul_kernel_matches_plain(dtype, bm, bn, bk):
+    dev = _card()
+    a = _randn(0, (256, 192), dtype, dev)
+    b = _randn(1, (192, 128), dtype, dev, 1.0 / math.sqrt(192))
+    before = tmm.launches
+    got = ops.matmul(a, b, bm=bm, bn=bn, bk=bk)
+    assert tmm.launches == before + 1 and got.dtype == dtype and got.is_cuda
+    _close(got, tmm.matmul_plain(a, b, bm=bm, bn=bn, bk=bk))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Kh,Sq,Skv,hd,bq,bkv", [
+    (1, 2, 2, 32, 32, 16, 16, 16),
+    (2, 4, 2, 64, 64, 32, 32, 16),
+    (1, 8, 1, 64, 64, 16, 16, 64),
+    (1, 2, 1, 128, 128, 64, 64, 32),
+    (1, 4, 2, 32, 64, 128, 16, 32),  # Sq != Skv: top-left causal alignment
+])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain(dtype, causal, B, H, Kh, Sq, Skv, hd, bq, bkv):
+    dev = _card()
+    q = _randn(2, (B, Sq, H, hd), dtype, dev)
+    k = _randn(3, (B, Kh, Skv, hd), dtype, dev)
+    v = _randn(4, (B, Kh, Skv, hd), dtype, dev)
+    before = tfa.launches
+    got = ops.flash_attention(q, k, v, causal=causal, block_q=bq, block_kv=bkv)
+    assert tfa.launches == before + 1 and got.shape == q.shape
+    want = tfa.flash_attention_plain(q.transpose(1, 2), k, v, causal=causal,
+                                     block_q=bq, block_kv=bkv).transpose(1, 2)
+    _close(got, want)
+
+
+@pytest.mark.cuda
+def test_oversized_tiles_raise_before_any_launch():
+    dev = _card()
+    a = _randn(0, (512, 512), torch.bfloat16, dev)
+    before = tmm.launches
+    with pytest.raises(ValueError, match="shared memory|accumulators"):
+        ops.matmul(a, a, bm=256, bn=256, bk=256)
+    with pytest.raises(ValueError, match="interpret=True"):
+        ops.matmul(a, a, interpret=True)
+    assert tmm.launches == before
+    q = _randn(1, (1, 512, 2, 128), torch.bfloat16, dev)
+    kv = _randn(2, (1, 2, 512, 128), torch.bfloat16, dev)
+    with pytest.raises(ValueError, match="threads"):
+        ops.flash_attention(q, kv, kv, block_q=512, block_kv=64)
+    torch.cuda.synchronize()  # the context is still healthy
+    ops.matmul(a, a, bm=64, bn=64, bk=64)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_tune_then_replay_launches_once(tmp_path):
+    dev = _card()
+    a = _randn(5, (128, 128), torch.float32, dev)
+    b = _randn(6, (128, 128), torch.float32, dev)
+    rec = tune_call("matmul", a, b, db=TuningDB(str(tmp_path / "db.json")), max_iter=2)
+    assert rec.key.backend == "cuda" and rec.key.device_kind == torch.cuda.get_device_name(dev)
+    before = tmm.launches
+    out = autotuned("matmul", a, b, db=TuningDB(str(tmp_path / "db.json")))
+    assert tmm.launches == before + 1
+    assert torch.equal(out, get_spec("matmul").fn(a, b, **rec.point))
+
+
+@pytest.mark.cuda
+def test_fixed_policy_times_no_other_candidates_launches():
+    """With several build threads, every rep of the fixed policy sees exactly
+    its own launch on the card: the round's warm launches all finished."""
+    dev = _card()
+    a = _randn(7, (1024, 1024), torch.float32, dev)
+    b = _randn(8, (1024, 1024), torch.float32, dev, 1.0 / 32)
+    extra = []
+
+    def cost(ex, *args):
+        torch.cuda.synchronize()
+        before = tmm.launches
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        ex(*args)
+        e1.record()
+        torch.cuda.synchronize()
+        extra.append(tmm.launches - before - 1)
+        return e0.elapsed_time(e1)
+
+    rec = tune_call("matmul", a, b, db=TuningDB(None), measure="fixed", jobs=4, cost_fn=cost,
+                    max_iter=4)
+    assert rec is not None and math.isfinite(rec.cost) and extra
+    assert extra == [0] * len(extra)
