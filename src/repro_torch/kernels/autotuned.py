@@ -59,6 +59,7 @@ from repro_torch.tuning import TuningDB, default_db, make_key
 from repro_torch.tuning.records import signature_of
 
 from . import flash_attention as _fa
+from . import linear_scan as _ls
 from . import matmul as _mm
 from . import ops
 
@@ -86,6 +87,9 @@ class KernelSpec:
     space: Callable  # space(*args, **kwargs) -> SearchSpace over the knobs
     defaults: Callable  # defaults(*args, **kwargs) -> dict of knob values
     work: Callable  # work(*args, **kwargs) -> (FLOP, bytes) of one call
+    # the dtype the arithmetic runs in, for the roofline's peak; None means
+    # the first input's (the scans take bf16 inputs and compute in fp32)
+    arith_dtype: Optional[str] = None
 
 
 _REGISTRY: dict = {}
@@ -164,13 +168,40 @@ register(
     )
 )
 
+register(
+    KernelSpec(
+        name="lru_scan",
+        fn=ops.lru_scan,
+        # a,b: (B,T,D); h0: (B,D)
+        space=lambda a, b, h0: SearchSpace([_log_dim("chunk", a.shape[1], 16, 256)]),
+        defaults=lambda a, b, h0: {"chunk": min(128, _pow2_floor(a.shape[1]))},
+        work=_ls.lru_flops_bytes,
+        arith_dtype="float32",
+    )
+)
+
+register(
+    KernelSpec(
+        name="rwkv_scan",
+        fn=ops.rwkv_scan,
+        # r,k,v,lw: (B,T,H,hd); u: (H,hd); s0: (B,H,hd,hd)
+        space=lambda r, k, v, lw, u, s0: SearchSpace(
+            [_log_dim("chunk", r.shape[1], 16, 128)]
+        ),
+        defaults=lambda r, k, v, lw, u, s0: {"chunk": min(64, _pow2_floor(r.shape[1]))},
+        work=_ls.rwkv_flops_bytes,
+        arith_dtype="float32",
+    )
+)
+
 
 def roofline(name: str, *args, **kwargs):
     """:class:`~repro_torch.core.costs.RooflineTerms` of one call of kernel
-    ``name`` on the H100 (analytic FLOP and byte counts over the data-sheet
-    peaks for the inputs' dtype)."""
-    flops, nbytes = get_spec(name).work(*args, **kwargs)
-    dtype = signature_of(args[:1])[0][1]
+    ``name`` on the H100: analytic FLOP and byte counts over the data-sheet
+    peaks for the spec's ``arith_dtype``, else the first input's dtype."""
+    spec = get_spec(name)
+    flops, nbytes = spec.work(*args, **kwargs)
+    dtype = spec.arith_dtype or signature_of(args[:1])[0][1]
     return roofline_terms(flops, nbytes, dtype, H100_SXM)
 
 

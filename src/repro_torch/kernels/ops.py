@@ -15,9 +15,10 @@ import torch
 
 from . import ref
 from .flash_attention import flash_attention_fwd
+from .linear_scan import LRU_BLOCK_D, lru_scan_chunked, rwkv_scan_chunked
 from .matmul import matmul_tiled
 
-__all__ = ["flash_attention", "matmul"]
+__all__ = ["flash_attention", "rwkv_scan", "lru_scan", "matmul"]
 
 
 # ---------------------------------------------------------- flash attention
@@ -47,6 +48,51 @@ class _Flash(torch.autograd.Function):
 def flash_attention(q, k, v, *, causal=True, block_q=128, block_kv=128, interpret=False):
     """q: (B,Sq,H,hd); k/v: (B,Kh,Skv,hd) -> (B,Sq,H,hd)."""
     return _Flash.apply(q, k, v, causal, block_q, block_kv, interpret)
+
+
+# ----------------------------------------------------------------- rwkv scan
+class _Rwkv(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, r, k, v, lw, u, s0, chunk, interpret):
+        ctx.save_for_backward(r, k, v, lw, u, s0)
+        return rwkv_scan_chunked(r, k, v, lw, u, s0, chunk=chunk, interpret=interpret)
+
+    @staticmethod
+    def backward(ctx, gy, gs):
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(True) for t in saved]
+            outs = ref.rwkv_scan_ref(*leaves)
+            grads = torch.autograd.grad(outs, leaves, (gy, gs), allow_unused=True)
+        return (*grads, None, None)
+
+
+def rwkv_scan(r, k, v, lw, u, s0, *, chunk=64, interpret=False):
+    """WKV scan: r,k,v,lw (B,T,H,hd); u (H,hd); s0 (B,H,hd,hd)."""
+    return _Rwkv.apply(r, k, v, lw, u, s0, chunk, interpret)
+
+
+# ------------------------------------------------------------------ lru scan
+class _Lru(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b, h0, chunk, block_d, interpret):
+        ctx.save_for_backward(a, b, h0)
+        return lru_scan_chunked(a, b, h0, chunk=chunk, block_d=block_d, interpret=interpret)
+
+    @staticmethod
+    def backward(ctx, ghs, ghT):
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(True) for t in saved]
+            outs = ref.lru_scan_ref(*leaves)
+            grads = torch.autograd.grad(outs, leaves, (ghs, ghT), allow_unused=True)
+        return (*grads, None, None, None)
+
+
+def lru_scan(a, b, h0, *, chunk=128, block_d=LRU_BLOCK_D, interpret=False):
+    """First-order scan h_t = a_t h_{t-1} + b_t.  a,b: (B,T,D); h0: (B,D).
+    Unlike the JAX wrapper, ``block_d`` reaches the kernel."""
+    return _Lru.apply(a, b, h0, chunk, block_d, interpret)
 
 
 # -------------------------------------------------------------------- matmul

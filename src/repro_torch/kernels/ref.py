@@ -1,9 +1,11 @@
 """Plain PyTorch oracles for the ported kernels (the ``ref.py`` contract).
 
-Counterparts of the JAX package's ``kernels/ref.py`` for the two kernels of
-this slice: independent of the kernels' tiling, so the tests hold both the
-plain versions in ``matmul.py`` / ``flash_attention.py`` and, on the card,
-the CUDA kernels against them.
+Counterparts of the JAX package's ``kernels/ref.py`` for the ported
+kernels: independent of the kernels' tiling and staging, so the tests hold
+both the plain versions in the kernel modules and, on the card, the CUDA
+kernels against them.  The two scan oracles are the exact per-token
+recurrences; ``models/rglru.py`` and ``models/rwkv6.py`` use them as their
+decode (T = 1) step, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -11,7 +13,7 @@ import math
 
 import torch
 
-__all__ = ["flash_attention_ref", "matmul_ref"]
+__all__ = ["flash_attention_ref", "matmul_ref", "lru_scan_ref", "rwkv_scan_ref"]
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True):
@@ -37,3 +39,28 @@ def flash_attention_ref(q, k, v, *, causal: bool = True):
 def matmul_ref(a, b):
     """(M,K) @ (K,N) with fp32 accumulation, cast back to ``a.dtype``."""
     return (a.float() @ b.float()).to(a.dtype)
+
+
+def lru_scan_ref(a, b, h0):
+    """Exact per-token scan h_t = a_t h_{t-1} + b_t.  a, b: (B,T,D); h0: (B,D).
+    Returns (hs (B,T,D), hT (B,D)) in the dtype the products promote to."""
+    h, hs = h0, []
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1), h
+
+
+def rwkv_scan_ref(r, k, v, lw, u, s0):
+    """Exact RWKV-6 WKV recurrence, per token, in fp32.
+
+    r, k, v, lw: (B,T,H,hd), lw = log decay (<= 0); u: (H,hd);
+    s0: (B,H,hd,hd) -> y: (B,T,H,hd) in ``r.dtype``, sT: (B,H,hd,hd) fp32."""
+    rf, kf, vf, lwf = (x.float() for x in (r, k, v, lw))
+    uf = u.float()
+    S, ys = s0.float(), []
+    for t in range(r.shape[1]):
+        akv = kf[:, t, :, :, None] * vf[:, t, :, None, :]  # (B,H,hd,hd)
+        ys.append(torch.einsum("bhk,bhkv->bhv", rf[:, t], S + uf[None, :, :, None] * akv))
+        S = torch.exp(lwf[:, t])[..., :, None] * S + akv
+    return torch.stack(ys, dim=1).to(r.dtype), S

@@ -1,0 +1,145 @@
+"""Attention: GQA/MQA/MHA, causal + sliding-window, KV cache.
+
+Port of the JAX package's ``models/attention.py`` (self-attention; the
+cross-attention of encoder–decoder and VLM models waits for a later slice).
+
+Cache layout (per attention instance):
+    {"k": (B, Kh, W, hd), "v": (B, Kh, W, hd), "pos": (W,) int64}
+``W`` = window size for local-attention layers (a ring buffer) else the
+maximum sequence length.  ``pos`` holds the absolute position stored in each
+slot (-1 = empty) and drives causal/window masking in prefill and decode
+alike.  The batch advances in lockstep (one shared position per step).
+Where the JAX package returns a new cache (``at[].set``), the port writes
+the cache in place and returns the same dict.
+
+The plain path (:func:`_sdpa`) is einsum + softmax in fp32, which the JAX
+package leaves to XLA.  Under ``attn_impl="cuda"``, full-sequence attention
+without a cache and without a window runs the ported flash kernel.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import ops as kops
+
+from .config import ExecConfig, ModelConfig
+from .layers import Init, linear_apply, linear_init, rope_apply
+
+__all__ = ["attn_init", "attn_apply", "init_attn_cache"]
+
+NEG_INF = -1e30
+
+
+def attn_init(ini: Init, cfg: ModelConfig) -> dict:
+    d, hd = cfg.d_model, cfg.d_head
+    return {
+        "wq": linear_init(ini, d, cfg.n_heads * hd, bias=cfg.qkv_bias),
+        "wk": linear_init(ini, d, cfg.n_kv_heads * hd, bias=cfg.qkv_bias),
+        "wv": linear_init(ini, d, cfg.n_kv_heads * hd, bias=cfg.qkv_bias),
+        "wo": linear_init(ini, cfg.n_heads * hd, d),
+    }
+
+
+def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int, *, window: int = 0,
+                    device=None) -> dict:
+    w = min(window, max_len) if window > 0 else max_len
+    shape = (batch, cfg.n_kv_heads, w, cfg.d_head)
+    dt = getattr(torch, cfg.compute_dtype)
+    return {
+        "k": torch.zeros(shape, dtype=dt, device=device),
+        "v": torch.zeros(shape, dtype=dt, device=device),
+        "pos": torch.full((w,), -1, dtype=torch.int64, device=device),
+    }
+
+
+def _mask(q_pos, kv_pos, *, causal: bool, window: int):
+    """(Sq, Skv) bool validity mask from absolute positions."""
+    valid = (kv_pos[None, :] >= 0).expand(q_pos.shape[0], kv_pos.shape[0])
+    if causal:
+        valid = valid & (kv_pos[None, :] <= q_pos[:, None])
+    if window > 0:
+        valid = valid & (q_pos[:, None] - kv_pos[None, :] < window)
+    return valid
+
+
+def _sdpa(q, k, v, mask) -> torch.Tensor:
+    """q: (B,Sq,H,hd), k/v: (B,Kh,Skv,hd), mask: (Sq,Skv) -> (B,Sq,H,hd).
+    fp32 scores and softmax; GQA via head grouping."""
+    B, Sq, H, hd = q.shape
+    Kh = k.shape[1]
+    g = H // Kh
+    qh = q.reshape(B, Sq, Kh, g, hd)
+    scores = torch.einsum("bqkgh,bksh->bkgqs", qh.float(), k.float())
+    scores = scores * (1.0 / math.sqrt(hd))
+    scores = torch.where(mask[None, None, None], scores, torch.full((), NEG_INF, device=q.device))
+    p = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgqs,bksh->bqkgh", p, v)
+    return out.reshape(B, Sq, H, hd)
+
+
+def _sdpa_flash(q, k, v, *, causal: bool, exec_cfg: ExecConfig) -> torch.Tensor:
+    """Flash-attention kernel path (full sequence, no cache, no window)."""
+    return kops.flash_attention(q, k, v, causal=causal, block_q=exec_cfg.block_q,
+                                block_kv=exec_cfg.block_kv, interpret=exec_cfg.interpret)
+
+
+def attn_apply(
+    cfg: ModelConfig,
+    p: dict,
+    x: torch.Tensor,
+    *,
+    q_pos: torch.Tensor,  # (Sq,) absolute positions of the query tokens
+    cache: Optional[dict] = None,
+    causal: bool = True,
+    window: int = 0,
+    exec_cfg: ExecConfig = ExecConfig(),
+) -> Tuple[torch.Tensor, Optional[dict]]:
+    """Self-attention with an optional KV cache.
+
+    Modes:
+      * train/encode: ``cache=None`` — full-sequence self-attention.
+      * prefill:      ``cache=empty``, Sq > 1 — fills the cache.
+      * decode:       ``cache=filled``, Sq = 1 — appends one step.
+    """
+    B, Sq, D = x.shape
+    H, Kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    q = linear_apply(p["wq"], x).reshape(B, Sq, H, hd)
+    kc = linear_apply(p["wk"], x).reshape(B, Sq, Kh, hd)
+    vc = linear_apply(p["wv"], x).reshape(B, Sq, Kh, hd)
+    q = rope_apply(q, q_pos, cfg.rope_theta)
+    kc = rope_apply(kc, q_pos, cfg.rope_theta)
+    kc = kc.transpose(1, 2)  # (B,Kh,Sq,hd)
+    vc = vc.transpose(1, 2)
+
+    if cache is None:  # ------------------------------------- train / encode
+        if exec_cfg.attn_impl == "cuda" and window == 0:
+            out = _sdpa_flash(q, kc, vc, causal=causal, exec_cfg=exec_cfg)
+        else:
+            out = _sdpa(q, kc, vc, _mask(q_pos, q_pos, causal=causal, window=window))
+        return linear_apply(p["wo"], out.reshape(B, Sq, H * hd)), None
+
+    # ------------------------------------------------- prefill / decode step
+    W = cache["k"].shape[2]
+    if Sq > 1:
+        # prefill: attend over the in-flight full sequence (correct even when
+        # Sq > W), then persist only the last W entries into the ring
+        out = _sdpa(q, kc, vc, _mask(q_pos, q_pos, causal=causal, window=window))
+        if Sq > W:
+            kc, vc, q_pos = kc[:, :, Sq - W:], vc[:, :, Sq - W:], q_pos[Sq - W:]
+        slots = torch.remainder(q_pos, W)
+        cache["k"][:, :, slots] = kc
+        cache["v"][:, :, slots] = vc
+        cache["pos"][slots] = q_pos.to(cache["pos"].dtype)
+        return linear_apply(p["wo"], out.reshape(B, Sq, H * hd)), cache
+
+    # decode: write one step into slot pos mod W, attend over the cache
+    slots = torch.remainder(q_pos, W)
+    cache["k"][:, :, slots] = kc
+    cache["v"][:, :, slots] = vc
+    cache["pos"][slots] = q_pos.to(cache["pos"].dtype)
+    mask = _mask(q_pos, cache["pos"], causal=causal, window=window)
+    out = _sdpa(q, cache["k"], cache["v"], mask)
+    return linear_apply(p["wo"], out.reshape(B, Sq, H * hd)), cache

@@ -1,0 +1,175 @@
+"""Model configuration — a copy of the JAX package's ``models/config.py``.
+
+``ModelConfig`` is the same dataclass (derived properties and analytic
+parameter counts), so a config module reads the same in both packages, less
+the fields nothing here reads: ``param_dtype`` (the port stores each weight
+in the dtype the JAX model uses it in, see ``model.py``), and
+``capacity_factor`` and ``ctx_tokens``, which wait for the MoE and VLM
+slices.  A model is a stack of *blocks* arranged as
+``group * n_groups + tail``; the port runs them as one ``nn.ModuleList`` in
+pattern order.  Block kinds:
+
+  * ``attn``  — self-attention (GQA/MQA, optional window/bias) + FFN
+  * ``cross`` — self-attention + cross-attention (to ``ctx``) + FFN
+  * ``rwkv``  — RWKV-6 time-mix + channel-mix (attention-free)
+  * ``rglru`` — Griffin recurrent block (conv1d + RG-LRU) + FFN
+
+FFN kinds: ``swiglu`` / ``geglu`` / ``gelu`` / ``moe``.  The port runs
+``attn``, ``rwkv`` and ``rglru`` with the dense FFNs; ``cross``, ``moe`` and
+the encoder stack wait for a later slice.
+
+``ExecConfig`` keeps the knobs the port reads.  The kernel option is
+``attn_impl="cuda"`` (the JAX package's ``"pallas"``); ``interpret=True``
+runs the kernels' plain versions on CPU tensors.  ``"flashcost"`` (a
+dry-run cost surrogate), the layer-scan, remat and chunked-loss knobs wait
+with the dry-run and training slices.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+__all__ = ["ModelConfig", "ExecConfig"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str  # dense | moe | ssm | hybrid | audio | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    d_head: int = 0  # 0 -> d_model // n_heads
+    group: Tuple[str, ...] = ("attn",)
+    n_groups: int = 0  # 0 -> n_layers // len(group)
+    tail: Tuple[str, ...] = ()
+    qkv_bias: bool = False
+    norm: str = "rmsnorm"  # rmsnorm | layernorm
+    ffn: str = "swiglu"  # swiglu | geglu | gelu | moe
+    rope_theta: float = 10_000.0
+    tie_embeddings: bool = False
+    window: int = 0  # local attention window (0 = global)
+    # --- MoE ---
+    n_experts: int = 0
+    top_k: int = 0
+    d_ff_expert: int = 0
+    moe_dense_residual: bool = False  # Arctic: dense FFN in parallel with MoE
+    # --- recurrence (rglru) ---
+    d_rnn: int = 0  # 0 -> d_model
+    conv_width: int = 4
+    # --- encoder-decoder / cross-attention context ---
+    enc_layers: int = 0  # >0 -> encoder-decoder (seamless)
+    # --- numerics ---
+    compute_dtype: str = "bfloat16"
+    vocab_pad_multiple: int = 256
+
+    # ------------------------------------------------------------- derived
+    def __post_init__(self):
+        if self.d_head == 0:
+            object.__setattr__(self, "d_head", self.d_model // self.n_heads)
+        if self.n_groups == 0 and self.group:
+            ng, rem = divmod(self.n_layers - len(self.tail), len(self.group))
+            if rem:
+                raise ValueError(
+                    f"{self.name}: n_layers={self.n_layers} does not tile as "
+                    f"{self.group} * n + {self.tail}"
+                )
+            object.__setattr__(self, "n_groups", ng)
+        expect = len(self.group) * self.n_groups + len(self.tail)
+        if expect != self.n_layers:
+            raise ValueError(f"{self.name}: pattern covers {expect} != {self.n_layers} layers")
+
+    @property
+    def pattern(self) -> Tuple[str, ...]:
+        return self.group * self.n_groups + self.tail
+
+    @property
+    def padded_vocab(self) -> int:
+        m = self.vocab_pad_multiple
+        return ((self.vocab_size + m - 1) // m) * m
+
+    @property
+    def rnn_width(self) -> int:
+        return self.d_rnn or self.d_model
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.enc_layers > 0
+
+    @property
+    def uses_cross_attn(self) -> bool:
+        return "cross" in self.pattern
+
+    @property
+    def attention_free(self) -> bool:
+        return all(k in ("rwkv",) for k in self.pattern)
+
+    @property
+    def subquadratic(self) -> bool:
+        """True if no *global* attention layer exists (long-context capable)."""
+        has_global_attn = any(
+            k in ("attn", "cross") for k in self.pattern
+        ) and self.window == 0
+        return not has_global_attn
+
+    def param_count(self) -> int:
+        """Analytic parameter count (used for 6ND model-FLOPs)."""
+        d, hd = self.d_model, self.d_head
+        qkv_out = (self.n_heads + 2 * self.n_kv_heads) * hd
+        attn = d * qkv_out + self.n_heads * hd * d
+        if self.qkv_bias:
+            attn += qkv_out
+        ffn = {
+            "swiglu": 3 * d * self.d_ff,
+            "geglu": 3 * d * self.d_ff,
+            "gelu": 2 * d * self.d_ff,
+        }.get(self.ffn)
+        if self.ffn == "moe":
+            ffn = self.n_experts * 3 * d * self.d_ff_expert + d * self.n_experts
+            if self.moe_dense_residual:
+                ffn += 3 * d * self.d_ff
+        dr = self.rnn_width
+        rglru = 2 * d * dr + dr * d + self.conv_width * dr + 3 * dr + dr * dr // 8
+        glu_ffn = 3 * d * self.d_ff
+        rwkv_tm = 4 * d * d + d * (64 * 2) + d * (5 * 32) * 2 + 6 * d + d * d
+        rwkv_cm = 2 * d * self.d_ff + d * d
+        per_kind = {
+            "attn": attn + (ffn or 0),
+            "cross": attn + attn + (ffn or 0),
+            "rwkv": rwkv_tm + rwkv_cm,
+            "rglru": rglru + glu_ffn,
+        }
+        total = sum(per_kind[k] for k in self.pattern)
+        if self.enc_layers:
+            total += self.enc_layers * (attn + (ffn or 0))
+        total += self.padded_vocab * d  # embed
+        if not self.tie_embeddings:
+            total += self.padded_vocab * d
+        return int(total)
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: top_k of n_experts) for 6·N_active·D."""
+        if self.ffn != "moe":
+            return self.param_count()
+        full = self.param_count()
+        moe_total = self.n_layers * self.n_experts * 3 * self.d_model * self.d_ff_expert
+        moe_active = self.n_layers * self.top_k * 3 * self.d_model * self.d_ff_expert
+        return int(full - moe_total + moe_active)
+
+
+@dataclasses.dataclass(frozen=True)
+class ExecConfig:
+    """Execution-time knobs (model-agnostic)."""
+
+    attn_impl: str = "xla"  # xla (plain PyTorch) | cuda (hand-written kernels)
+    rec_chunk: int = 128  # linear-recurrence chunk length (rwkv/rglru)
+    block_q: int = 128  # flash attention tiles
+    block_kv: int = 128
+    interpret: bool = False  # run the kernels' plain versions on CPU tensors
+
+    def __post_init__(self):
+        if self.attn_impl not in ("xla", "cuda"):
+            raise ValueError(f"attn_impl must be 'xla' or 'cuda', got {self.attn_impl!r}")

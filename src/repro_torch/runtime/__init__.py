@@ -1,0 +1,34 @@
+"""repro_torch.runtime — keep a *running* program tuned.
+
+Copies of the JAX package's ``repro.runtime`` serving modules on the
+port's ``core``:
+
+* :mod:`repro_torch.runtime.context` — :class:`ContextRouter`: buckets live
+  calls into tuning contexts (name × pow2 shape-bucket × caller extra,
+  reusing ``TuningKey`` fingerprints) and dispatches each at its current
+  best.
+* :mod:`repro_torch.runtime.online` — :class:`OnlineTuner`: streams an
+  ε-rationed fraction of real request timings into the ask/tell search,
+  building candidates off-thread so serving never blocks on a build.
+* :mod:`repro_torch.runtime.drift` — :class:`DriftDetector`: sliding-window
+  cost statistics over the exploit stream; degradation triggers a
+  half-budget warm re-search.
+
+The training driver (``runtime/driver.py``: ``TrainJob``, ``Watchdog``)
+waits for the training slice.
+"""
+from .context import ContextRouter, RouteSpec, bucket_args, pow2_bucket
+from .drift import DriftDetector
+from .online import EXPLOIT, EXPLORE, Decision, OnlineTuner
+
+__all__ = [
+    "ContextRouter",
+    "RouteSpec",
+    "pow2_bucket",
+    "bucket_args",
+    "DriftDetector",
+    "OnlineTuner",
+    "Decision",
+    "EXPLORE",
+    "EXPLOIT",
+]

@@ -12,8 +12,9 @@ CPU instead: the kernels' plain PyTorch versions on CPU tensors, keyed
 Without ``--interpret`` and without a card the sweep stops with an error;
 it never carries on on the CPU.
 
-Sweeps the registered (kernel, shape) grid (matmul and flash attention;
-inputs made from numpy seeds), runs the PATSMA search per context, and
+Sweeps the registered (kernel, shape) grid (matmul, flash attention and
+the RG-LRU scan — the JAX package's grid without its decode-attention
+cases; inputs made from numpy seeds), runs the PATSMA search per context, and
 commits every record atomically.  A context already in the DB is an exact
 hit: it replays with zero measurements, and the run summary counts it.
 ``--measure adaptive`` (the default) races each round's candidates;
@@ -56,17 +57,25 @@ def _cases(smoke: bool, device, abstract: bool = False):
     if abstract:
         def rnd(seed, shape):
             return torch.empty(shape, dtype=torch.float32, device="meta")
+
+        def filled(value, shape):
+            return torch.empty(shape, dtype=torch.float32, device="meta")
     else:
         def rnd(seed, shape):
             x = np.random.RandomState(seed).standard_normal(shape).astype(np.float32)
             return torch.from_numpy(x).to(device)
 
+        def filled(value, shape):
+            return torch.full(shape, value, dtype=torch.float32, device=device)
+
     if smoke:
         mm_shapes = [(64, 64, 64), (128, 128, 128)]
         fa_shapes = [(1, 2, 2, 64, 16)]
+        ls_shapes = [(2, 64, 32)]
     else:
         mm_shapes = [(128,) * 3, (256,) * 3, (512, 512, 256)]
         fa_shapes = [(1, 2, 2, 64, 16), (1, 4, 2, 128, 32), (2, 4, 4, 256, 32)]
+        ls_shapes = [(2, 64, 32), (2, 256, 64)]
 
     cases = []
     for m, n, k in mm_shapes:
@@ -83,6 +92,18 @@ def _cases(smoke: bool, device, abstract: bool = False):
                     rnd(0, (b, s, h, hd)),
                     rnd(1, (b, kh, s, hd)),
                     rnd(2, (b, kh, s, hd)),
+                ),
+            )
+        )
+    for b, t, d in ls_shapes:
+        cases.append(
+            (
+                "lru_scan",
+                f"b{b}t{t}d{d}",
+                lambda b=b, t=t, d=d: (
+                    filled(0.9, (b, t, d)),
+                    rnd(1, (b, t, d)),
+                    rnd(2, (b, d)),
                 ),
             )
         )

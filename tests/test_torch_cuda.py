@@ -6,7 +6,8 @@ a machine that has only PyTorch:
 
 The kernels are held against their plain PyTorch versions on the same
 inputs: fp32 at atol=rtol=1e-5 (the same fp32 arithmetic summed in another
-order), bf16 at 2e-2 (plus output rounding).
+order), bf16 at 2e-2 (plus output rounding).  The scans' bf16 outputs are
+held at the JAX tests' bf16 limits (3e-2 lru, 5e-2 rwkv).
 """
 import math
 
@@ -15,6 +16,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import linear_scan as tls
 from repro_torch.kernels import matmul as tmm
 from repro_torch.kernels import ops
 from repro_torch.kernels.autotuned import autotuned, get_spec, tune_call
@@ -131,3 +133,84 @@ def test_fixed_policy_times_no_other_candidates_launches():
                     max_iter=4)
     assert rec is not None and math.isfinite(rec.cost) and extra
     assert extra == [0] * len(extra)
+
+
+SCAN_TOL = {"lru": {torch.float32: 1e-5, torch.bfloat16: 3e-2},
+            "rwkv": {torch.float32: 1e-5, torch.bfloat16: 5e-2}}
+
+
+def _scan_close(kind, got, want):
+    tol = SCAN_TOL[kind][got.dtype]
+    torch.testing.assert_close(got.float().cpu(), want.float().cpu(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,D,chunk,block_d", [
+    (2, 64, 32, 16, 16), (2, 64, 32, 32, 32), (2, 64, 32, 64, 16), (1, 128, 256, 16, 128),
+    (3, 96, 96, 32, 32), (1, 64, 2560, 4, 128), (2, 32, 64, 128, 64),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lru_scan_kernel_matches_plain(dtype, B, T, D, chunk, block_d):
+    dev = _card()
+    a = torch.sigmoid(_randn(10, (B, T, D), torch.float32, dev)).to(dtype)
+    b = _randn(11, (B, T, D), dtype, dev)
+    h0 = _randn(12, (B, D), torch.float32, dev)
+    before = tls.launches["lru_scan"]
+    hs, hT = ops.lru_scan(a, b, h0, chunk=chunk, block_d=block_d)
+    assert tls.launches["lru_scan"] == before + 1
+    assert hs.dtype == dtype and hT.dtype == torch.float32 and hs.is_cuda
+    want_hs, want_hT = tls.lru_scan_plain(a, b, h0, chunk=min(chunk, T), block_d=min(block_d, D))
+    _scan_close("lru", hs, want_hs)
+    _scan_close("lru", hT, want_hT)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,hd,chunk", [
+    (1, 32, 2, 8, 8), (2, 64, 2, 16, 16), (1, 64, 1, 32, 32), (2, 64, 3, 64, 4),
+    (1, 128, 2, 64, 128), (2, 48, 2, 32, 16),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rwkv_scan_kernel_matches_plain(dtype, B, T, H, hd, chunk):
+    dev = _card()
+    r, k, v = (_randn(20 + i, (B, T, H, hd), dtype, dev) for i in range(3))
+    lw = -torch.exp(_randn(23, (B, T, H, hd), torch.float32, dev))
+    u = _randn(24, (H, hd), torch.float32, dev)
+    s0 = _randn(25, (B, H, hd, hd), torch.float32, dev)
+    before = tls.launches["rwkv_scan"]
+    y, sT = ops.rwkv_scan(r, k, v, lw, u, s0, chunk=chunk)
+    assert tls.launches["rwkv_scan"] == before + 1
+    assert y.dtype == dtype and sT.dtype == torch.float32
+    want_y, want_s = tls.rwkv_scan_plain(r, k, v, lw, u, s0, chunk=min(chunk, T))
+    _scan_close("rwkv", y, want_y)
+    _scan_close("rwkv", sT, want_s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [8, 64])
+def test_rwkv_scan_kernel_strong_decay(hd):
+    dev = _card()
+    B, T, H = 1, 64, 2
+    r, k, v = (_randn(30 + i, (B, T, H, hd), torch.float32, dev) for i in range(3))
+    lw = torch.full((B, T, H, hd), -14.0, device=dev)
+    u = _randn(33, (H, hd), torch.float32, dev)
+    s0 = torch.zeros(B, H, hd, hd, device=dev)
+    y, _ = ops.rwkv_scan(r, k, v, lw, u, s0, chunk=16)
+    assert bool(torch.isfinite(y).all())
+    _scan_close("rwkv", y, tls.rwkv_scan_plain(r, k, v, lw, u, s0, chunk=16)[0])
+
+
+@pytest.mark.cuda
+def test_scan_knobs_the_kernels_cannot_run_raise_before_launch():
+    dev = _card()
+    a = _randn(40, (1, 256, 256), torch.float32, dev)
+    h0 = torch.zeros(1, 256, device=dev)
+    before = dict(tls.launches)
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.lru_scan(a, a, h0, chunk=256, block_d=256)
+    r = _randn(41, (1, 32, 1, 128), torch.float32, dev)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.rwkv_scan(r, r, r, -r.abs(), torch.zeros(1, 128, device=dev),
+                      torch.zeros(1, 1, 128, 128, device=dev), chunk=16)
+    assert tls.launches == before
+    ops.lru_scan(a, a, h0, chunk=16)
+    torch.cuda.synchronize()

@@ -51,11 +51,16 @@ import numpy as np, torch
 import repro_torch, repro_torch.core, repro_torch.obs, repro_torch.testing
 import repro_torch.kernels, repro_torch.kernels.autotuned, repro_torch.kernels.ops
 import repro_torch.tuning, repro_torch.tuning.pretune, repro_torch.tuning.fleet
+import repro_torch.configs, repro_torch.models, repro_torch.models.convert, repro_torch.runtime
+from repro_torch.launch import serve
 from repro_torch.kernels import autotuned, tune_call
 from repro_torch.tuning import TuningDB
 a = torch.from_numpy(np.random.RandomState(0).standard_normal((64, 64)).astype(np.float32))
 rec = tune_call("matmul", a, a, db=TuningDB(None), interpret=True, max_iter=1, jobs=1)
 autotuned("matmul", a, a, interpret=True, db=TuningDB(None))
+served = serve.serve(["--arch", "rwkv6_7b", "--tiny", "--device", "cpu", "--prompt-len", "4",
+                      "--gen", "2"])
+assert served["hidden"].shape == (8, 64)
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")]
 print("isolated-ok", rec.point)
 """

@@ -1,0 +1,215 @@
+"""The port's scan kernels (RG-LRU and RWKV-6 WKV) against the JAX package.
+
+Inputs are made with numpy from a seed and handed to both packages.  On the
+CPU the port's wrappers run their plain versions (``interpret=True``), held
+against the JAX package's Pallas kernels in ``interpret=True`` mode and
+against the per-token oracles of both packages.  Tolerances (atol = rtol,
+compared in fp32): against the oracles fp32 1e-5 (the same recurrence
+summed in another order), bf16 3e-2 for lru and 5e-2 for rwkv (the JAX
+tests' bf16 limits); against the JAX rwkv kernel, whose chunked
+log-space form differs from the per-token recurrence by more than fp32
+rounding, the JAX test's own fp32 limit 5e-4.  The CUDA kernels themselves
+are tested on the card by ``test_torch_cuda.py``.
+"""
+from importlib import import_module
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro import tuning as jtuning
+from repro_torch import tuning as ttuning
+from repro_torch.kernels import linear_scan as tls
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels.autotuned import roofline
+
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+jat = import_module("repro.kernels.autotuned")
+tat = import_module("repro_torch.kernels.autotuned")
+ORACLE_TOL = {"lru": {"float32": 1e-5, "bfloat16": 3e-2},
+              "rwkv": {"float32": 1e-5, "bfloat16": 5e-2}}
+JAX_RWKV_KERNEL_TOL = {"float32": 5e-4, "bfloat16": 5e-2}
+
+
+def _np(seed, shape, fn=None):
+    x = np.random.RandomState(seed).standard_normal(shape).astype(np.float32)
+    return fn(x) if fn is not None else x
+
+
+def _pair(x, dtype):
+    """The same values as a JAX array and a torch tensor (bf16 rounds alike)."""
+    return jnp.asarray(x, JDT[dtype]), torch.from_numpy(x).to(TDT[dtype])
+
+
+def _close(got, want, tol):
+    g = got.float().numpy() if isinstance(got, torch.Tensor) else np.asarray(got, np.float32)
+    w = want.float().numpy() if isinstance(want, torch.Tensor) else np.asarray(want, np.float32)
+    np.testing.assert_allclose(g, w, atol=tol, rtol=tol)
+
+
+# ------------------------------------------------------------------ rwkv scan
+def _rwkv_inputs(B, T, H, hd, dtype, seed=4):
+    raw = [_np(seed + i, (B, T, H, hd)) for i in range(3)]
+    raw.append(-np.exp(_np(seed + 3, (B, T, H, hd))))  # log decay <= 0
+    raw.append(_np(seed + 4, (H, hd)))
+    j = [_pair(x, dtype) for x in raw]
+    s0 = _np(seed + 5, (B, H, hd, hd))
+    return ([p[0] for p in j] + [jnp.asarray(s0)], [p[1] for p in j] + [torch.from_numpy(s0)])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("chunk", [8, 16, 32])
+@pytest.mark.parametrize("B,T,H,hd", [(1, 32, 2, 8), (2, 64, 2, 16), (1, 64, 1, 32)])
+def test_rwkv_plain_matches_jax_kernel_and_oracles(dtype, chunk, B, T, H, hd):
+    jargs, targs = _rwkv_inputs(B, T, H, hd, dtype)
+    y, sT = tops.rwkv_scan(*targs, chunk=chunk, interpret=True)
+    assert y.dtype == TDT[dtype] and sT.dtype == torch.float32
+    assert y.shape == (B, T, H, hd) and sT.shape == (B, H, hd, hd)
+    tol = ORACLE_TOL["rwkv"][dtype]
+    for yw, sw in (tref.rwkv_scan_ref(*targs), jref.rwkv_scan_ref(*jargs)):
+        _close(y, yw, tol)
+        _close(sT, sw, tol)
+    yk, sk = jops.rwkv_scan(*jargs, chunk=chunk, interpret=True)
+    _close(y, yk, JAX_RWKV_KERNEL_TOL[dtype])
+    _close(sT, sk, JAX_RWKV_KERNEL_TOL[dtype])
+
+
+@pytest.mark.parametrize("chunk", [16, 32])
+def test_rwkv_strong_decay_stays_finite(chunk):
+    B, T, H, hd = 1, 32, 1, 8
+    jargs, targs = _rwkv_inputs(B, T, H, hd, "float32", seed=5)
+    targs[3] = torch.full((B, T, H, hd), -14.0)
+    jargs[3] = jnp.full((B, T, H, hd), -14.0)
+    targs[5] = torch.zeros(B, H, hd, hd)
+    jargs[5] = jnp.zeros((B, H, hd, hd))
+    y, _ = tops.rwkv_scan(*targs, chunk=chunk, interpret=True)
+    assert bool(torch.isfinite(y).all())
+    _close(y, tref.rwkv_scan_ref(*targs)[0], 1e-5)
+    _close(y, jref.rwkv_scan_ref(*jargs)[0], 1e-5)
+    _close(y, jops.rwkv_scan(*jargs, chunk=chunk, interpret=True)[0], 1e-4)
+
+
+# ------------------------------------------------------------------- lru scan
+def _lru_inputs(B, T, D, dtype):
+    a = _np(6, (B, T, D), lambda x: 1.0 / (1.0 + np.exp(-x)))
+    jb, tb = _pair(_np(7, (B, T, D)), dtype)
+    h0 = _np(8, (B, D))
+    ja, ta = _pair(a.astype(np.float32), dtype)
+    return (ja, jb, jnp.asarray(h0)), (ta, tb, torch.from_numpy(h0))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("chunk,block_d", [(16, 16), (32, 32), (64, 16), (16, 8)])
+def test_lru_plain_matches_jax_kernel_and_oracles(dtype, chunk, block_d):
+    B, T, D = 2, 64, 32
+    jargs, targs = _lru_inputs(B, T, D, dtype)
+    hs, hT = tops.lru_scan(*targs, chunk=chunk, block_d=block_d, interpret=True)
+    assert hs.dtype == TDT[dtype] and hT.dtype == torch.float32 and hT.shape == (B, D)
+    tol = ORACLE_TOL["lru"][dtype]
+    for hw, hTw in (tref.lru_scan_ref(*targs), jref.lru_scan_ref(*jargs),
+                    jops.lru_scan(*jargs, chunk=chunk, interpret=True)):
+        _close(hs, hw, tol)
+        _close(hT, hTw, tol)
+
+
+def test_lru_block_d_reaches_the_kernel():
+    """The JAX wrapper drops ``block_d``; the port's passes it through, so a
+    channel block that does not divide D, or that the kernel cannot hold, is
+    refused (the tuner charges such a knob ``inf``)."""
+    _, (a, b, h0) = _lru_inputs(2, 64, 32, "float32")
+    with pytest.raises(ValueError, match="block_d=24"):
+        tops.lru_scan(a, b, h0, chunk=16, block_d=24, interpret=True)
+    with pytest.raises(ValueError, match="chunk=48"):
+        tops.lru_scan(a, b, h0, chunk=48, interpret=True)
+    with pytest.raises(ValueError, match="block_d=2048"):
+        tls.check_lru(16, 2048)
+    with pytest.raises(ValueError, match="shared memory"):
+        tls.check_lru(256, 128)
+    tls.check_lru(128, 128)
+    with pytest.raises(ValueError, match="head dim 128"):
+        tls.check_rwkv(16, 128)
+    with pytest.raises(ValueError, match="shared memory"):
+        tls.check_rwkv(256, 64)
+    try:
+        tls.check_lru(256, 128)
+    except ValueError as e:
+        assert tat.classify_failure(e) == "illegal"
+
+
+def test_scan_wrappers_refuse_cpu_tensors_without_interpret():
+    _, (a, b, h0) = _lru_inputs(1, 16, 8, "float32")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tops.lru_scan(a, b, h0, chunk=16)
+    _, targs = _rwkv_inputs(1, 16, 1, 8, "float32")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tops.rwkv_scan(*targs, chunk=16)
+    assert tls.launches == {"lru_scan": 0, "rwkv_scan": 0}
+
+
+def test_scan_gradients_follow_the_oracles():
+    _, (a, b, h0) = _lru_inputs(1, 16, 8, "float32")
+    leaves = [t.clone().requires_grad_(True) for t in (a, b, h0)]
+    hs, hT = tops.lru_scan(*leaves, chunk=8, interpret=True)
+    g = torch.autograd.grad((hs.sum() + hT.sum()), leaves)
+    ref_leaves = [t.clone().requires_grad_(True) for t in (a, b, h0)]
+    rs, rT = tref.lru_scan_ref(*ref_leaves)
+    gw = torch.autograd.grad((rs.sum() + rT.sum()), ref_leaves)
+    for x, w in zip(g, gw):
+        _close(x, w, 1e-5)
+    _, targs = _rwkv_inputs(1, 8, 1, 8, "float32")
+    leaves = [t.clone().requires_grad_(True) for t in targs]
+    y, sT = tops.rwkv_scan(*leaves, chunk=4, interpret=True)
+    g = torch.autograd.grad(y.square().sum() + sT.sum(), leaves)
+    ref_leaves = [t.clone().requires_grad_(True) for t in targs]
+    yw, sw = tref.rwkv_scan_ref(*ref_leaves)
+    gw = torch.autograd.grad(yw.square().sum() + sw.sum(), ref_leaves)
+    for x, w in zip(g, gw):
+        _close(x, w, 1e-5)
+
+
+# --------------------------------------------------------- registry + bounds
+@pytest.mark.parametrize("name", ["lru_scan", "rwkv_scan"])
+def test_registry_keys_and_defaults_equal_jax(name):
+    if name == "lru_scan":
+        jargs, targs = _lru_inputs(2, 64, 32, "float32")
+    else:
+        jargs, targs = _rwkv_inputs(2, 64, 2, 16, "float32")
+    jspace = jat.get_spec(name).space(*jargs)
+    tspace = tat.get_spec(name).space(*targs)
+    jkey = jtuning.make_key(name, args=jargs, space=jspace, extra={"interpret": True},
+                            backend="cpu", device_kind="cpu")
+    tkey = ttuning.make_key(name, args=targs, space=tspace, extra={"interpret": True},
+                            backend="cpu", device_kind="cpu")
+    assert tkey.encode() == jkey.encode()
+    assert tat.get_spec(name).defaults(*targs) == jat.get_spec(name).defaults(*jargs)
+
+
+def test_roofline_names_the_arithmetic_dtype():
+    """The scans compute in fp32 on the CUDA cores whatever their inputs'
+    dtype, so their bound uses the fp32 peak; the matmul and flash bounds
+    keep the input dtype's (tensor-core) peak."""
+    meta = dict(device="meta")
+    a = torch.empty(8, 2048, 2560, **meta)
+    lru = roofline("lru_scan", a, a, torch.empty(8, 2560, **meta))
+    assert lru.dominant == "bytes"
+    assert lru.bytes_accessed == 3 * 8 * 2048 * 2560 * 4 + 2 * 8 * 2560 * 4
+    assert abs(lru.bound_s * 1e3 - 0.150) < 0.002
+    r = torch.empty(8, 2048, 64, 64, dtype=torch.bfloat16, **meta)
+    lw = torch.empty(8, 2048, 64, 64, **meta)
+    rw = roofline("rwkv_scan", r, r, r, lw, torch.empty(64, 64, **meta),
+                  torch.empty(8, 64, 64, 64, **meta))
+    assert rw.dominant == "operations"
+    assert rw.flops == 5.0 * 8 * 2048 * 64 * 64 * 64
+    assert abs(rw.bound_s * 1e3 - rw.flops / 67e12 * 1e3) < 1e-9  # fp32 CUDA-core peak
+    assert abs(rw.bound_s * 1e3 - 0.3205) < 0.001
+    # unchanged for the kernels of the first slice: bf16 inputs, tensor-core peak
+    x = torch.empty(4096, 3584, dtype=torch.bfloat16, **meta)
+    w = torch.empty(3584, 18944, dtype=torch.bfloat16, **meta)
+    mm = roofline("matmul", x, w)
+    assert mm.flops == 2.0 * 4096 * 3584 * 18944
+    assert abs(mm.bound_s - mm.flops / 989e12) < 1e-12

@@ -227,11 +227,11 @@ def _pretune(argv, capsys):
 def test_pretune_interpret_smoke_then_only_exact_hits(tmp_path, capsys):
     db = str(tmp_path / "sub" / "p.json")
     rc, (tuned, hits, searched) = _pretune(["--interpret", "--smoke", "--db", db], capsys)
-    assert rc == 0 and tuned == 3 and searched == 3
+    assert rc == 0 and tuned == 4 and searched == 4
     rc, (tuned, hits, searched) = _pretune(["--interpret", "--smoke", "--db", db], capsys)
-    assert rc == 0 and tuned == hits == 3 and searched == 0
+    assert rc == 0 and tuned == hits == 4 and searched == 0
     # the port's file is a DB the JAX package reads
-    assert len(jtuning.TuningDB(db, autosave=False)) == 3
+    assert len(jtuning.TuningDB(db, autosave=False)) == 4
 
 
 def test_pretune_refuses_to_run_without_a_card(tmp_path, monkeypatch, capsys):
@@ -239,7 +239,8 @@ def test_pretune_refuses_to_run_without_a_card(tmp_path, monkeypatch, capsys):
     assert tpretune.main(["--smoke", "--db", str(tmp_path / "p.json")]) == 1
     assert "no CUDA device" in capsys.readouterr().err
     assert not (tmp_path / "p.json").exists()
-    assert tpretune.main(["--interpret", "--kernel", "lru_scan", "--db", str(tmp_path / "q.json")]) == 2
+    assert tpretune.main(["--interpret", "--kernel", "decode_attention",
+                          "--db", str(tmp_path / "q.json")]) == 2
 
 
 def test_sandbox_refuses_cuda_instead_of_passing(monkeypatch):
