@@ -9,25 +9,38 @@ Phases, each printing its numbers on lines of its own:
    limit; then the CUDA kernels are built from ``src/repro_torch/kernels/csrc``
    (one nvcc per source, started together) and ptxas' register report shown;
 2. kernels against their plain PyTorch versions at the qwen2-7b shapes
-   (FFN up-projection (4096, 3584) @ (3584, 18944) and causal prefill
-   attention q (2, 2048, 28, 128), k/v (2, 4, 2048, 128), both bf16) and at
-   the serving prefill's scan shapes (RG-LRU a, b (8, 2048, 2560) fp32 of
-   recurrentgemma-2b; RWKV-6 r, k, v (8, 2048, 64, 64) bf16 with fp32 lw,
-   u, s0 of rwkv6-7b), at default and non-default knobs, plus a small fp32
-   case each and the RWKV strong-decay case (lw = -14);
-3. the PATSMA tuning loop: ``tune_call`` on the four calls with the default
-   CSA budget, committing records to ``DIR/tune.json``;
+   (FFN up-projection (4096, 3584) @ (3584, 18944), causal prefill
+   attention q (2, 2048, 28, 128), k/v (2, 4, 2048, 128), and decode
+   attention q (8, 28, 128) against a KV cache (8, 4, 32768, 128) with a
+   random valid prefix per row, all bf16), at recurrentgemma-2b's served MQA
+   decode (q (8, 10, 256), k/v (8, 1, 2048, 256) bf16, valid from the ring
+   buffer's positions after 2048 + 64 tokens) and at the serving prefill's
+   scan shapes (RG-LRU a, b (8, 2048, 2560) fp32 of recurrentgemma-2b;
+   RWKV-6 r, k, v (8, 2048, 64, 64) bf16 with fp32 lw, u, s0 of rwkv6-7b),
+   at default and non-default knobs, plus a small fp32 case each, the RWKV
+   strong-decay case (lw = -14) and a decode row with no valid slot;
+3. the PATSMA tuning loop: ``tune_call`` on the five calls with the default
+   CSA budget, committing records to ``DIR/tune.json``, and once more on
+   the decode call with ``strategy="csa+nm"`` into ``DIR/tune_csa_nm.json``;
 4. replay: ``autotuned`` on the same DB is an exact hit (one launch, output
    bit-equal to the kernel at the stored knobs, which is launched for the
    comparison only after the main path's counts are read);
 5. the pretune CLI (``--smoke``) twice in-process; the second run makes only
-   exact hits;
-6. times with CUDA events: each kernel at default and tuned knobs (the
+   exact hits; then once with ``--strategy csa+nm --cost analytic
+   --obs-dir``, and the host-side ``python -m repro_torch.tune`` commands
+   (``db list``, ``db diff``, ``report`` on that run) in subprocesses;
+6. the adaptive route: a fresh ``kernel_router`` on a fresh DB serves ~200
+   ``routed("decode_attention", ...)`` calls at the qwen2-7b decode shape
+   with epsilon 0.1 and a short stream of each other kernel; every output
+   is held (after the counts are read) against the kernel at the knobs its
+   call was served with, and a second router on the same DB must exact-hit
+   the committed decode record and explore nothing;
+7. times with CUDA events: each kernel at default and tuned knobs (the
    scans also at the serving path's ``chunk=4``), its plain version, one
    library call for the same function where one exists (a yardstick the
    port never calls; no single PyTorch call computes either scan), and the
    analytic roofline bound;
-7. serving recurrentgemma-2b at full width and depth through
+8. serving recurrentgemma-2b at full width and depth through
    ``repro_torch.launch.serve`` (batch 8, prompt 2048, 64 new tokens, random
    weights from seed 0) twice on one DB: the first run tunes the decode
    depth online and commits it, the second must be a DB hit.  Every prefill
@@ -36,10 +49,11 @@ Phases, each printing its numbers on lines of its own:
    against the plain path (``attn_impl="xla"``) in fp32 arithmetic, and the
    scan kernel against its plain version on the last layer's scan inputs
    as served (bf16 r, k, v for rwkv);
-8. the same for rwkv6-7b at full width and depth (32 ``rwkv_scan`` launches
+9. the same for rwkv6-7b at full width and depth (32 ``rwkv_scan`` launches
    per prefill).
 
-Phases 3-5 (the tuning loop) and phases 7-8 (serving) are the main paths:
+Phases 3-5 (the tuning loop), phase 6 (the route) and phases 8-9 (serving)
+are the main paths:
 the kernels' launch counters are set to 0 just before each path and read
 just after, and every kernel must have launched on one of them.
 The line before the last two is a JSON object with one entry per kernel;
@@ -54,6 +68,7 @@ import contextlib
 import io
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -69,6 +84,10 @@ ROOT = Path(__file__).resolve().parent
 #: just above one bf16 rounding step at those magnitudes.
 TOL = {"matmul": {"float32": 1e-5, "bfloat16": 2e-2},
        "flash_attention": {"float32": 1e-5, "bfloat16": 5e-3},
+       # decode: fp32 m/l/acc and p in both, summed in another order; bf16
+       # outputs reach |o| ~ 3 on short valid prefixes, where one bf16
+       # rounding step is 1.6e-2 = atol + rtol * |o| at 5e-3
+       "decode_attention": {"float32": 1e-5, "bfloat16": 5e-3},
        # the scans: the same fp32 recurrence (the lru kernel fuses the
        # multiply-add); rwkv's bf16 y rounds an fp32 sum of 64 products, at
        # the JAX package's bf16 limit for this scan
@@ -83,6 +102,11 @@ HIDDEN_TOL = 1e-3
 
 MM_SHAPE = (4096, 3584, 18944)  # tokens (batch 2 x 2048), d_model, d_ff
 FA_SHAPE = (2, 2048, 28, 4, 128)  # batch, seq, query heads, KV heads, head dim
+DA_SHAPE = (8, 28, 4, 32768, 128)  # qwen2-7b decode: batch, heads, KV heads, cache, head dim
+RG_DA_SHAPE = (8, 10, 1, 2048, 256)  # recurrentgemma-2b MQA decode over its 2048-slot ring
+RING_TOKENS = 2048 + 64  # prompt + generated tokens before the ring's decode step
+ROUTE_CALLS = {"decode_attention": 200, "matmul": 20, "flash_attention": 20, "lru_scan": 20,
+               "rwkv_scan": 20}
 LRU_SHAPE = (8, 2048, 2560)  # recurrentgemma-2b prefill: batch, prompt, RG-LRU width
 RWKV_SHAPE = (8, 2048, 64, 64)  # rwkv6-7b prefill: batch, prompt, heads, head dim
 SERVE = (("recurrentgemma_2b", "lru_scan", 18), ("rwkv6_7b", "rwkv_scan", 32))
@@ -133,7 +157,8 @@ def main(argv=None) -> int:
 
     import torch.nn.functional as F
 
-    from repro_torch.kernels import _cuda, autotuned, ops, tune_call
+    from repro_torch.kernels import _cuda, autotuned, kernel_router, ops, routed, tune_call
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import linear_scan as ls
     from repro_torch.kernels import matmul as mm
@@ -150,7 +175,8 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
-    for name in ("tune.json", "pretune.json", "pretune.json.journal",
+    for name in ("tune.json", "tune_csa_nm.json", "pretune.json", "pretune.json.journal",
+                 "pretune_analytic.json", "pretune_analytic.json.journal", "route.json",
                  *(f"serve_{arch}.json" for arch, _, _ in SERVE)):
         (out / name).unlink(missing_ok=True)
 
@@ -182,6 +208,12 @@ def main(argv=None) -> int:
     q = randn((B, S, H, hd), torch.bfloat16)
     k = randn((B, Kh, S, hd), torch.bfloat16)
     v = randn((B, Kh, S, hd), torch.bfloat16)
+    dB, dH, dKh, dS, dhd = DA_SHAPE
+    dq = randn((dB, dH, dhd), torch.bfloat16)
+    dk = randn((dB, dKh, dS, dhd), torch.bfloat16)
+    dv = randn((dB, dKh, dS, dhd), torch.bfloat16)
+    lens = torch.randint(1, dS + 1, (dB,), generator=gen, device=dev)  # a valid prefix per row
+    dvalid = (torch.arange(dS, device=dev)[None] < lens[:, None]).to(torch.int32)
     # the scans at the serving prefill's shapes: RG-LRU decays in (0, 1)
     lru_a = torch.sigmoid(randn(LRU_SHAPE, torch.float32))
     lru_b = randn(LRU_SHAPE, torch.float32)
@@ -192,6 +224,7 @@ def main(argv=None) -> int:
     ru = randn((rH, rhd), torch.float32, 0.5)
     rs0 = randn((rB, rH, rhd, rhd), torch.float32)
     call_args = {"matmul": ((a, b), {}), "flash_attention": ((q, k, v), {"causal": True}),
+                 "decode_attention": ((dq, dk, dv, dvalid), {}),
                  "lru_scan": ((lru_a, lru_b, lru_h0), {}),
                  "rwkv_scan": ((rr, rk, rv, rlw, ru, rs0), {})}
     defaults = {name: get_spec(name).defaults(*ca, **kw) for name, (ca, kw) in call_args.items()}
@@ -200,7 +233,9 @@ def main(argv=None) -> int:
     # -------------------------------------------- 2. kernels vs plain versions
     max_err = {name: 0.0 for name in names}
 
-    def compare(label, name, got, want, phase=2):
+    def compare(label, name, got, want, phase=2, full=None):
+        """Hold got against want; ``full`` (default: more than a million
+        elements) marks a main-path shape, whose error the JSON line reports."""
         ok, err, mag, worst = True, 0.0, 0.0, 0.0
         torch.cuda.synchronize()
         for g_, w_ in zip(_tensors(got), _tensors(want)):
@@ -212,7 +247,7 @@ def main(argv=None) -> int:
             if g_.shape == w_.shape:  # the largest |error| over its allclose limit
                 worst = max(worst, ((g_.float() - w_.float()).abs()
                                     / (tol + tol * w_.float().abs())).max().item())
-            if g_.shape == w_.shape and g_.numel() > 1_000_000:
+            if g_.shape == w_.shape and (g_.numel() > 1_000_000 if full is None else full):
                 max_err[name] = max(max_err[name], e)
         tol = TOL[name][str(_tensors(got)[0].dtype).replace("torch.", "")]
         print(f"[{phase}] {label}: max_abs_err={err:.3e} max|plain|={mag:.4g} "
@@ -245,6 +280,43 @@ def main(argv=None) -> int:
         compare(f"flash_attention fp32 q(1, 64, 8, 32) kv(1, 2, 64, 32) causal={causal} {knobs}",
                 "flash_attention", got, want)
 
+    da_args = call_args["decode_attention"][0]
+    for knobs in (defaults["decode_attention"], {"block_kv": 128}):
+        compare(f"decode_attention bf16 q{tuple(dq.shape)} kv{tuple(dk.shape)} valid prefixes "
+                f"{lens.tolist()} {knobs}", "decode_attention", ops.decode_attention(*da_args, **knobs),
+                da.decode_attention_plain(*da_args, **knobs), full=True)
+    # recurrentgemma-2b's served MQA decode: the ring buffer's slot s holds
+    # the latest position p <= t with p = s (mod W); the model's mask keeps
+    # p <= t and t - p < W (models/attention.py::_mask)
+    gB, gH, gKh, gW, ghd = RG_DA_SHAPE
+    t_pos = RING_TOKENS - 1
+    slots = torch.arange(gW, device=dev)
+    ring_pos = slots + ((t_pos - slots) // gW) * gW
+    ring_valid = ((ring_pos >= 0) & (ring_pos <= t_pos) & (t_pos - ring_pos < gW)).to(torch.int32)
+    rg_args = (randn((gB, gH, ghd), torch.bfloat16), randn((gB, gKh, gW, ghd), torch.bfloat16),
+               randn((gB, gKh, gW, ghd), torch.bfloat16), ring_valid[None].expand(gB, gW).contiguous())
+    for knobs in (get_spec("decode_attention").defaults(*rg_args), {"block_kv": 64}):
+        compare(f"decode_attention bf16 recurrentgemma-2b MQA q{tuple(rg_args[0].shape)} "
+                f"kv{tuple(rg_args[1].shape)} ring after {RING_TOKENS} tokens "
+                f"({int(ring_valid.sum())} of {gW} slots valid) {knobs}", "decode_attention",
+                ops.decode_attention(*rg_args, **knobs), da.decode_attention_plain(*rg_args, **knobs),
+                full=True)
+    # fp32, and rows with no valid slot (mean of V) or a masked leading part
+    small_da = [randn((2, 14, 64), torch.float32), randn((2, 2, 256, 64), torch.float32),
+                randn((2, 2, 256, 64), torch.float32), torch.ones(2, 256, dtype=torch.int32, device=dev)]
+    small_da[3][0] = 0
+    small_da[3][1, :100] = 0
+    got = ops.decode_attention(*small_da, block_kv=64)
+    mean_v = small_da[2][0].mean(dim=1).repeat_interleave(7, dim=0)
+    invalid_ok = bool(torch.isfinite(got).all()) and bool(
+        torch.allclose(got[0], mean_v, atol=1e-5, rtol=1e-5))
+    print(f"[2] decode_attention fp32 row with no valid slot: mean of V "
+          f"max |o - mean(v)| {(got[0] - mean_v).abs().max().item():.3e} {'ok' if invalid_ok else 'FAIL'}")
+    check(invalid_ok, "decode_attention: a row with no valid slot is not the mean of V")
+    compare("decode_attention fp32 q(2, 14, 64) kv(2, 2, 256, 64) block_kv=64, rows all / first "
+            "100 slots invalid", "decode_attention", got,
+            da.decode_attention_plain(*small_da, block_kv=64), full=False)
+
     lru_args = call_args["lru_scan"][0]
     for knobs in (defaults["lru_scan"], {"chunk": 4}, {"chunk": 32, "block_d": 64}):
         compare(f"lru_scan fp32 a,b{LRU_SHAPE} {knobs}", "lru_scan", ops.lru_scan(*lru_args, **knobs),
@@ -270,11 +342,13 @@ def main(argv=None) -> int:
                 got, ls.rwkv_scan_plain(*small, chunk=16))
 
     def counts():
-        return {"matmul": mm.launches, "flash_attention": fa.launches, **ls.launches}
+        return {"matmul": mm.launches, "flash_attention": fa.launches,
+                "decode_attention": da.launches, **ls.launches}
 
     def reset_counts():
         mm.launches = 0
         fa.launches = 0
+        da.launches = 0
         for n in ls.launches:
             ls.launches[n] = 0
 
@@ -304,6 +378,17 @@ def main(argv=None) -> int:
         check(rec.key.device_kind == kind, f"{name}: record device_kind {rec.key.device_kind!r}")
         check(math.isfinite(rec.cost), f"{name}: committed cost is not finite")
         records[name] = rec
+    # the same decode context searched by the paper's CSA -> NM pipeline
+    stats = {}
+    t0 = time.perf_counter()
+    rec = tune_call("decode_attention", *call_args["decode_attention"][0],
+                    db=TuningDB(str(out / "tune_csa_nm.json")), strategy="csa+nm", measure_stats=stats)
+    check(rec is not None and rec.strategy == "csa+nm" and math.isfinite(rec.cost),
+          "tune_call(decode_attention, strategy='csa+nm') committed no finite csa+nm record")
+    print(f"[3] tune_call decode_attention strategy=csa+nm: point={rec.point} "
+          f"cost={rec.cost * 1e3:.4f}ms evals={rec.evals} crashed={rec.crashed} "
+          f"reps={stats.get('reps')} culled={stats.get('culled')} ({time.perf_counter() - t0:.1f}s)")
+    records_csa_nm = rec
     phase_launches["tune"] = counts()
 
     # 4. replay from the DB as written to disk; its output is held against
@@ -335,8 +420,29 @@ def main(argv=None) -> int:
         if run == 2:
             check(int(m.group(3)) == 0 and int(m.group(2)) == int(m.group(1)) > 0,
                   "pretune run 2 searched again instead of making only exact hits")
+    buf = io.StringIO()
+    analytic_db, obs_dir = out / "pretune_analytic.json", out / "obs"
+    with contextlib.redirect_stdout(buf):
+        rc = pretune.main(["--smoke", "--strategy", "csa+nm", "--cost", "analytic",
+                           "--db", str(analytic_db), "--obs-dir", str(obs_dir)])
+    for line in buf.getvalue().splitlines():
+        print(f"[5] csa+nm analytic: {line}")
+    check(rc == 0 and "5 contexts tuned" in buf.getvalue(), f"pretune --strategy csa+nm --cost "
+          f"analytic exited {rc} or did not tune the 5 smoke contexts")
+    check(buf.getvalue().count("strategy=csa+nm") == 5, "pretune --strategy csa+nm: records not csa+nm")
     phase_launches["pretune"] = {n: c - before[n] for n, c in counts().items()}
     tuning_launches = counts()
+
+    # the host-side CLI on this run's files (no card needed)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for cmd in (["db", "list", "--db", str(out / "pretune.json")],
+                ["db", "diff", str(out / "pretune.json"), str(out / "pretune.json")],
+                ["report", str(obs_dir), "--db", str(analytic_db)]):
+        proc = subprocess.run([sys.executable, "-m", "repro_torch.tune", *cmd], capture_output=True,
+                              text=True, env=env, cwd=str(ROOT), timeout=300)
+        for line in (proc.stdout + proc.stderr).splitlines():
+            print(f"[5] tune {cmd[0]}{' ' + cmd[1] if cmd[0] == 'db' else ''}: {line}")
+        check(proc.returncode == 0, f"python -m repro_torch.tune {' '.join(cmd)} exited {proc.returncode}")
     print(f"[5] tuning-loop launches: {tuning_launches} by phase: {phase_launches}")
     for name, n in tuning_launches.items():
         check(n > 0, f"the tuning loop never launched the {name} kernel")
@@ -351,7 +457,93 @@ def main(argv=None) -> int:
         check(equal and finite, f"autotuned({name}) output differs from the kernel at the stored knobs")
     del replayed
 
-    # -------------------------------------------------------------- 6. times
+    # ------------------------------------------- main path 2: the route, 6
+    # every call's knobs are read off its decision; the first output at
+    # each knob setting is kept and every later one must equal it (no
+    # launch), and after the counts are read each kept output is held
+    # against the kernel launched at those knobs
+    reset_counts()
+    route_db = out / "route.json"
+    served: dict = {}
+    repeat_equal = [True]
+
+    def stream(router, name, calls):
+        decisions = []
+        begin = router.begin
+
+        def noting(*b_args, **b_kw):
+            d = begin(*b_args, **b_kw)
+            decisions.append(dict(d.point))
+            return d
+
+        router.begin = noting
+        ca, kw = call_args[name]
+        t0 = time.perf_counter()
+        try:
+            for _ in range(calls):
+                got = routed(name, *ca, router=router, **kw)
+                key = (name, tuple(sorted(decisions[-1].items())))
+                if key in served:
+                    repeat_equal[0] &= all(torch.equal(g_, w_) for g_, w_ in
+                                           zip(_tensors(got), _tensors(served[key])))
+                else:
+                    served[key] = got
+        finally:
+            router.begin = begin
+        return time.perf_counter() - t0, decisions
+
+    router = kernel_router(db=TuningDB(str(route_db)), epsilon=0.1, fresh=True)
+    route_points = {}
+    for name, calls in ROUTE_CALLS.items():
+        dt, decisions = stream(router, name, calls)
+        route_points[name] = decisions
+        print(f"[6] routed {name}: {calls} calls in {dt:.2f}s, knobs served "
+              f"{sorted({tuple(sorted(p.items())) for p in decisions})}")
+    router.wait_pending()
+    st = router.stats()
+    print(f"[6] router: calls={st['calls']} explores={st['explores']} exploits={st['exploits']} "
+          f"deferred_explores={st['deferred_explores']} candidate_failures={st['candidate_failures']} "
+          f"searches_completed={st['searches_completed']} drift_resets={st['drift_resets']} "
+          f"inband_builds={st['inband_builds']} contexts={st['contexts']}")
+    check(st["calls"] == st["explores"] + st["exploits"] == sum(ROUTE_CALLS.values()),
+          f"router accounting does not balance: {st}")
+    check(st["inband_builds"] == 0, "a router build ran on the serving thread")
+    route_recs = {r.key.name: r for r in TuningDB(str(route_db), autosave=False).records()}
+    check("decode_attention" in route_recs, "the router committed no decode_attention record")
+    drec = route_recs["decode_attention"]
+    for n, r in sorted(route_recs.items()):
+        print(f"[6] committed {n}: {r.point} cost={r.cost * 1e3:.4f}ms source={r.source} "
+              f"evals={r.evals} backend={r.key.backend} device_kind={r.key.device_kind}")
+    check(drec.key.backend == "cuda" and drec.key.device_kind == kind,
+          f"route record keyed {drec.key.backend}/{drec.key.device_kind}, not this card")
+    # a second router on the same DB: an exact hit from its first call
+    router2 = kernel_router(db=TuningDB(str(route_db), autosave=False), epsilon=0.1, fresh=True)
+    dt, decisions2 = stream(router2, "decode_attention", 20)
+    st2 = router2.stats()
+    ctx2 = router2.contexts()
+    print(f"[6] second router: 20 calls in {dt:.2f}s, explores={st2['explores']} "
+          f"exploits={st2['exploits']} finished={[c['finished'] for c in ctx2]} "
+          f"knobs {sorted({tuple(sorted(p.items())) for p in decisions2})}")
+    check(st2["explores"] == 0 and all(c["finished"] for c in ctx2)
+          and all(p == drec.point for p in decisions2),
+          "the second router did not exact-hit the committed decode record")
+    route_launches = counts()
+    phase_launches["route"] = route_launches
+    print(f"[6] route launches: {route_launches}")
+    check(route_launches["decode_attention"] == ROUTE_CALLS["decode_attention"] + 20,
+          f"routed decode calls did not each launch the kernel once: {route_launches}")
+    check(all(route_launches[n] == c for n, c in ROUTE_CALLS.items() if n != "decode_attention"),
+          f"routed calls did not each launch their kernel once: {route_launches}")
+    check(repeat_equal[0], "a routed output differs from an earlier one at the same knobs")
+    for (name, knobs), got in served.items():
+        ca, kw = call_args[name]
+        want = get_spec(name).fn(*ca, **kw, **dict(knobs))
+        equal = all(torch.equal(g_, w_) for g_, w_ in zip(_tensors(got), _tensors(want)))
+        print(f"[6] routed {name} at {dict(knobs)}: bit_equal={equal} (against the kernel at those knobs)")
+        check(equal, f"routed {name} output differs from the kernel at {dict(knobs)}")
+    del served, router, router2
+
+    # -------------------------------------------------------------- 7. times
     def cuda_ms(fn, reps: int) -> float:
         fn()  # warm-up
         torch.cuda.synchronize()
@@ -366,6 +558,9 @@ def main(argv=None) -> int:
     k_exp = k.repeat_interleave(H // Kh, dim=1)  # GQA expanded for the library call
     v_exp = v.repeat_interleave(H // Kh, dim=1)
     q_bhsd = q.transpose(1, 2)
+    g_da = dH // dKh
+    dk_exp, dv_exp = dk.repeat_interleave(g_da, dim=1), dv.repeat_interleave(g_da, dim=1)
+    dmask = (dvalid > 0)[:, None, None, :]  # SDPA takes True = attend
     timing = {
         "matmul": dict(
             default=lambda: ops.matmul(a, b, **defaults["matmul"]),
@@ -379,6 +574,13 @@ def main(argv=None) -> int:
             plain=lambda: fa.flash_attention_plain(q_bhsd, k, v, causal=True,
                                                    **records["flash_attention"].point),
             library=lambda: F.scaled_dot_product_attention(q_bhsd, k_exp, v_exp, is_causal=True),
+        ),
+        "decode_attention": dict(
+            default=lambda: ops.decode_attention(*da_args, **defaults["decode_attention"]),
+            tuned=lambda: ops.decode_attention(*da_args, **records["decode_attention"].point),
+            plain=lambda: da.decode_attention_plain(*da_args, **records["decode_attention"].point),
+            library=lambda: F.scaled_dot_product_attention(dq[:, :, None], dk_exp, dv_exp,
+                                                           attn_mask=dmask),
         ),
         "lru_scan": dict(
             default=lambda: ops.lru_scan(*lru_args, **defaults["lru_scan"]),
@@ -408,22 +610,43 @@ def main(argv=None) -> int:
         bound_ms = terms.bound_s * 1e3
         lib = f"{row['library']:.4f} ms" if row["library"] is not None else "none"
         mp = f", serving chunk=4 {row['main_path']:.4f} ms" if row["main_path"] is not None else ""
-        print(f"[6] {name}: default {row['default']:.4f} ms {defaults[name]}, tuned "
+        print(f"[7] {name}: default {row['default']:.4f} ms {defaults[name]}, tuned "
               f"{row['tuned']:.4f} ms {records[name].point}{mp}, plain {row['plain']:.4f} ms, "
               f"library {lib}, bound {bound_ms:.4f} ms by {terms.dominant} "
               f"({terms.flops / 1e9:.1f} GFLOP, {terms.bytes_accessed / 1e6:.1f} MB; "
               f"{bound_ms / row['tuned']:.4f} of the roofline tuned); launches by phase: "
               f"tune {phase_launches['tune'][name]}, replay {phase_launches['replay'][name]}, "
-              f"pretune {phase_launches['pretune'][name]}")
+              f"pretune {phase_launches['pretune'][name]}, route {phase_launches['route'][name]}")
+    csa_nm_ms = cuda_ms(lambda: ops.decode_attention(*da_args, **records_csa_nm.point), 5)
+    print(f"[7] decode_attention tuned by csa+nm: {csa_nm_ms:.4f} ms {records_csa_nm.point}; "
+          f"by the route: {drec.point}")
+    # recurrentgemma-2b's MQA decode: K and V are 16.8 MB, so they stay in the 50 MB L2
+    # between repetitions (the times below are warm-L2 times)
+    rg_terms = roofline("decode_attention", *rg_args)
+    rg_defaults = get_spec("decode_attention").defaults(*rg_args)
+    rg_k_exp = rg_args[1].repeat_interleave(gH // gKh, dim=1)
+    rg_v_exp = rg_args[2].repeat_interleave(gH // gKh, dim=1)
+    rg_mask = (rg_args[3] > 0)[:, None, None, :]
+    rg_row = {"default": cuda_ms(lambda: ops.decode_attention(*rg_args, **rg_defaults), 20),
+              "plain": cuda_ms(lambda: da.decode_attention_plain(*rg_args, **rg_defaults), 3),
+              "library": cuda_ms(lambda: F.scaled_dot_product_attention(
+                  rg_args[0][:, :, None], rg_k_exp, rg_v_exp, attn_mask=rg_mask), 20)}
+    times["decode_attention"]["rg_mqa"] = rg_row
+    print(f"[7] decode_attention recurrentgemma-2b MQA q{tuple(rg_args[0].shape)} "
+          f"kv{tuple(rg_args[1].shape)}: default {rg_row['default']:.4f} ms {rg_defaults}, plain "
+          f"{rg_row['plain']:.4f} ms, library {rg_row['library']:.4f} ms, bound "
+          f"{rg_terms.bound_s * 1e3:.4f} ms by {rg_terms.dominant} "
+          f"({rg_terms.bytes_accessed / 1e6:.1f} MB: inside the 50 MB L2, warm between repetitions)")
     del a, b, q, k, v, k_exp, v_exp, q_bhsd, lru_a, lru_b, lru_h0, rr, rk, rv, rlw, ru, rs0
-    del call_args, lru_args, rwkv_args, timing
+    del dq, dk, dv, dvalid, dk_exp, dv_exp, dmask, rg_args, rg_k_exp, rg_v_exp, small_da
+    del call_args, lru_args, rwkv_args, da_args, timing
     gc.collect()
     torch.cuda.empty_cache()
 
-    # ------------------------------------------ main path 2: serving, 7-8
+    # ------------------------------------------ main path 3: serving, 8-9
     serve_launches = {}
     plain_scan = {"lru_scan": ls.lru_scan_plain, "rwkv_scan": ls.rwkv_scan_plain}
-    for phase, (arch, scan, per_prefill) in enumerate(SERVE, start=7):
+    for phase, (arch, scan, per_prefill) in enumerate(SERVE, start=8):
         db_path = str(out / f"serve_{arch}.json")
         runs = []
         for run in (1, 2):
@@ -519,14 +742,17 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()  # free the first model before the second loads
 
-    main_launches = {n: tuning_launches[n] + serve_launches.get(n, 0) for n in names}
-    print(f"[8] serving launches: {serve_launches}; all main paths: {main_launches}")
+    main_launches = {n: tuning_launches[n] + route_launches[n] + serve_launches.get(n, 0)
+                     for n in names}
+    print(f"[9] serving launches: {serve_launches}; all main paths: {main_launches}")
     for name, n in main_launches.items():
         check(n > 0, f"no main path launched the {name} kernel")
 
     sources = {"matmul": ("src/repro_torch/kernels/csrc/matmul.cu", "src/repro/kernels/matmul.py:40"),
                "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:79"),
+               "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
+                                    "src/repro/kernels/decode_attention.py:58"),
                "lru_scan": ("src/repro_torch/kernels/csrc/linear_scan.cu",
                             "src/repro/kernels/linear_scan.py:147"),
                "rwkv_scan": ("src/repro_torch/kernels/csrc/linear_scan.cu",
@@ -544,8 +770,12 @@ def main(argv=None) -> int:
         }
         if row["main_path"] is not None:
             entry["ms_serving_chunk4"] = row["main_path"]
+        if "rg_mqa" in row:  # recurrentgemma-2b's MQA decode, at its default knobs
+            entry["ms_recurrentgemma_2b_mqa"] = row["rg_mqa"]["default"]
+            entry["plain_ms_recurrentgemma_2b_mqa"] = row["rg_mqa"]["plain"]
+            entry["library_ms_recurrentgemma_2b_mqa"] = row["rg_mqa"]["library"]
         kernels.append(entry)
-    print(f"[8] total {time.perf_counter() - t_start:.1f}s; DBs in {out}; "
+    print(f"[9] total {time.perf_counter() - t_start:.1f}s; DBs in {out}; "
           f"exec cache {exec_cache().stats()}")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())

@@ -6,9 +6,10 @@ user-cost modes, search-space codecs, and the cost backends.
 Counterpart of the JAX package's ``repro.core``.  The optimizers and search
 spaces are copies (same trajectories, bit for bit); measurement synchronizes
 CUDA instead of blocking on JAX arrays; the roofline bound comes from
-analytic FLOP and byte counts over :data:`H100_SXM`.  The search strategies
-(``strategy.py``, ``grid_random.py``) and ``tuned_jit.py`` are not ported
-yet.
+analytic FLOP and byte counts over :data:`H100_SXM`.  The search
+strategies (``strategy.py``: pipelines, portfolios and the spec grammar;
+``grid_random.py``) are copies too.  ``tuned_jit.py`` waits for the
+training slice.
 """
 from .autotuning import Autotuning
 from .costs import (
@@ -22,6 +23,7 @@ from .costs import (
     roofline_terms,
 )
 from .csa import CSA
+from .grid_random import GridSearch, RandomSearch
 from .guard import (
     CircuitBreaker,
     FaultPolicy,
@@ -46,12 +48,28 @@ from .measure import (
 from .nelder_mead import NelderMead
 from .optimizer import NumericalOptimizer
 from .space import ChoiceDim, Constraint, FloatDim, IntDim, LogIntDim, SearchSpace
+from .strategy import (
+    Pipeline,
+    Portfolio,
+    SearchStrategy,
+    cull_laggards,
+    make_strategy,
+    strategy_label,
+)
 
 __all__ = [
     "Autotuning",
     "CSA",
     "NelderMead",
+    "GridSearch",
+    "RandomSearch",
     "NumericalOptimizer",
+    "SearchStrategy",
+    "Pipeline",
+    "Portfolio",
+    "cull_laggards",
+    "make_strategy",
+    "strategy_label",
     "SearchSpace",
     "Constraint",
     "IntDim",

@@ -52,15 +52,6 @@ from .space import SearchSpace
 __all__ = ["Autotuning"]
 
 
-def _strategy_label(opt: NumericalOptimizer) -> str:
-    """Provenance spec of a plain optimizer (``TuningRecord.strategy``)."""
-    if isinstance(opt, CSA):
-        return "csa"
-    if isinstance(opt, NelderMead):
-        return "nm"
-    return type(opt).__name__.lower()
-
-
 def _known_std(record) -> Optional[float]:
     """A record's meaningful measurement std (see TuningRecord.known_std)."""
     return record.known_std()
@@ -74,10 +65,15 @@ class Autotuning:
 
     plus the extended form ``Autotuning(space=SearchSpace(...), ...)``.
 
-    ``search=`` is the single knob picking the search method: ``None``
-    (CSA) or a raw :class:`~repro_torch.core.optimizer.NumericalOptimizer`
-    instance.  Spec strings (``"csa+nm"``, portfolios) need the strategy
-    module, which is not ported yet, and raise ``NotImplementedError``.
+    ``search=`` is the single knob picking the search method.  It accepts
+
+    * a **spec string** (``"csa+nm"``, ``"csa:0.7+nm:0.3"``, ``"csa|nm"``)
+      parsed by :func:`repro_torch.core.strategy.make_strategy` — the paper's
+      CSA→NM hybrid as a staged pipeline, portfolios, ... — over the same
+      ``num_opt * max_iter`` tell budget the default CSA consumes;
+    * a raw :class:`~repro_torch.core.optimizer.NumericalOptimizer` instance;
+    * any :data:`~repro_torch.core.strategy.SearchStrategy` object (pipelines
+      and portfolios are themselves optimizers).
 
     The legacy ``optimizer=`` / ``strategy=`` kwargs remain as deprecated
     aliases of ``search=`` (they emit a ``DeprecationWarning`` and stay
@@ -135,15 +131,18 @@ class Autotuning:
             )
             search = optimizer if optimizer is not None else strategy
         if isinstance(search, str):
-            raise NotImplementedError(
-                f"search spec {search!r}: spec strings (repro_torch.core.strategy) "
-                "are not ported yet; pass an optimizer instance or None (CSA)"
+            from .strategy import make_strategy
+
+            search = make_strategy(
+                search, d, num_opt=num_opt, max_iter=max_iter, seed=seed
             )
         self.optimizer = search if search is not None else CSA(
             d, num_opt=num_opt, max_iter=max_iter, seed=seed
         )
         # provenance spec stamped on committed TuningRecords (records.strategy)
-        self.strategy = getattr(self.optimizer, "spec", None) or _strategy_label(
+        from .strategy import strategy_label
+
+        self.strategy = getattr(self.optimizer, "spec", None) or strategy_label(
             self.optimizer
         )
         # the statistic the fed costs minimize ("median" | "p95" | "p99" |

@@ -14,10 +14,14 @@ block shapes without owning a tuning loop: it fingerprints the call context
 The ``pretune`` CLI sweeps the registered grid below offline so production
 processes land on the first branch.
 
+``routed(name, *args)`` goes one step further: every call flows through a
+:class:`~repro_torch.runtime.ContextRouter` (:func:`kernel_router`) that
+keeps tuning the context online from live calls (ε-exploration) and commits
+what it learns to the DB.
+
 CUDA tensors launch the CUDA kernels; ``interpret=True`` runs their plain
 versions on CPU tensors (and keys the records ``{"interpret": true}``, the
-same key the JAX package's interpret-mode records carry).  The adaptive
-``routed`` / ``kernel_router`` dispatch waits for the runtime slice.
+same key the JAX package's interpret-mode records carry).
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ import dataclasses
 import functools
 import math
 import os
+import time
 from typing import Callable, Optional
 
 import numpy as np
@@ -58,6 +63,7 @@ from repro_torch.obs.trace import tracer as _tracer
 from repro_torch.tuning import TuningDB, default_db, make_key
 from repro_torch.tuning.records import signature_of
 
+from . import decode_attention as _da
 from . import flash_attention as _fa
 from . import linear_scan as _ls
 from . import matmul as _mm
@@ -68,6 +74,8 @@ log = get_logger(__name__)
 __all__ = [
     "autotuned",
     "tune_call",
+    "routed",
+    "kernel_router",
     "register",
     "get_spec",
     "registered",
@@ -90,6 +98,10 @@ class KernelSpec:
     # the dtype the arithmetic runs in, for the roofline's peak; None means
     # the first input's (the scans take bf16 inputs and compute in fp32)
     arith_dtype: Optional[str] = None
+    # check(*args, interpret=..., **kwargs, **knobs): the wrapper's own tile
+    # rules, raising ValueError for knobs the kernel refuses at these shapes,
+    # without a launch (the router's background builds; see kernel_router)
+    check: Optional[Callable] = None
 
 
 _REGISTRY: dict = {}
@@ -146,6 +158,9 @@ register(
             "bk": min(32, _pow2_floor(a.shape[1])),
         },
         work=lambda a, b: _mm.flops_bytes(a, b),
+        check=lambda a, b, *, bm, bn, bk, interpret: _mm.legal_tiles(
+            a.shape[0], b.shape[1], a.shape[1], bm, bn, bk, a.element_size(), not interpret
+        ),
     )
 )
 
@@ -165,6 +180,26 @@ register(
             "block_kv": min(128, _pow2_floor(k.shape[2])),
         },
         work=lambda q, k, v, causal=True: _fa.flops_bytes(q.transpose(1, 2), k, v, causal),
+        check=lambda q, k, v, causal=True, *, block_q, block_kv, interpret: _fa.legal_blocks(
+            q.shape[3], q.shape[1], k.shape[2], block_q, block_kv, q.element_size(), not interpret
+        ),
+    )
+)
+
+register(
+    KernelSpec(
+        name="decode_attention",
+        fn=ops.decode_attention,
+        # q: (B,H,hd); k/v: (B,Kh,S,hd); valid: (B,S) int32
+        space=lambda q, k, v, valid: SearchSpace(
+            [_log_dim("block_kv", k.shape[2], 64, 1024)]
+        ),
+        defaults=lambda q, k, v, valid: {"block_kv": _da.default_block_kv(q, k)},
+        work=_da.flops_bytes,
+        arith_dtype="float32",  # the kernel computes in fp32 whatever its inputs
+        check=lambda q, k, v, valid, *, block_kv, interpret: _da.legal_tile(
+            q.shape[1] // k.shape[1], q.shape[2], k.shape[2], block_kv, not interpret
+        ),
     )
 )
 
@@ -177,6 +212,9 @@ register(
         defaults=lambda a, b, h0: {"chunk": min(128, _pow2_floor(a.shape[1]))},
         work=_ls.lru_flops_bytes,
         arith_dtype="float32",
+        check=lambda a, b, h0, *, chunk, block_d=_ls.LRU_BLOCK_D, interpret: _ls.legal_lru(
+            a.shape[1], a.shape[2], chunk, block_d, not interpret
+        ),
     )
 )
 
@@ -191,6 +229,9 @@ register(
         defaults=lambda r, k, v, lw, u, s0: {"chunk": min(64, _pow2_floor(r.shape[1]))},
         work=_ls.rwkv_flops_bytes,
         arith_dtype="float32",
+        check=lambda r, k, v, lw, u, s0, *, chunk, interpret: _ls.legal_rwkv(
+            r.shape[1], r.shape[3], chunk, not interpret
+        ),
     )
 )
 
@@ -346,9 +387,13 @@ def tune_call(
     dict, receives the measurement engine's counters (reps spent, culls,
     roofline prunes) when the search finishes.
 
-    ``strategy``: ``None`` runs the classic CSA search.  Spec strings
-    (``"csa+nm"``, portfolios) need the strategy module, which is not ported
-    yet, and raise ``NotImplementedError``.
+    ``strategy`` picks the search strategy (``"csa+nm"``, ``"csa|nm"``, ...
+    — the :func:`repro_torch.core.strategy.make_strategy` grammar) over the
+    same ``num_opt * max_iter`` tell budget the default CSA consumes; ``None``
+    keeps the classic CSA search.  A :class:`~repro_torch.core.strategy.Portfolio`
+    strategy reuses the adaptive engine's calibrated noise floor for its
+    statistically-separated-lead culls.  The spec is stamped on the committed
+    record (``strategy``).
 
     ``objective`` picks the statistic a candidate's repetitions reduce to
     (``"median"`` default, ``"p95"``, ``"p99"`` — see
@@ -711,6 +756,111 @@ def tune_call(
             stats["faults_fired"] = plan.count()
         measure_stats.update(stats)
     return db.get(key)
+
+
+# --------------------------------------------------- router-backed dispatch
+_ROUTERS: dict = {}  # interpret flag -> process-wide ContextRouter
+_ROUTER_EPSILON = 0.1
+
+
+def _router_build(spec: KernelSpec, interpret: bool) -> Callable:
+    """One candidate's executable; runs on the router's background pool.
+
+    A build is the knob check alone (the kernel library is compiled once
+    per process, at its first launch).  Unlike :func:`tune_call`'s builds it
+    launches nothing: the pool runs while the serving thread times routed
+    calls on the same card, and a launch from the pool would land inside
+    that timing.  An illegal tile raises here and is charged ``inf`` by the
+    tuner without spending a call on it."""
+
+    def build(point: dict, *args, **kwargs):
+        if spec.check is not None:  # a spec without one fails at its first call
+            spec.check(*args, **kwargs, **point, interpret=interpret)
+        return functools.partial(spec.fn, **kwargs, **point, interpret=interpret)
+
+    return build
+
+
+def kernel_router(
+    *,
+    interpret: bool = False,
+    db: Optional[TuningDB] = None,
+    epsilon: float = _ROUTER_EPSILON,
+    jobs: Optional[int] = None,
+    fresh: bool = False,
+):
+    """The process-wide :class:`repro_torch.runtime.ContextRouter` over every
+    registered kernel (one router per ``interpret`` flavour).
+
+    Contexts are (kernel × pow2 shape-bucket); each starts from the tuning
+    DB (exact pretuned fingerprints replay instantly, neighbors warm-start a
+    half-budget search) and keeps adapting online: an ``epsilon`` fraction
+    of live calls measures a candidate whose knobs were checked on the
+    background pool (:func:`_router_build`), and drift in the exploit costs
+    triggers a warm re-search.  ``fresh=True`` builds an independently
+    configured router (tests, custom db/epsilon) instead of the cached
+    singleton; asking the existing singleton for a different configuration
+    is an error, not a silent no-op.
+    """
+    from repro_torch.runtime.context import ContextRouter
+
+    flag = bool(interpret)
+    if not fresh and flag in _ROUTERS:
+        if db is not None or epsilon != _ROUTER_EPSILON or jobs is not None:
+            raise ValueError(
+                f"kernel_router(interpret={flag}) is already configured; "
+                "pass fresh=True for a differently-configured router"
+            )
+        return _ROUTERS[flag]
+    router = ContextRouter(
+        db=db if db is not None else default_db(),
+        cache=_EXEC_CACHE,
+        jobs=_resolve_jobs(jobs),
+    )
+    for name in registered():
+        spec = get_spec(name)
+        router.register(
+            name,
+            space=spec.space,
+            defaults=spec.defaults,
+            build=_router_build(spec, flag),
+            epsilon=epsilon,
+            extra={"interpret": flag},
+        )
+    if not fresh:
+        _ROUTERS[flag] = router
+    return router
+
+
+def routed(
+    name: str,
+    *args,
+    router=None,
+    interpret: bool = False,
+    **kwargs,
+):
+    """Adaptive kernel dispatch: like :func:`autotuned`, but every call flows
+    through the kernel router — knobs keep improving while the process
+    serves, and a drifted context re-tunes itself.
+
+    A call explores a candidate only once its knobs were checked on the
+    router's pool; otherwise it runs the context's current best.  The
+    fallback path (no executable yet for the exploit knobs — e.g. the very
+    first call of a cold context) launches the kernel itself at the knobs
+    the router clamped into this exact shape's space.  Each call's time is
+    taken with the output's CUDA device synchronized and fed to the router.
+    """
+    r = router if router is not None else kernel_router(interpret=interpret)
+    decision = r.begin(name, *args, **kwargs)
+    t0 = time.perf_counter()
+    if decision.executable is not None:
+        out = decision.executable(*args)
+    else:
+        spec = get_spec(name)
+        out = spec.fn(*args, **kwargs, **decision.point, interpret=interpret)
+    block_until_ready(out)
+    r.observe(decision, time.perf_counter() - t0)
+    return out
 
 
 def autotuned(

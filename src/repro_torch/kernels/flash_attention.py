@@ -35,6 +35,7 @@ __all__ = [
     "flash_attention_fwd",
     "flash_attention_plain",
     "check_blocks",
+    "legal_blocks",
     "flops_bytes",
     "launches",
 ]
@@ -85,6 +86,16 @@ def check_blocks(hd: int, block_q: int, block_kv: int, itemsize: int) -> None:
             f"block_q={block_q} block_kv={block_kv} (hd {hd}) needs {smem} bytes of "
             f"shared memory (max {SMEM_LIMIT})"
         )
+
+
+def legal_blocks(hd: int, Sq: int, Skv: int, block_q: int, block_kv: int, itemsize: int,
+                 on_card: bool) -> tuple:
+    """The blocks a call runs with (clamped to the sequences), or
+    ``ValueError``: they must divide them, and on the card fit the kernel."""
+    blocks = _blocks(Sq, Skv, block_q, block_kv)
+    if on_card:
+        check_blocks(hd, *blocks, itemsize)
+    return blocks
 
 
 def flops_bytes(q, k, v, causal: bool = True) -> tuple:
@@ -203,7 +214,8 @@ def flash_attention_fwd(
     Kh, Skv = k.shape[1], k.shape[2]
     if k.shape[0] != B or k.shape[3] != hd or H % Kh:
         raise ValueError(f"flash_attention_fwd: q {tuple(q.shape)} and k {tuple(k.shape)} do not match")
-    block_q, block_kv = _blocks(Sq, Skv, block_q, block_kv)
+    block_q, block_kv = legal_blocks(hd, Sq, Skv, block_q, block_kv, q.element_size(),
+                                     on_card=not interpret)
     if interpret:
         if q.is_cuda or k.is_cuda or v.is_cuda:
             raise ValueError(
@@ -211,7 +223,6 @@ def flash_attention_fwd(
             )
         return flash_attention_plain(q, k, v, causal=causal, block_q=block_q, block_kv=block_kv)
     _check_cuda(q, k, v)
-    check_blocks(hd, block_q, block_kv, q.element_size())
     out = torch.empty_like(q)  # keeps q's strides when q is a transposed view
     _launch(q, k, v, out, causal, block_q, block_kv)
     return out

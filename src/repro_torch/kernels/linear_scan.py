@@ -35,6 +35,8 @@ __all__ = [
     "lru_scan_plain",
     "rwkv_scan_chunked",
     "rwkv_scan_plain",
+    "legal_lru",
+    "legal_rwkv",
     "lru_flops_bytes",
     "rwkv_flops_bytes",
     "launches",
@@ -109,6 +111,24 @@ def check_rwkv(chunk: int, hd: int) -> None:
         raise ValueError(
             f"chunk={chunk} (hd {hd}) needs {smem} bytes of shared memory (max {SMEM_LIMIT})"
         )
+
+
+def legal_lru(T: int, D: int, chunk: int, block_d: int, on_card: bool) -> tuple:
+    """(chunk, block_d) a call runs with (clamped), or ``ValueError``: they
+    must divide (T, D), and on the card fit the kernel."""
+    L, bd = _chunk(T, chunk), _lru_block_d(D, block_d)
+    if on_card:
+        check_lru(L, bd)
+    return L, bd
+
+
+def legal_rwkv(T: int, hd: int, chunk: int, on_card: bool) -> int:
+    """The chunk a call runs with (clamped), or ``ValueError``: it must
+    divide T, and on the card fit the kernel at this head dim."""
+    L = _chunk(T, chunk)
+    if on_card:
+        check_rwkv(L, hd)
+    return L
 
 
 # ------------------------------------------------------------------ work
@@ -189,8 +209,7 @@ def lru_scan_chunked(a, b, h0, *, chunk: int = 128, block_d: int = LRU_BLOCK_D,
         raise ValueError(f"lru_scan: bad shapes a {tuple(a.shape)} b {tuple(b.shape)} "
                          f"h0 {tuple(h0.shape)}")
     B, T, D = a.shape
-    L = _chunk(T, chunk)
-    bd = _lru_block_d(D, block_d)
+    L, bd = legal_lru(T, D, chunk, block_d, on_card=not interpret)
     if interpret:
         if a.is_cuda or b.is_cuda or h0.is_cuda:
             raise ValueError("lru_scan: interpret=True runs the plain version on CPU tensors only")
@@ -199,7 +218,6 @@ def lru_scan_chunked(a, b, h0, *, chunk: int = 128, block_d: int = LRU_BLOCK_D,
     io = (torch.float32, torch.bfloat16)
     _check_cuda("lru_scan", {"a": a, "b": b, "h0": h0},
                 {"a": io, "b": (a.dtype,), "h0": (torch.float32,)})
-    check_lru(L, bd)
     hs = torch.empty_like(a)
     hT = torch.empty((B, D), dtype=torch.float32, device=a.device)
     lib = _cuda.load("linear_scan")
@@ -230,7 +248,7 @@ def rwkv_scan_chunked(r, k, v, lw, u, s0, *, chunk: int = 64, interpret: bool = 
     if u.shape != (H, hd) or s0.shape != (B, H, hd, hd):
         raise ValueError(f"rwkv_scan: u {tuple(u.shape)} / s0 {tuple(s0.shape)} do not match "
                          f"r {tuple(r.shape)}")
-    L = _chunk(T, chunk)
+    L = legal_rwkv(T, hd, chunk, on_card=not interpret)
     if interpret:
         if any(x.is_cuda for x in (r, k, v, lw, u, s0)):
             raise ValueError("rwkv_scan: interpret=True runs the plain version on CPU tensors only")
@@ -240,7 +258,6 @@ def rwkv_scan_chunked(r, k, v, lw, u, s0, *, chunk: int = 64, interpret: bool = 
     f32 = (torch.float32,)
     _check_cuda("rwkv_scan", {"r": r, "k": k, "v": v, "lw": lw, "u": u, "s0": s0},
                 {"r": io, "k": (r.dtype,), "v": (r.dtype,), "lw": f32, "u": f32, "s0": f32})
-    check_rwkv(L, hd)
     y = torch.empty_like(r)
     sT = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
     lib = _cuda.load("linear_scan")

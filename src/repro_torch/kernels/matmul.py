@@ -27,7 +27,7 @@ import torch
 
 from . import _cuda
 
-__all__ = ["matmul_tiled", "matmul_plain", "check_tiles", "flops_bytes", "launches"]
+__all__ = ["matmul_tiled", "matmul_plain", "check_tiles", "legal_tiles", "flops_bytes", "launches"]
 
 #: shared memory one block may use on Hopper (227 KB)
 SMEM_LIMIT = 232448
@@ -71,6 +71,16 @@ def check_tiles(bm: int, bn: int, bk: int, itemsize: int) -> None:
             f"tile bm={bm} bn={bn} bk={bk} needs {smem} bytes of shared memory "
             f"(max {SMEM_LIMIT})"
         )
+
+
+def legal_tiles(M: int, N: int, K: int, bm: int, bn: int, bk: int, itemsize: int,
+                on_card: bool) -> tuple:
+    """The tiles a call runs with (clamped to the dims), or ``ValueError``:
+    they must divide the dims, and on the card fit the CUDA kernel."""
+    tiles = _tiles(M, N, K, bm, bn, bk)
+    if on_card:
+        check_tiles(*tiles, itemsize)
+    return tiles
 
 
 def flops_bytes(a, b) -> tuple:
@@ -137,13 +147,12 @@ def matmul_tiled(a, b, *, bm: int = 128, bn: int = 128, bk: int = 32, interpret:
         raise ValueError(f"matmul_tiled: shapes {tuple(a.shape)} @ {tuple(b.shape)} do not chain")
     M, K = a.shape
     N = b.shape[1]
-    bm, bn, bk = _tiles(M, N, K, bm, bn, bk)
+    bm, bn, bk = legal_tiles(M, N, K, bm, bn, bk, a.element_size(), on_card=not interpret)
     if interpret:
         if a.is_cuda or b.is_cuda:
             raise ValueError("matmul_tiled: interpret=True runs the plain version on CPU tensors only")
         return matmul_plain(a, b, bm=bm, bn=bn, bk=bk)
     _check_cuda(a, b)
-    check_tiles(bm, bn, bk, a.element_size())
     out = torch.empty((M, N), dtype=a.dtype, device=a.device)
     _launch(a, b, out, bm, bn, bk)
     return out

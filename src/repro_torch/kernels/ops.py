@@ -1,6 +1,7 @@
 """Public wrappers for the ported kernels.
 
-Gradients: forward passes run the kernels; backward passes recompute through
+Gradients: forward passes run the kernels (``decode_attention`` is
+inference-only and has none, as in the JAX package); backward passes recompute through
 the plain oracles in :mod:`ref` (``torch.autograd.Function`` here, where the
 JAX package uses ``jax.custom_vjp``), exactly like the JAX package's
 ``_flash_bwd``.  Fused backward kernels are future work.
@@ -14,11 +15,12 @@ from __future__ import annotations
 import torch
 
 from . import ref
+from .decode_attention import decode_attention_fwd
 from .flash_attention import flash_attention_fwd
 from .linear_scan import LRU_BLOCK_D, lru_scan_chunked, rwkv_scan_chunked
 from .matmul import matmul_tiled
 
-__all__ = ["flash_attention", "rwkv_scan", "lru_scan", "matmul"]
+__all__ = ["flash_attention", "decode_attention", "rwkv_scan", "lru_scan", "matmul"]
 
 
 # ---------------------------------------------------------- flash attention
@@ -48,6 +50,13 @@ class _Flash(torch.autograd.Function):
 def flash_attention(q, k, v, *, causal=True, block_q=128, block_kv=128, interpret=False):
     """q: (B,Sq,H,hd); k/v: (B,Kh,Skv,hd) -> (B,Sq,H,hd)."""
     return _Flash.apply(q, k, v, causal, block_q, block_kv, interpret)
+
+
+# ---------------------------------------------------------- decode attention
+def decode_attention(q, k, v, valid, *, block_kv=512, interpret=False):
+    """Inference-only (no gradient, as in the JAX package). q: (B,H,hd);
+    k/v: (B,Kh,S,hd); valid: (B,S) int32."""
+    return decode_attention_fwd(q, k, v, valid, block_kv=block_kv, interpret=interpret)
 
 
 # ----------------------------------------------------------------- rwkv scan

@@ -13,7 +13,13 @@ import math
 
 import torch
 
-__all__ = ["flash_attention_ref", "matmul_ref", "lru_scan_ref", "rwkv_scan_ref"]
+__all__ = [
+    "flash_attention_ref",
+    "decode_attention_ref",
+    "matmul_ref",
+    "lru_scan_ref",
+    "rwkv_scan_ref",
+]
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True):
@@ -34,6 +40,22 @@ def flash_attention_ref(q, k, v, *, causal: bool = True):
     p = torch.softmax(s, dim=-1).to(v.dtype)
     o = torch.einsum("bkgqs,bksh->bqkgh", p.float(), v.float()).to(v.dtype)
     return o.reshape(B, Sq, H, hd)
+
+
+def decode_attention_ref(q, k, v, length):
+    """Single-step decode: q: (B,H,hd); k/v: (B,Kh,S,hd); length: int —
+    number of valid cache entries.  -> (B,H,hd).  As in the JAX oracle, p is
+    rounded to ``v.dtype`` before the P·V product (the kernels keep it fp32)."""
+    B, H, hd = q.shape
+    Kh, S = k.shape[1], k.shape[2]
+    g = H // Kh
+    qh = q.reshape(B, Kh, g, hd).float()
+    s = torch.einsum("bkgh,bksh->bkgs", qh, k.float()) * (1.0 / math.sqrt(hd))
+    valid = torch.arange(S, device=q.device) < length
+    s = torch.where(valid, s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    o = torch.einsum("bkgs,bksh->bkgh", p.float(), v.float()).to(v.dtype)
+    return o.reshape(B, H, hd)
 
 
 def matmul_ref(a, b):

@@ -7,7 +7,7 @@ cache's hit/miss accounting and the breaker/quarantine state counters are
 :class:`MetricsRegistry` additionally get-or-creates metrics by name for
 cross-cutting series that no single object owns (compile seconds, rep
 seconds, ε-credit spend, retries/timeouts, drift events), and snapshots the
-whole registry to one JSON-able dict for ``tune report`` (not ported yet) and the
+whole registry to one JSON-able dict for ``python -m repro_torch.tune report`` and the
 ``metrics.json`` artifact.
 
 Everything here is always-on: an increment is one lock acquisition on ints,

@@ -64,13 +64,16 @@ def pow2_bucket(n: int) -> int:
 
 class _BucketedArray:
     """Shape/dtype proxy standing in for an array when fingerprinting a
-    bucketed context (``signature_of`` only reads these two attributes)."""
+    bucketed context (``signature_of`` reads these two attributes; the
+    tensor's ``device`` rides along so the key names the card the call
+    runs on, as :func:`~repro_torch.tuning.records.default_device` reads it)."""
 
-    __slots__ = ("shape", "dtype")
+    __slots__ = ("shape", "dtype", "device")
 
-    def __init__(self, shape: tuple, dtype: Any) -> None:
+    def __init__(self, shape: tuple, dtype: Any, device: Any = None) -> None:
         self.shape = tuple(shape)
         self.dtype = dtype
+        self.device = device
 
 
 def bucket_args(
@@ -82,7 +85,8 @@ def bucket_args(
 
     def one(v):
         if hasattr(v, "shape") and hasattr(v, "dtype"):
-            return _BucketedArray([bucket(int(d)) for d in v.shape], v.dtype)
+            return _BucketedArray([bucket(int(d)) for d in v.shape], v.dtype,
+                                  getattr(v, "device", None))
         return v
 
     return tuple(one(v) for v in args), {k: one(v) for k, v in (kwargs or {}).items()}
@@ -101,9 +105,8 @@ class RouteSpec:
     ``"fixed"``) turns on multi-repetition explore racing in the route's
     tuners; ``None`` keeps one request per candidate.  ``strategy`` is a
     search-strategy spec string (``"csa+nm"``, ``"csa|nm"``, ... — see
-    the JAX package's ``core.strategy``; not ported yet, a spec raises
-    ``NotImplementedError``) used to build each context's
-    search; with a staged strategy, environment drift (level 1) re-tunes
+    :func:`repro_torch.core.strategy.make_strategy`) used to build each
+    context's search; with a staged strategy, environment drift (level 1) re-tunes
     through the refinement stage alone.  ``optimizer`` (a ``space -> opt``
     factory) overrides it.  ``breaker`` (kwargs dict for a
     :class:`~repro_torch.core.guard.CircuitBreaker`, e.g. ``{"threshold": 3,

@@ -21,7 +21,7 @@ Layout (versioned)::
 a ``start`` event before measurement and a ``commit``/``failed`` event after
 — each append fsynced, torn trailing lines tolerated on load.  A killed run
 restarts with ``--resume`` re-measuring nothing already committed, and
-``tune db merge`` (not ported yet; :func:`~repro_torch.tuning.fleet.merge_dbs`) folds a partial journal like any shard DB.
+``python -m repro_torch.tune db merge`` folds a partial journal like any shard DB.
 
 ``default_db()`` gives library call sites (the kernels' ``autotuned`` entry
 point) a process-wide DB without plumbing: file-backed when the
@@ -224,7 +224,7 @@ class RunJournal:
       run that died mid-measurement (*interrupted*).
     * ``{"event": "commit", "key": <encoded>, "record": {...}}`` — the
       case's committed :class:`TuningRecord` (full JSON, so a journal alone
-      can reconstruct a DB — ``tune db merge`` (not ported yet; :func:`~repro_torch.tuning.fleet.merge_dbs`) accepts journals as
+      can reconstruct a DB — ``python -m repro_torch.tune db merge`` accepts journals as
       sources).
     * ``{"event": "failed", "key": <encoded>, "error": "..."}`` — the case
       completed with no record (e.g. every candidate crashed).  Resumes skip

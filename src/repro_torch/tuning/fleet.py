@@ -20,15 +20,28 @@ carries real measurement confidence, ``cost + 0.02·|cost|`` (the measurement
 engine's relative-noise prior) when it does not — then breaking exact ties
 deterministically.
 
-The device-parallel half of the JAX package's fleet (``ShardedPortfolio``,
-``device_bound_measure``) is not ported yet.
+Across devices, :class:`ShardedPortfolio` runs a Portfolio race with one
+worker per member instead of round-robin turns: each member's rung-sized
+ask-batches are measured concurrently, costs are gathered at a rung
+barrier, and the cull decision is the *same pure function*
+(:func:`repro_torch.core.strategy.cull_laggards`) the serial Portfolio
+applies — so with deterministic costs the surviving members and their
+bests match the serial race.  Pinning each member to its own card
+(``device_bound_measure``, ``local_device_pool``) waits for the parallel
+slice.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import math
-from typing import Sequence, Tuple
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from repro_torch.obs.trace import tracer as _tracer
 
 from .records import TuningKey, TuningRecord
 
@@ -43,6 +56,8 @@ __all__ = [
     "MergeStats",
     "merge_dbs",
     "journal_to_db",
+    "FleetResult",
+    "ShardedPortfolio",
 ]
 
 #: relative noise prior applied to records with *unknown* measurement
@@ -199,3 +214,250 @@ def journal_to_db(path: str):
     from .db import RunJournal
 
     return RunJournal(path).to_db()
+
+
+# ------------------------------------------------------- sharded portfolio
+@dataclasses.dataclass
+class FleetResult:
+    """Outcome of a :meth:`ShardedPortfolio.run` race."""
+
+    best_x: np.ndarray  # normalized coordinates of the overall best
+    best_cost: float
+    member_bests: List[float]  # best finite cost per member (inf if none)
+    member_best_x: List[Optional[np.ndarray]]
+    survivors: List[int]  # members still active when the race ended
+    spent: int  # total tells delivered
+    member_spent: List[int]
+    wall_s: float
+
+
+class ShardedPortfolio:
+    """A Portfolio race with one concurrent worker per member.
+
+    The serial :class:`~repro_torch.core.strategy.Portfolio` interleaves its
+    members' rung-sized chunks on a single measurement thread, so the race's
+    wall-clock is the *sum* of every member's measurements.  This driver
+    runs the same race as lockstep **passes**: every active member takes one
+    rung-sized turn of its own ask→measure→tell loop *concurrently* — each
+    turn touches only its own optimizer and its own state slots, so workers
+    never contend — then a **rung barrier** gathers the scoreboard.  The
+    cull check fires under the serial driver's exact gating rule (every
+    active member has consumed its ``min(rung, natural round)`` check quota
+    since the last check) and applies the identical pure decision
+    (:func:`~repro_torch.core.strategy.cull_laggards`): statistically separated
+    laggards are dropped, at most half the field per check, never the
+    leader.  A culled member's worker goes idle, so with a shared budget
+    its remaining allowance flows to the survivors — and the wall-clock of
+    the whole race collapses to that of its slowest surviving member.
+
+    With deterministic costs each member's search trajectory is identical
+    to the serial race by construction (a member's tells depend only on its
+    own costs), and the cull decisions match exactly whenever quota
+    crossings land on pass boundaries — every member crosses its quota
+    within one turn, which holds when member round sizes are either one
+    natural round ≤ rung (CSA's m probes, a random stream) or drip-fed
+    sweeps ≥ rung (a grid).  A member that needs *several* turns to
+    accumulate its quota (a simplex asking fewer points per round than its
+    ``get_num_points``) may see checks land one turn later than the serial
+    mid-pass firing — both are valid successive-halving schedules over the
+    same trajectories.
+
+    ``measure(member_index, points) -> costs`` is the caller's measurement
+    hook; it runs on the member's worker thread.
+    """
+
+    def __init__(
+        self,
+        optimizers: Sequence,
+        *,
+        budget: Optional[int] = None,
+        noise=None,
+        margin: float = 0.5,
+        rung: Optional[int] = None,
+    ) -> None:
+        from repro_torch.core.measure import NoiseEstimate
+
+        opts = list(optimizers)
+        if len(opts) < 2:
+            raise ValueError("ShardedPortfolio needs at least two optimizers")
+        dims = {o.get_dimension() for o in opts}
+        if len(dims) != 1:
+            raise ValueError(f"member dimensions differ: {sorted(dims)}")
+        if budget is not None and budget < 1:
+            raise ValueError(f"budget must be >= 1, got {budget}")
+        self._opts = opts
+        self._dim = opts[0].get_dimension()
+        self._budget = int(budget) if budget is not None else None
+        self._noise = noise if noise is not None else NoiseEstimate(0.0, 0.02)
+        self._margin = float(margin)
+        if rung is not None and int(rung) < 1:
+            raise ValueError(f"rung must be >= 1, got {rung}")
+        if rung is not None:
+            self._rung = int(rung)
+        else:
+            # same sizing rule as the serial Portfolio: one natural round of
+            # the widest member, capped at a fair share of the budget
+            self._rung = max(o.get_num_points() for o in opts)
+            if budget is not None:
+                self._rung = max(1, min(self._rung, int(budget) // (2 * len(opts))))
+        n = len(opts)
+        self._active: List[int] = list(range(n))
+        self._spent = 0
+        self._member_spent = [0] * n
+        self._member_best = [np.inf] * n
+        self._member_best_x: List[Optional[np.ndarray]] = [None] * n
+        self._since_check = [0] * n  # tells since the last cull check
+        # per-member round buffering, mirroring the serial driver: a round
+        # larger than one turn's allowance is drip-fed, its costs buffered
+        # until the member's full round is in and its accept/anneal runs
+        self._round: List[Optional[list]] = [None] * n
+        self._fed: List[list] = [[] for _ in opts]
+
+    # ------------------------------------------------------------- interface
+    @property
+    def members(self) -> list:
+        return list(self._opts)
+
+    @property
+    def active(self) -> list:
+        return list(self._active)
+
+    @property
+    def member_bests(self) -> list:
+        return [float(b) for b in self._member_best]
+
+    @property
+    def spent(self) -> int:
+        return self._spent
+
+    def set_noise(self, noise) -> None:
+        """Adopt a calibrated noise floor for the separation test."""
+        self._noise = noise
+
+    def _quota(self, i: int) -> int:
+        """Per-cycle allowance: the member's own check quota (its natural
+        round size, capped by the rung) — the serial driver's scoring unit."""
+        return min(self._rung, max(1, self._opts[i].get_num_points()))
+
+    def _member_live(self, i: int) -> bool:
+        return self._round[i] is not None or not self._opts[i].is_end()
+
+    def _turn(self, i: int, allowance: int, measure: Callable) -> int:
+        """Member ``i``'s turn: measure **one** chunk of up to ``allowance``
+        tells from its pending round (asking a fresh round when none is in
+        flight), exactly like one serial-driver turn.  Touches only
+        index-``i`` state slots, so concurrent workers need no locks."""
+        if self._round[i] is None:
+            if self._opts[i].is_end():
+                return 0
+            r = self._opts[i].ask()
+            if not r:
+                return 0
+            self._round[i] = [np.asarray(p, dtype=float).copy() for p in r]
+            self._fed[i] = []
+        done_n = len(self._fed[i])
+        chunk = self._round[i][done_n : done_n + max(1, allowance)]
+        costs = [float(c) for c in measure(i, [p.copy() for p in chunk])]
+        if len(costs) != len(chunk):
+            raise ValueError(
+                f"measure returned {len(costs)} costs for {len(chunk)} points"
+            )
+        for p, c in zip(chunk, costs):
+            if np.isfinite(c) and c < self._member_best[i]:
+                self._member_best[i] = float(c)
+                self._member_best_x[i] = np.array(p, dtype=float, copy=True)
+        self._fed[i].extend(costs)
+        if len(self._fed[i]) >= len(self._round[i]):
+            # the member's full round is in: its accept/anneal step runs
+            self._opts[i].tell(self._fed[i])
+            self._round[i] = None
+            self._fed[i] = []
+        return len(costs)
+
+    def run(
+        self,
+        measure: Callable[[int, List[np.ndarray]], Sequence[float]],
+        *,
+        max_workers: Optional[int] = None,
+    ) -> FleetResult:
+        """Race the members to completion (every member finished or culled,
+        or the shared budget exhausted) and return the scoreboard."""
+        from repro_torch.core.strategy import cull_laggards
+
+        t0 = time.perf_counter()
+        workers = min(len(self._opts), max_workers or len(self._opts))
+        with ThreadPoolExecutor(max_workers=max(1, workers)) as pool:
+            while True:
+                if self._budget is not None and self._spent >= self._budget:
+                    break
+                live = [i for i in self._active if self._member_live(i)]
+                if not live:
+                    break
+                # one lockstep pass: every live member takes one rung-sized
+                # turn, all turns concurrent (each touches only its own
+                # member's state); the shared budget is reserved in member
+                # order, as the serial round-robin would spend it
+                allow = {}
+                rem = (
+                    None if self._budget is None else self._budget - self._spent
+                )
+                for i in live:
+                    a = self._rung
+                    if rem is not None:
+                        a = min(a, rem)
+                        rem -= a
+                    if a > 0:
+                        allow[i] = a
+                if not allow:
+                    break
+                # worker turns open member_turn spans attached to *this*
+                # thread's current span, so a fleet run nests under the
+                # caller's search/pretune span in the trace
+                futs = {
+                    pool.submit(
+                        _tracer().wrap(self._turn, "member_turn", member=i),
+                        i, a, measure,
+                    ): i
+                    for i, a in allow.items()
+                }
+                for f, i in futs.items():
+                    n_tells = f.result()
+                    self._spent += n_tells
+                    self._member_spent[i] += n_tells
+                    self._since_check[i] += n_tells
+                # rung barrier: the cull check fires only once every active
+                # member has consumed its check quota since the last check —
+                # the serial driver's gating rule, applied at pass boundaries
+                if len(self._active) >= 2 and all(
+                    self._since_check[i] >= self._quota(i)
+                    or not self._member_live(i)
+                    for i in self._active
+                ):
+                    for i in self._active:
+                        self._since_check[i] = 0
+                    for i in cull_laggards(
+                        self._active, self._member_best, self._noise, self._margin
+                    ):
+                        self._active.remove(i)
+        best_i = min(
+            range(len(self._opts)), key=lambda i: self._member_best[i]
+        )
+        best_cost = float(self._member_best[best_i])
+        best_x = (
+            self._member_best_x[best_i]
+            if self._member_best_x[best_i] is not None
+            else np.zeros(self._dim)
+        )
+        return FleetResult(
+            best_x=np.array(best_x, dtype=float, copy=True),
+            best_cost=best_cost,
+            member_bests=self.member_bests,
+            member_best_x=[
+                None if x is None else np.array(x, dtype=float, copy=True)
+                for x in self._member_best_x
+            ],
+            survivors=list(self._active),
+            spent=self._spent,
+            member_spent=list(self._member_spent),
+            wall_s=time.perf_counter() - t0,
+        )

@@ -12,10 +12,10 @@ CPU instead: the kernels' plain PyTorch versions on CPU tensors, keyed
 Without ``--interpret`` and without a card the sweep stops with an error;
 it never carries on on the CPU.
 
-Sweeps the registered (kernel, shape) grid (matmul, flash attention and
-the RG-LRU scan — the JAX package's grid without its decode-attention
-cases; inputs made from numpy seeds), runs the PATSMA search per context, and
-commits every record atomically.  A context already in the DB is an exact
+Sweeps the registered (kernel, shape) grid (the JAX package's: matmul,
+flash attention, decode attention and the RG-LRU scan; inputs made from
+numpy seeds), runs the PATSMA search per context, and commits every record
+atomically.  A context already in the DB is an exact
 hit: it replays with zero measurements, and the run summary counts it.
 ``--measure adaptive`` (the default) races each round's candidates;
 ``--measure fixed`` keeps the classic ``RuntimeCost`` fixed-repeat loop.
@@ -33,8 +33,23 @@ completed.
 
 ``--list`` prints the grid with each case's DB status (exact hit / warm
 neighbor / cold) without tuning anything, and ``--only <glob>`` restricts a
-sweep to matching cases.  Not ported yet: ``--launch`` (launch-level
-tuning), ``--strategy`` (search strategy specs) and ``--cost analytic``.
+sweep to matching cases.  ``--strategy csa+nm`` swaps the per-context
+search for the paper's CSA→NM hybrid pipeline (or any
+:func:`repro_torch.core.strategy.make_strategy` spec) at the same total
+measurement budget; the spec is stamped on every committed record.
+
+``--cost analytic`` swaps measurement for a deterministic cost: the call's
+roofline lower bound, ``roofline(name, *args).bound_s`` (analytic FLOP and
+bytes over the H100's peaks).  It does not depend on the knobs, so every
+legal candidate of a context ties and the search trajectory alone decides
+the committed point — deterministically, which together with
+``--no-warm-start`` makes a sharded sweep reproduce the unsharded one.
+Illegal tiles still cost ``inf`` (their build fails first).  ``--launch``
+(launch-level tuning) waits for the parallel slice.
+
+``python -m repro_torch.tune pretune`` is the same command behind the
+umbrella CLI, which also provides ``db merge`` / ``db list`` / ``db diff`` and
+``report``.
 """
 from __future__ import annotations
 
@@ -58,23 +73,25 @@ def _cases(smoke: bool, device, abstract: bool = False):
         def rnd(seed, shape):
             return torch.empty(shape, dtype=torch.float32, device="meta")
 
-        def filled(value, shape):
-            return torch.empty(shape, dtype=torch.float32, device="meta")
+        def filled(value, shape, dtype=torch.float32):
+            return torch.empty(shape, dtype=dtype, device="meta")
     else:
         def rnd(seed, shape):
             x = np.random.RandomState(seed).standard_normal(shape).astype(np.float32)
             return torch.from_numpy(x).to(device)
 
-        def filled(value, shape):
-            return torch.full(shape, value, dtype=torch.float32, device=device)
+        def filled(value, shape, dtype=torch.float32):
+            return torch.full(shape, value, dtype=dtype, device=device)
 
     if smoke:
         mm_shapes = [(64, 64, 64), (128, 128, 128)]
         fa_shapes = [(1, 2, 2, 64, 16)]
+        da_shapes = [(2, 4, 2, 128, 16)]
         ls_shapes = [(2, 64, 32)]
     else:
         mm_shapes = [(128,) * 3, (256,) * 3, (512, 512, 256)]
         fa_shapes = [(1, 2, 2, 64, 16), (1, 4, 2, 128, 32), (2, 4, 4, 256, 32)]
+        da_shapes = [(2, 4, 2, 128, 16), (4, 8, 2, 512, 32)]
         ls_shapes = [(2, 64, 32), (2, 256, 64)]
 
     cases = []
@@ -92,6 +109,19 @@ def _cases(smoke: bool, device, abstract: bool = False):
                     rnd(0, (b, s, h, hd)),
                     rnd(1, (b, kh, s, hd)),
                     rnd(2, (b, kh, s, hd)),
+                ),
+            )
+        )
+    for b, h, kh, s, hd in da_shapes:
+        cases.append(
+            (
+                "decode_attention",
+                f"b{b}h{h}kh{kh}s{s}d{hd}",
+                lambda b=b, h=h, kh=kh, s=s, hd=hd: (
+                    rnd(0, (b, h, hd)),
+                    rnd(1, (b, kh, s, hd)),
+                    rnd(2, (b, kh, s, hd)),
+                    filled(1, (b, s), torch.int32),  # every slot valid
                 ),
             )
         )
@@ -121,6 +151,40 @@ def _case_key(name: str, call_args, interpret: bool, device: tuple):
     return make_key(name, args=call_args, space=space,
                     extra={"interpret": bool(interpret)},
                     backend=device[0], device_kind=device[1])
+
+
+def _shard_filter(cases, smoke, wanted, only, shard, interpret: bool, device: tuple):
+    """Keep the cases whose fingerprint lands in ``shard`` = (index, num).
+    Assignment hashes the full context key (:meth:`TuningKey.shard`) of
+    meta-tensor stand-ins, so every fleet worker computes the same
+    partition with no coordination and without materializing the grid."""
+    from repro_torch.tuning.fleet import in_shard
+
+    index, num = shard
+    abstract = {
+        (n, label): build
+        for n, label, build in _selected(_cases(smoke, None, abstract=True), wanted, only)
+    }
+    return [
+        (n, label, build) for n, label, build in cases
+        if in_shard(_case_key(n, abstract[(n, label)](), interpret, device), index, num)
+    ]
+
+
+def _analytic_cost_fn(name: str, call_args):
+    """Deterministic stand-in for measurement: the call's roofline lower
+    bound (:func:`repro_torch.kernels.autotuned.roofline`).  The same on
+    every host and every run — what the fleet's shard-equivalence contract
+    needs.  It does not depend on the knobs, so the candidates of a context
+    tie and the (equally deterministic) search trajectory decides."""
+    from repro_torch.kernels.autotuned import roofline
+
+    bound = float(roofline(name, *call_args).bound_s)
+
+    def cost(ex, *args):
+        return bound
+
+    return cost
 
 
 def _selected(cases, wanted, only):
@@ -163,8 +227,12 @@ def _list_grid(cases, db, interpret: bool, device: tuple) -> int:
         case_id = f"{name}/{label}"
         case_id = f"{case_id:<28} {_space_size_str(space):<14}"
         if exact:
+            # the default CSA search is not news, only a non-default
+            # strategy earns the column
+            strat = (f" strategy={rec.strategy}"
+                     if rec.strategy and rec.strategy != "csa" else "")
             print(f"  {case_id:<42} HIT   best={rec.point} "
-                  f"cost={rec.cost * 1e3:.2f}ms source={rec.source}")
+                  f"cost={rec.cost * 1e3:.2f}ms source={rec.source}{strat}")
         elif rec is not None and key.distance(rec.key) != float("inf"):
             print(f"  {case_id:<42} warm  neighbor={rec.point} "
                   f"(shapes {rec.key.shapes()})")
@@ -207,6 +275,18 @@ def main(argv=None, prog: str = "repro_torch.tuning.pretune") -> int:
              "classic fixed-repeat loop (default: REPRO_TUNE_MEASURE or adaptive)",
     )
     ap.add_argument(
+        "--strategy", type=str, default=None, metavar="SPEC",
+        help="search strategy spec per context, e.g. 'csa+nm' (the paper's "
+             "CSA→NM hybrid pipeline), 'csa:0.7+nm:0.3', or 'csa|nm' "
+             "(portfolio); default: plain CSA — same total tell budget either way",
+    )
+    ap.add_argument(
+        "--cost", choices=("runtime", "analytic"), default="runtime",
+        help="candidate cost: measured time (default) or the call's "
+             "deterministic roofline lower bound — noise-free, so sharded and "
+             "unsharded sweeps land on identical best points",
+    )
+    ap.add_argument(
         "--objective", choices=("median", "p95", "p99"), default=None,
         help="statistic a candidate's measured repetitions reduce to "
              "(default median — classic PATSMA; p95/p99 tune for tail latency)",
@@ -224,7 +304,8 @@ def main(argv=None, prog: str = "repro_torch.tuning.pretune") -> int:
     ap.add_argument(
         "--obs-dir", type=str, default=None, metavar="DIR",
         help="write observability artifacts (events.jsonl, trace.json, "
-             "metrics.json) into DIR (default: the REPRO_OBS env var, else off)",
+             "metrics.json) into DIR; 'python -m repro_torch.tune report DIR' "
+             "renders them (default: the REPRO_OBS env var, else off)",
     )
     ap.add_argument(
         "--resume", action="store_true",
@@ -269,19 +350,12 @@ def main(argv=None, prog: str = "repro_torch.tuning.pretune") -> int:
         print("pretune: no cases match the given filters", file=sys.stderr)
         return 2
     if args.shard is not None:
-        from repro_torch.tuning.fleet import in_shard, parse_shard
+        from repro_torch.tuning.fleet import parse_shard
 
         index, num = parse_shard(args.shard)
         total = len(cases)
-        abstract = {
-            (n, label): build
-            for n, label, build in _selected(_cases(args.smoke, device, abstract=True),
-                                             wanted, args.only)
-        }
-        cases = [
-            (n, label, build) for n, label, build in cases
-            if in_shard(_case_key(n, abstract[(n, label)](), interpret, dev_key), index, num)
-        ]
+        cases = _shard_filter(cases, args.smoke, wanted, args.only, (index, num), interpret,
+                              dev_key)
         print(f"pretune: shard {index}/{num}: {len(cases)}/{total} cases")
         if not cases:
             # an empty shard is a fleet worker with nothing to do, not an error
@@ -341,7 +415,10 @@ def main(argv=None, prog: str = "repro_torch.tuning.pretune") -> int:
                 source="pretune",
                 measure=args.measure,
                 measure_stats=mstats,
+                strategy=args.strategy,
                 objective=args.objective,
+                cost_fn=(_analytic_cost_fn(name, call_args) if args.cost == "analytic"
+                         else None),
                 warm_start=not args.no_warm_start,
             )
             dt = time.perf_counter() - t0
@@ -355,6 +432,7 @@ def main(argv=None, prog: str = "repro_torch.tuning.pretune") -> int:
             journal.commit(key, rec)
             n_hits += bool(exact and not args.no_warm_start)
             crashed = f" crashed={rec.crashed}" if rec.crashed else ""
+            strat = f" strategy={rec.strategy}" if rec.strategy and rec.strategy != "csa" else ""
             obj = f" objective={rec.objective}" if rec.objective and rec.objective != "median" else ""
             raced = ""
             if mstats.get("mode") == "adaptive" and mstats.get("measured"):
@@ -364,7 +442,7 @@ def main(argv=None, prog: str = "repro_torch.tuning.pretune") -> int:
             hit = " exact-hit" if exact and not args.no_warm_start else ""
             print(
                 f"  {name}/{label}: best={rec.point} cost={rec.cost * 1e3:.4f}ms "
-                f"evals={rec.evals}{crashed}{obj}{raced}{hit} ({dt:.1f}s)"
+                f"evals={rec.evals}{crashed}{strat}{obj}{raced}{hit} ({dt:.1f}s)"
             )
             n_done += 1
         db.save()

@@ -6,7 +6,7 @@ a machine that has only PyTorch:
 
 The kernels are held against their plain PyTorch versions on the same
 inputs: fp32 at atol=rtol=1e-5 (the same fp32 arithmetic summed in another
-order), bf16 at 2e-2 (plus output rounding).  The scans' bf16 outputs are
+order), bf16 at 2e-2 (plus output rounding); decode attention as well.  The scans' bf16 outputs are
 held at the JAX tests' bf16 limits (3e-2 lru, 5e-2 rwkv).
 """
 import math
@@ -15,11 +15,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import decode_attention as tda
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import linear_scan as tls
 from repro_torch.kernels import matmul as tmm
 from repro_torch.kernels import ops
-from repro_torch.kernels.autotuned import autotuned, get_spec, tune_call
+from repro_torch.kernels.autotuned import autotuned, get_spec, kernel_router, routed, tune_call
 from repro_torch.tuning import TuningDB
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
@@ -214,3 +215,97 @@ def test_scan_knobs_the_kernels_cannot_run_raise_before_launch():
     assert tls.launches == before
     ops.lru_scan(a, a, h0, chunk=16)
     torch.cuda.synchronize()
+
+
+def _decode_inputs(B, H, Kh, S, hd, dtype, dev, valid):
+    q = _randn(50, (B, H, hd), dtype, dev)
+    k = _randn(51, (B, Kh, S, hd), dtype, dev)
+    v = _randn(52, (B, Kh, S, hd), dtype, dev)
+    return q, k, v, torch.as_tensor(np.asarray(valid, np.int32)).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("length", [1, 37, 128])
+@pytest.mark.parametrize("bkv", [16, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_matches_plain(dtype, bkv, length):
+    dev = _card()
+    B, H, Kh, S, hd = 2, 4, 2, 128, 32
+    args = _decode_inputs(B, H, Kh, S, hd, dtype, dev, (np.arange(S) < length)[None].repeat(B, 0))
+    before = tda.launches
+    got = ops.decode_attention(*args, block_kv=bkv)
+    assert tda.launches == before + 1 and got.dtype == dtype and got.shape == (B, H, hd)
+    _close(got, tda.decode_attention_plain(*args, block_kv=bkv))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Kh,S,hd,bkv", [
+    (2, 2, 2, 256, 16, 64),  # g = 1
+    (1, 4, 2, 512, 64, 256),  # g = 2
+    (2, 28, 4, 2048, 128, 1024),  # qwen2-7b heads, the largest tile of the JAX space
+    (2, 10, 1, 1024, 256, 1024),  # recurrentgemma-2b MQA at hd 256
+    (1, 40, 2, 256, 128, 64),  # g = 20: two register groups of heads
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_ring_validity_and_groups(dtype, B, H, Kh, S, hd, bkv):
+    dev = _card()
+    valid = np.random.RandomState(9).uniform(size=(B, S)) < 0.4
+    args = _decode_inputs(B, H, Kh, S, hd, dtype, dev, valid)
+    _close(ops.decode_attention(*args, block_kv=bkv), tda.decode_attention_plain(*args, block_kv=bkv))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_all_invalid_row_is_the_mean_of_v(dtype):
+    dev = _card()
+    B, H, Kh, S, hd = 2, 14, 2, 512, 128
+    valid = np.ones((B, S), bool)
+    valid[0] = False
+    valid[1, :200] = False  # leading all-invalid tiles are wiped later
+    q, k, v, vd = _decode_inputs(B, H, Kh, S, hd, dtype, dev, valid)
+    got = ops.decode_attention(q, k, v, vd, block_kv=64)
+    assert bool(torch.isfinite(got.float()).all())
+    mean_v = v[0].float().mean(dim=1).repeat_interleave(H // Kh, dim=0)
+    tol = TOL[dtype]
+    torch.testing.assert_close(got[0].float(), mean_v, atol=tol, rtol=tol)
+    _close(got, tda.decode_attention_plain(q, k, v, vd, block_kv=64))
+
+
+@pytest.mark.cuda
+def test_decode_tiles_the_kernel_cannot_run_raise_before_launch():
+    dev = _card()
+    q, k, v, vd = _decode_inputs(1, 64, 1, 1024, 128, torch.bfloat16, dev, np.ones((1, 1024)))
+    before = tda.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.decode_attention(q, k, v, vd, block_kv=1024)
+    with pytest.raises(ValueError, match="int32"):
+        ops.decode_attention(q, k, v, vd.long(), block_kv=64)
+    assert tda.launches == before
+    assert get_spec("decode_attention").defaults(q, k, v, vd) == {"block_kv": 256}
+    ops.decode_attention(q, k, v, vd, block_kv=256)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_routed_decode_on_the_card():
+    """The adaptive route launches the kernel on every call (no plain
+    fallback), its accounting balances, and after the search it serves the
+    committed point."""
+    dev = _card()
+    B, H, Kh, S, hd = 4, 28, 4, 4096, 128
+    args = _decode_inputs(B, H, Kh, S, hd, torch.bfloat16, dev, np.ones((B, S)))
+    db = TuningDB(None)
+    router = kernel_router(db=db, epsilon=0.5, fresh=True)
+    before = tda.launches
+    for i in range(120):
+        out = routed("decode_attention", *args, router=router)
+        router.wait_pending()
+        if router.stats()["searches_completed"]:
+            break
+    st = router.stats()
+    assert st["searches_completed"] == 1 and st["calls"] == st["explores"] + st["exploits"]
+    assert tda.launches - before == st["calls"]
+    (rec,) = db.records()
+    assert rec.key.backend == "cuda"
+    out = routed("decode_attention", *args, router=router)
+    assert torch.equal(out, ops.decode_attention(*args, **rec.point))

@@ -52,12 +52,20 @@ import repro_torch, repro_torch.core, repro_torch.obs, repro_torch.testing
 import repro_torch.kernels, repro_torch.kernels.autotuned, repro_torch.kernels.ops
 import repro_torch.tuning, repro_torch.tuning.pretune, repro_torch.tuning.fleet
 import repro_torch.configs, repro_torch.models, repro_torch.models.convert, repro_torch.runtime
+import repro_torch.core.strategy, repro_torch.core.grid_random, repro_torch.obs.report
+import repro_torch.tune, repro_torch.kernels.decode_attention
 from repro_torch.launch import serve
-from repro_torch.kernels import autotuned, tune_call
+from repro_torch.kernels import autotuned, kernel_router, routed, tune_call
 from repro_torch.tuning import TuningDB
 a = torch.from_numpy(np.random.RandomState(0).standard_normal((64, 64)).astype(np.float32))
-rec = tune_call("matmul", a, a, db=TuningDB(None), interpret=True, max_iter=1, jobs=1)
+rec = tune_call("matmul", a, a, db=TuningDB(None), interpret=True, max_iter=1, jobs=1,
+                strategy="csa+nm")
 autotuned("matmul", a, a, interpret=True, db=TuningDB(None))
+router = kernel_router(interpret=True, db=TuningDB(None), fresh=True)
+q, kv = a[:2].reshape(2, 4, 16), a.reshape(2, 2, 64, 16)
+out = routed("decode_attention", q, kv, kv, torch.ones(2, 64, dtype=torch.int32), router=router,
+             interpret=True)
+assert out.shape == (2, 4, 16) and router.stats()["calls"] == 1
 served = serve.serve(["--arch", "rwkv6_7b", "--tiny", "--device", "cpu", "--prompt-len", "4",
                       "--gen", "2"])
 assert served["hidden"].shape == (8, 64)

@@ -6,6 +6,8 @@ clock, no RNG: the ε-scheduler is a credit counter and the search is seeded)
 and must explore and exploit the same points in the same order, fire drift
 at the same request, and commit the same point to the tuning DB.
 """
+import itertools
+
 import pytest
 
 import repro.core as jcore
@@ -95,3 +97,124 @@ def test_context_router_decides_like_jax():
     assert tt == jt
     assert tbest == jbest and tcounts == jcounts
     assert trecs == jrecs and trecs
+
+
+# ----------------------------------------------------------- kernel routing
+def test_kernel_router_rejects_conflicting_singleton_config():
+    from repro_torch.kernels.autotuned import kernel_router
+
+    r1 = kernel_router(interpret=True, epsilon=0.1)
+    assert kernel_router(interpret=True) is r1  # default args: same singleton
+    with pytest.raises(ValueError):
+        kernel_router(interpret=True, epsilon=0.5)
+    with pytest.raises(ValueError):
+        kernel_router(interpret=True, db=ttuning.TuningDB(None))
+    assert kernel_router(interpret=True, epsilon=0.5, fresh=True) is not r1
+
+
+def _routed_args(name):
+    import numpy as np
+    import torch
+
+    def rnd(seed, *shape):
+        return torch.from_numpy(np.random.RandomState(seed).standard_normal(shape).astype(np.float32))
+
+    if name == "decode_attention":
+        valid = torch.from_numpy((np.arange(256) < 200).astype(np.int32))[None].repeat(2, 1)
+        return (rnd(0, 2, 4, 16), rnd(1, 2, 2, 256, 16), rnd(2, 2, 2, 256, 16), valid), {}
+    if name == "matmul":
+        return (rnd(0, 64, 128), rnd(1, 128, 64)), {}
+    if name == "flash_attention":
+        return (rnd(0, 1, 64, 2, 16), rnd(1, 1, 2, 64, 16), rnd(2, 1, 2, 64, 16)), {"causal": True}
+    if name == "lru_scan":
+        return (torch.sigmoid(rnd(0, 2, 64, 32)), rnd(1, 2, 64, 32), rnd(2, 2, 32)), {}
+    return ((rnd(0, 1, 32, 2, 8), rnd(1, 1, 32, 2, 8), rnd(2, 1, 32, 2, 8),
+             -torch.exp(rnd(3, 1, 32, 2, 8)), rnd(4, 2, 8), rnd(5, 1, 2, 8, 8)), {})
+
+
+@pytest.mark.parametrize("name", ["decode_attention", "matmul", "flash_attention", "lru_scan",
+                                  "rwkv_scan"])
+def test_routed_serves_the_kernel_at_the_decided_knobs(name):
+    """On the CPU (plain versions): every routed output is the kernel's at
+    one point of the space, the output after the search equals the kernel
+    at the committed point, and the router's accounting balances."""
+    import torch
+
+    from repro_torch.kernels.autotuned import get_spec, kernel_router, routed
+
+    spec = get_spec(name)
+    db = ttuning.TuningDB(None)
+    router = kernel_router(interpret=True, db=db, epsilon=0.5, fresh=True, jobs=2)
+    args, kw = _routed_args(name)
+    space = spec.space(*args, **kw)
+    axes = [[1 << e for e in range(d.lo.bit_length() - 1, d.hi.bit_length())] for d in space.dims]
+    by_point = {}
+    for values in itertools.product(*axes):
+        p = dict(zip(space.names, values))
+        by_point[space.key(p)] = spec.fn(*args, **kw, **p, interpret=True)
+
+    def match(out):
+        outs = out if isinstance(out, tuple) else (out,)
+        for ref in by_point.values():
+            refs = ref if isinstance(ref, tuple) else (ref,)
+            if all(torch.equal(a, b) for a, b in zip(outs, refs)):
+                return True
+        return False
+
+    for _ in range(200):
+        out = routed(name, *args, router=router, interpret=True, **kw)
+        assert match(out)
+        if router.stats()["searches_completed"]:
+            break
+        router.wait_pending()  # let the pool's knob checks land between calls
+    st = router.stats()
+    assert st["searches_completed"] == 1 and st["contexts"] == 1
+    assert st["calls"] == st["explores"] + st["exploits"]
+    assert st["explore_candidates"] == st["explore_reps_decided"] <= st["explores"]
+    assert st["inband_builds"] == 0
+    (rec,) = db.records()
+    final = routed(name, *args, router=router, interpret=True, **kw)
+    ref = spec.fn(*args, **kw, **rec.point, interpret=True)
+    for a, b in zip(final if isinstance(final, tuple) else (final,),
+                    ref if isinstance(ref, tuple) else (ref,)):
+        assert torch.equal(a, b)
+
+
+def test_routed_absorbs_knobs_illegal_for_an_off_bucket_shape():
+    """S = 96 shares the bucket of 128, whose space holds block_kv 64: the
+    pool's knob check refuses it for 96 (not divisible), the tuner charges
+    it inf without serving a call on it, and every call still returns."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.autotuned import kernel_router, routed
+
+    (q, k, v, _), _ = _routed_args("decode_attention")
+    k, v = k[:, :, :96].contiguous(), v[:, :, :96].contiguous()
+    valid = torch.ones(2, 96, dtype=torch.int32)
+    router = kernel_router(interpret=True, db=ttuning.TuningDB(None), epsilon=1.0, fresh=True)
+    for _ in range(40):
+        out = routed("decode_attention", q, k, v, valid, router=router, interpret=True)
+        np.testing.assert_allclose(out.numpy(), ref.decode_attention_ref(q, k, v, 96).numpy(),
+                                   atol=2e-4, rtol=2e-4)
+        router.wait_pending()
+    st = router.stats()
+    assert st["candidate_failures"] >= 1 and st["searches_completed"] == 1
+    assert st["calls"] == st["explores"] + st["exploits"]
+
+
+def test_router_context_key_names_the_card_of_the_call(monkeypatch):
+    """Bucketing keeps the tensor's device, so a context routed on the card
+    is keyed with the card (and exact-hits the card's pretuned records)."""
+    import torch
+
+    class OnCard:
+        shape, dtype, device = (60, 16), torch.float32, torch.device("cuda", 0)
+
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda dev=None: "Test Card")
+    router = truntime.ContextRouter(db=ttuning.TuningDB(None))
+    router.register("k", space=lambda x: tcore.SearchSpace([tcore.IntDim("p", 1, 4)]))
+    key = router.context_key("k", (OnCard(),))
+    assert (key.backend, key.device_kind) == ("cuda", "Test Card")
+    assert key.shapes() == [[64, 16]]

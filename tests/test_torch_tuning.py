@@ -82,10 +82,14 @@ def test_tune_call_commits_the_same_point_as_jax(probe, measure, seed):
 
 
 def test_tune_call_spec_strings_wait_for_the_strategy_module(probe):
-    a = torch.from_numpy(_np(0, (64, 64)))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tat.tune_call(PROBE, a, a, db=ttuning.TuningDB(None), interpret=True, strategy="csa+nm",
-                      cost_fn=_det_cost)
+    """The strategy module is ported: a spec string searches as in JAX."""
+    x = _np(0, (64, 64))
+    common = dict(interpret=True, strategy="csa+nm", cost_fn=_det_cost, jobs=1)
+    trec = tat.tune_call(PROBE, torch.from_numpy(x), torch.from_numpy(x), db=ttuning.TuningDB(None),
+                         **common)
+    jrec = jat.tune_call(PROBE, jnp.asarray(x), jnp.asarray(x), db=jtuning.TuningDB(None), **common)
+    assert trec.strategy == jrec.strategy == "csa+nm"
+    assert (trec.point, trec.cost, trec.evals) == (jrec.point, jrec.cost, jrec.evals)
 
 
 @pytest.mark.parametrize("measure", ["fixed", "adaptive"])
@@ -227,11 +231,11 @@ def _pretune(argv, capsys):
 def test_pretune_interpret_smoke_then_only_exact_hits(tmp_path, capsys):
     db = str(tmp_path / "sub" / "p.json")
     rc, (tuned, hits, searched) = _pretune(["--interpret", "--smoke", "--db", db], capsys)
-    assert rc == 0 and tuned == 4 and searched == 4
+    assert rc == 0 and tuned == 5 and searched == 5
     rc, (tuned, hits, searched) = _pretune(["--interpret", "--smoke", "--db", db], capsys)
-    assert rc == 0 and tuned == hits == 4 and searched == 0
+    assert rc == 0 and tuned == hits == 5 and searched == 0
     # the port's file is a DB the JAX package reads
-    assert len(jtuning.TuningDB(db, autosave=False)) == 4
+    assert len(jtuning.TuningDB(db, autosave=False)) == 5
 
 
 def test_pretune_refuses_to_run_without_a_card(tmp_path, monkeypatch, capsys):
@@ -239,7 +243,7 @@ def test_pretune_refuses_to_run_without_a_card(tmp_path, monkeypatch, capsys):
     assert tpretune.main(["--smoke", "--db", str(tmp_path / "p.json")]) == 1
     assert "no CUDA device" in capsys.readouterr().err
     assert not (tmp_path / "p.json").exists()
-    assert tpretune.main(["--interpret", "--kernel", "decode_attention",
+    assert tpretune.main(["--interpret", "--kernel", "_no_such_kernel",
                           "--db", str(tmp_path / "q.json")]) == 2
 
 
