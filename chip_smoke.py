@@ -7,7 +7,9 @@ Phases, each printing its numbers on lines of its own:
 
 1. device: the card's name and count, and ``nvidia-smi``'s name and power
    limit; then the CUDA kernels are built from ``src/repro_torch/kernels/csrc``
-   (one nvcc per source, started together) and ptxas' register report shown;
+   (one nvcc per source, started together, the tensor-core sources on the
+   shared ``hopper.cuh``) and ptxas' register, spill and performance-warning
+   report shown;
 2. kernels against their plain PyTorch versions at the qwen2-7b shapes
    (FFN up-projection (4096, 3584) @ (3584, 18944), causal prefill
    attention q (2, 2048, 28, 128), k/v (2, 4, 2048, 128), and decode
@@ -18,7 +20,10 @@ Phases, each printing its numbers on lines of its own:
    scan shapes (RG-LRU a, b (8, 2048, 2560) fp32 of recurrentgemma-2b;
    RWKV-6 r, k, v (8, 2048, 64, 64) bf16 with fp32 lw, u, s0 of rwkv6-7b),
    at default and non-default knobs, plus a small fp32 case each, the RWKV
-   strong-decay case (lw = -14) and a decode row with no valid slot;
+   strong-decay case (lw = -14) and a decode row with no valid slot; the
+   matmul and flash attention at their default tile and one more tile of
+   the tensor-core (``wgmma``) design and at one tile of the SIMT design,
+   each line naming the design that ran;
 3. the PATSMA tuning loop: ``tune_call`` on the five calls with the default
    CSA budget, committing records to ``DIR/tune.json``, and once more on
    the decode call with ``strategy="csa+nm"`` into ``DIR/tune_csa_nm.json``;
@@ -39,7 +44,8 @@ Phases, each printing its numbers on lines of its own:
    scans also at the serving path's ``chunk=4``), its plain version, one
    library call for the same function where one exists (a yardstick the
    port never calls; no single PyTorch call computes either scan), and the
-   analytic roofline bound;
+   analytic roofline bound; the default and tuned matmul and flash calls
+   must run the ``wgmma`` design;
 8. serving recurrentgemma-2b at full width and depth through
    ``repro_torch.launch.serve`` (batch 8, prompt 2048, 64 new tokens, random
    weights from seed 0) twice on one DB: the first run tunes the decode
@@ -192,9 +198,14 @@ def main(argv=None) -> int:
     print(f"[1] build: {', '.join(f'{n} {s:.1f}s' for n, s in built.items()) or 'cached'} "
           f"(wall {time.perf_counter() - t0:.1f}s) into {_cuda.BUILD_DIR}")
     for n in _cuda.SOURCES:
-        lines = {ln.split(":", 1)[-1].strip() for ln in _cuda.ptxas_report(n).splitlines()
-                 if "registers" in ln or "spill" in ln}
-        print(f"[1] ptxas {n} (every instantiation): {'; '.join(sorted(lines))}")
+        report = _cuda.ptxas_report(n).splitlines()
+        warned = [re.search(r"\((C\d+)\)", ln) for ln in report]
+        lines = {ln.split(":", 1)[-1].strip() for ln, w in zip(report, warned)
+                 if w is None and ("registers" in ln or "spill" in ln)}
+        codes = sorted({w.group(1) for w in warned if w is not None})
+        counts = ", ".join(f"{c} x{sum(1 for w in warned if w is not None and w.group(1) == c)}" for c in codes)
+        print(f"[1] ptxas {n} (every instantiation): {'; '.join(sorted(lines))}"
+              f"{'; performance warnings ' + counts if codes else ''}")
 
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -255,20 +266,33 @@ def main(argv=None) -> int:
               f"{'ok' if ok else 'FAIL'}")
         check(ok, f"{label}: kernel disagrees with its plain version")
 
-    for knobs in (defaults["matmul"], {"bm": 64, "bn": 128, "bk": 64}):
-        got = ops.matmul(a, b, **knobs)
-        compare(f"matmul bf16 {M}x{K}x{N} {knobs}", "matmul", got, mm.matmul_plain(a, b, **knobs))
+    def ran(module, call):
+        """Run ``call`` once; the design whose launch count it raised."""
+        before = dict(module.launches_by_design)
+        got = call()
+        torch.cuda.synchronize()
+        grew = [d for d, n in module.launches_by_design.items() if n > before[d]]
+        return got, grew[0] if len(grew) == 1 else f"unclear {grew}"
+
+    for knobs, want in ((defaults["matmul"], "wgmma"), ({"bm": 64, "bn": 128, "bk": 64}, "wgmma"),
+                        ({"bm": 32, "bn": 128, "bk": 32}, "simt")):
+        got, design = ran(mm, lambda: ops.matmul(a, b, **knobs))
+        compare(f"matmul bf16 {M}x{K}x{N} {knobs} ({design})", "matmul", got,
+                mm.matmul_plain(a, b, **knobs))
+        check(design == want, f"matmul {knobs} ran the {design} design, expected {want}")
     a32 = randn((256, 192), torch.float32)
     b32 = randn((192, 128), torch.float32, 1.0 / math.sqrt(192))
     knobs = {"bm": 64, "bn": 32, "bk": 32}
     compare(f"matmul fp32 256x192x128 {knobs}", "matmul", ops.matmul(a32, b32, **knobs),
             mm.matmul_plain(a32, b32, **knobs))
 
-    for knobs in (defaults["flash_attention"], {"block_q": 64, "block_kv": 64}):
-        got = ops.flash_attention(q, k, v, causal=True, **knobs)
+    for knobs, want_design in ((defaults["flash_attention"], "wgmma"), ({"block_q": 64, "block_kv": 64}, "wgmma"),
+                               ({"block_q": 32, "block_kv": 64}, "simt")):
+        got, design = ran(fa, lambda: ops.flash_attention(q, k, v, causal=True, **knobs))
         want = fa.flash_attention_plain(q.transpose(1, 2), k, v, causal=True, **knobs).transpose(1, 2)
-        compare(f"flash_attention bf16 q{tuple(q.shape)} kv{tuple(k.shape)} causal {knobs}",
+        compare(f"flash_attention bf16 q{tuple(q.shape)} kv{tuple(k.shape)} causal {knobs} ({design})",
                 "flash_attention", got, want)
+        check(design == want_design, f"flash_attention {knobs} ran the {design} design, expected {want_design}")
     for causal in (True, False):
         q32 = randn((1, 64, 8, 32), torch.float32)
         k32 = randn((1, 2, 64, 32), torch.float32)
@@ -597,6 +621,13 @@ def main(argv=None) -> int:
             library=None,
         ),
     }
+    designs = {}
+    for name, module in (("matmul", mm), ("flash_attention", fa)):
+        for which in ("default", "tuned"):
+            _, design = ran(module, timing[name][which])
+            designs[(name, which)] = design
+            print(f"[7] {name} {which} call ran the {design} design")
+            check(design == "wgmma", f"the {which} {name} call at the main shape ran {design}, not wgmma")
     times = {}
     for name, t in timing.items():
         ca, kw = call_args[name]
@@ -744,12 +775,13 @@ def main(argv=None) -> int:
 
     main_launches = {n: tuning_launches[n] + route_launches[n] + serve_launches.get(n, 0)
                      for n in names}
-    print(f"[9] serving launches: {serve_launches}; all main paths: {main_launches}")
+    print(f"[9] serving launches: {serve_launches}; all main paths: {main_launches}; launches by "
+          f"design since the start: matmul {mm.launches_by_design}, flash_attention {fa.launches_by_design}")
     for name, n in main_launches.items():
         check(n > 0, f"no main path launched the {name} kernel")
 
-    sources = {"matmul": ("src/repro_torch/kernels/csrc/matmul.cu", "src/repro/kernels/matmul.py:40"),
-               "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+    sources = {"matmul": ("src/repro_torch/kernels/csrc/matmul_wgmma.cu", "src/repro/kernels/matmul.py:40"),
+               "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
                                    "src/repro/kernels/flash_attention.py:79"),
                "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                                     "src/repro/kernels/decode_attention.py:58"),
@@ -763,6 +795,7 @@ def main(argv=None) -> int:
         terms = row["terms"]
         entry = {
             "name": name, "route": "cuda", "source": sources[name][0], "replaces": sources[name][1],
+            "design": designs.get((name, "tuned"), "simt"),
             "launches": main_launches[name], "max_abs_err": max_err[name],
             "ms": row["tuned"], "ms_default": row["default"], "plain_ms": row["plain"],
             "bound_ms": terms.bound_s * 1e3, "bound_by": terms.dominant,

@@ -3,8 +3,11 @@
 Each ``csrc/<name>.cu`` exports a plain C interface.  At first use it is
 compiled by ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/repro_torch/`` at the root of the source tree, named by a hash of
-the source and the flags (so an edited source rebuilds and an unchanged one
-is reused), and loaded with :mod:`ctypes`.  The ptxas report (registers,
+the source, the shared headers ``csrc/*.cuh`` (``hopper.cuh``: TMA,
+mbarriers, ``wgmma``) and the flags (so an edited source or header
+rebuilds and an unchanged one is reused), and loaded with :mod:`ctypes`.
+The tensor-core sources find ``cuTensorMapEncodeTiled`` through the CUDA
+runtime, so nothing links against ``libcuda``.  The ptxas report (registers,
 shared memory and spills per kernel) is kept beside it as ``.log``.
 
 Builds happen once per process under a lock — the tuner's thread pool asks
@@ -26,7 +29,8 @@ __all__ = ["SOURCES", "BUILD_DIR", "build", "load", "ptxas_report"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("matmul", "flash_attention", "linear_scan", "decode_attention")
+SOURCES = ("matmul", "matmul_wgmma", "flash_attention", "flash_attention_wgmma", "linear_scan",
+           "decode_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -50,10 +54,14 @@ def _nvcc() -> str:
     return path
 
 
-def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+def _lib_path(name: str, csrc: Path = CSRC) -> Path:
+    """The library of ``name``, keyed by its source, every shared header of
+    ``csrc`` and the flags."""
+    h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _build_locked(names: Iterable[str]) -> Dict[str, float]:
@@ -108,10 +116,11 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def ptxas_report(name: str) -> str:
-    """ptxas' per-kernel lines (registers, shared memory, spills) of the
-    last build of ``name``."""
+    """ptxas' per-kernel lines (registers, shared memory, spills, and its
+    warnings that wgmma was serialized or fenced) of the last build of
+    ``name``."""
     log = _lib_path(name).with_suffix(".log")
     if not log.exists():
         return ""
-    keep = ("registers", "spill", "smem", "Compiling entry")
+    keep = ("registers", "spill", "smem", "Compiling entry", "Performance Loss", "injected")
     return "\n".join(ln for ln in log.read_text().splitlines() if any(k in ln for k in keep))

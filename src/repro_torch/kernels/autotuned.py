@@ -139,8 +139,8 @@ def _log_dim(name: str, n: int, lo: int, cap: int) -> LogIntDim:
 
 # --------------------------------------------------------- registered kernels
 # Spaces are the JAX package's (same fingerprints, so both packages' records
-# key alike).  Defaults are tiles the CUDA kernels' simple design can run at
-# any size: the JAX defaults (256³ matmul tiles) exceed a Hopper block.
+# key alike).  Defaults are tiles the CUDA kernels can run at any size: the
+# JAX defaults (256³ matmul tiles) exceed a Hopper block.
 register(
     KernelSpec(
         name="matmul",
@@ -152,14 +152,15 @@ register(
                 _log_dim("bk", a.shape[1], 32, 256),
             ]
         ),
-        defaults=lambda a, b: {
-            "bm": min(128, _pow2_floor(a.shape[0])),
-            "bn": min(128, _pow2_floor(b.shape[1])),
-            "bk": min(32, _pow2_floor(a.shape[1])),
-        },
+        # clamped to each dim's largest power-of-two divisor, so they divide it
+        defaults=lambda a, b: dict(zip(("bm", "bn", "bk"), _mm.default_tiles(
+            _pow2_floor(a.shape[0]), _pow2_floor(b.shape[1]), _pow2_floor(a.shape[1]),
+            a.element_size(), _mm.aligned(a, b),
+        ))),
         work=lambda a, b: _mm.flops_bytes(a, b),
         check=lambda a, b, *, bm, bn, bk, interpret: _mm.legal_tiles(
-            a.shape[0], b.shape[1], a.shape[1], bm, bn, bk, a.element_size(), not interpret
+            a.shape[0], b.shape[1], a.shape[1], bm, bn, bk, a.element_size(), not interpret,
+            _mm.aligned(a, b),
         ),
     )
 )

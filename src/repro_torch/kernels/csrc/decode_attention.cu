@@ -42,6 +42,8 @@
 
 namespace {
 
+constexpr int BLOCK_SMEM = 232448;  // shared memory one block may use on Hopper (227 KB)
+
 constexpr int NT = 512;  // threads per block
 constexpr int NW = NT / 32;
 constexpr int KMAX = 8;  // K elements per lane: hd <= 256
@@ -197,9 +199,11 @@ int launch_gc(const void* q, const void* k, const void* v, const int* valid, voi
               int Kh, int S, int hd, const Strides& st, int block_kv, float scale, void* stream) {
   const int g = H / Kh;
   const size_t smem = smem_bytes(g, hd, block_kv);
+  // The attribute is the block's limit, not this launch's need: the tuner launches one
+  // kernel at several tiles from several threads, and a per-launch value set by one
+  // thread would refuse another thread's larger launch ("invalid argument").
   cudaError_t err = cudaFuncSetAttribute(decode_kernel<T, GC>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, BLOCK_SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(Kh, B);
   decode_kernel<T, GC><<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(

@@ -32,6 +32,8 @@
 
 namespace {
 
+constexpr int BLOCK_SMEM = 232448;  // shared memory one block may use on Hopper (227 KB)
+
 constexpr int TPR = 8;  // threads per query row
 constexpr float NEG_INF = -1e30f;
 
@@ -160,8 +162,10 @@ int launch_hd(const void* q, const void* k, const void* v, void* o, int B, int H
               int Skv, Strides qs, Strides ks, Strides vs, Strides os, int block_q, int block_kv,
               int causal, float scale, void* stream) {
   const size_t smem = smem_bytes<T>(HD, block_q, block_kv);
-  cudaError_t err = cudaFuncSetAttribute(flash_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  // The attribute is the block's limit, not this launch's need: the tuner launches one
+  // kernel at several tiles from several threads, and a per-launch value set by one
+  // thread would refuse another thread's larger launch ("invalid argument").
+  cudaError_t err = cudaFuncSetAttribute(flash_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, BLOCK_SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(Sq / block_q, H, B);
   dim3 block(block_q * TPR);

@@ -38,6 +38,8 @@
 
 namespace {
 
+constexpr int BLOCK_SMEM = 232448;  // shared memory one block may use on Hopper (227 KB)
+
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 template <typename T> __device__ __forceinline__ T from_float(float x);
@@ -81,8 +83,10 @@ int lru_launch(const void* a, const void* b, const void* h0, void* hs, void* hT,
       T_len % chunk || D % block_d)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = 2 * static_cast<size_t>(chunk) * block_d * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(lru_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  // The attribute is the block's limit, not this launch's need: the tuner launches one
+  // kernel at several tiles from several threads, and a per-launch value set by one
+  // thread would refuse another thread's larger launch ("invalid argument").
+  cudaError_t err = cudaFuncSetAttribute(lru_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, BLOCK_SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(D / block_d, B);
   lru_kernel<T><<<grid, block_d, smem, static_cast<cudaStream_t>(stream)>>>(
@@ -152,9 +156,11 @@ int rwkv_launch_hd(const void* r, const void* k, const void* v, const void* lw, 
                    const void* s0, void* y, void* sT, int B, int T_len, int H, int chunk,
                    void* stream) {
   const size_t smem = 5 * static_cast<size_t>(chunk) * HD * sizeof(float);
+  // The attribute is the block's limit, not this launch's need: the tuner launches one
+  // kernel at several tiles from several threads, and a per-launch value set by one
+  // thread would refuse another thread's larger launch ("invalid argument").
   cudaError_t err = cudaFuncSetAttribute(rwkv_kernel<T, HD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, BLOCK_SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(H, B);
   rwkv_kernel<T, HD><<<grid, HD, smem, static_cast<cudaStream_t>(stream)>>>(

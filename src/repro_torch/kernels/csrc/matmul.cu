@@ -27,6 +27,8 @@
 
 namespace {
 
+constexpr int BLOCK_SMEM = 232448;  // shared memory one block may use on Hopper (227 KB)
+
 constexpr int TM = 4;  // accumulator rows per thread
 constexpr int TN = 4;  // accumulator columns per thread
 
@@ -103,8 +105,10 @@ int launch(const void* a, const void* b, void* c, int M, int N, int K, int bm, i
   if (bm <= 0 || bn <= 0 || bk <= 0 || bm % TM || bn % TN || M % bm || N % bn || K % bk)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = (static_cast<size_t>(bk) * (bm + a_pad<T>()) + static_cast<size_t>(bk) * bn) * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(matmul_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  // The attribute is the block's limit, not this launch's need: the tuner launches one
+  // kernel at several tiles from several threads, and a per-launch value set by one
+  // thread would refuse another thread's larger launch ("invalid argument").
+  cudaError_t err = cudaFuncSetAttribute(matmul_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, BLOCK_SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(N / bn, M / bm);
   dim3 block((bm / TM) * (bn / TN));

@@ -2,13 +2,23 @@
 CUDA kernel for Hopper.
 
 Replaces the JAX package's ``kernels/flash_attention.py::flash_attention_fwd``
-(Pallas TPU kernel ``_kernel``).  The CUDA source is
-``csrc/flash_attention.cu``: one thread block per (batch, query head, query
-tile) loops over the KV tiles up to the causal bound, with the fp32 m/l/acc
-carry in registers (8 threads per query row) and the K/V/score tiles in
-shared memory.  Causal prefill at head dim 128 is compute-bound on the
-card; this first kernel runs its FMAs on the CUDA cores, far below the
-tensor-core peak (its measured times are in PERF.md).
+(Pallas TPU kernel ``_kernel``) with two designs, chosen before launch by
+the pure function :func:`design` from the dtype, head dim, tile and
+strides.  Both run one thread block per (query tile, query head, batch)
+that loops over the KV tiles up to the causal bound with the fp32 m/l/acc
+carry in registers:
+
+* ``"wgmma"`` (``csrc/flash_attention_wgmma.cu``), bf16 with block_q 64 or
+  128 and block_kv 16 to 128 at every head dim, strides TMA can describe:
+  K/V tiles stream through a TMA-fed ring of shared-memory stages, S = Q Kᵀ
+  and O += P V run on the tensor cores (``wgmma``; P split into bf16 hi
+  and lo parts), one warpgroup per 64 query rows;
+* ``"simt"`` (``csrc/flash_attention.cu``), fp32 and every other tile: 8
+  threads per query row, the K/V/score tiles in shared memory, the FMAs on
+  the CUDA cores.
+
+Causal prefill at head dim 128 is compute-bound on the card; the measured
+times are in PERF.md.
 
 Same conventions as the TPU kernel: q/k/v are cast to fp32 and q is scaled
 by 1/√hd before the dot; causal masking keeps ``qi >= kj`` aligned top-left
@@ -16,8 +26,8 @@ by 1/√hd before the dot; causal masking keeps ``qi >= kj`` aligned top-left
 KV tiles wholly in the future are skipped; rows with ``l == 0`` give 0; GQA
 query head h reads KV head h // (H // Kh).
 
-``block_q`` / ``block_kv`` are the PATSMA tunables.  Tiles the simple design
-cannot run raise ``ValueError`` before any launch (:func:`check_blocks`).
+``block_q`` / ``block_kv`` are the PATSMA tunables.  Tiles neither design
+can run raise ``ValueError`` before any launch (:func:`check_blocks`).
 :func:`flash_attention_plain` repeats the kernel's arithmetic in plain
 PyTorch; the wrapper takes it only for CPU tensors with ``interpret=True``.
 """
@@ -34,10 +44,13 @@ from . import _cuda
 __all__ = [
     "flash_attention_fwd",
     "flash_attention_plain",
+    "design",
+    "ring_stages",
     "check_blocks",
     "legal_blocks",
     "flops_bytes",
     "launches",
+    "launches_by_design",
 ]
 
 NEG_INF = -1e30
@@ -46,11 +59,19 @@ SMEM_LIMIT = 232448
 MAX_THREADS = 1024
 TPR = 8  # threads per query row (csrc/flash_attention.cu)
 HEAD_DIMS = (16, 32, 64, 128)
+#: tiles of the tensor-core design (csrc/flash_attention_wgmma.cu): one
+#: consumer warpgroup per 64 query rows, block_kv up to what its registers
+#: hold (a thread's scores, output and P's two halves: block_kv / 2 + hd / 2
+#: + 2 block_kv / 4 values)
+WGMMA_BLOCK_Q = (64, 128)
+WGMMA_BLOCK_KV = (16, 32, 64, 128)
+MAX_STAGES = 4
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
-#: kernel launches so far (the plain version does not count)
+#: kernel launches so far, in total and by design (the plain version does not count)
 launches = 0
+launches_by_design = {"wgmma": 0, "simt": 0}
 _count_lock = threading.Lock()
 
 
@@ -62,18 +83,59 @@ def _blocks(Sq: int, Skv: int, block_q: int, block_kv: int) -> tuple:
 
 
 def smem_bytes(hd: int, block_q: int, block_kv: int, itemsize: int) -> int:
-    """Shared memory of one block: scaled fp32 q and score tiles (one
-    padding word per row), K (padded) and V tiles in the input dtype."""
+    """Shared memory of one block of the SIMT design: scaled fp32 q and
+    score tiles (one padding word per row), K (padded) and V tiles in the
+    input dtype."""
     pad = 2 if itemsize == 2 else 1
     return 4 * (block_q * (hd + 1) + block_q * (block_kv + 1)) + itemsize * (
         block_kv * (hd + pad) + block_kv * hd
     )
 
 
-def check_blocks(hd: int, block_q: int, block_kv: int, itemsize: int) -> None:
-    """Raise ``ValueError`` for shapes and tiles the CUDA kernel cannot run."""
+def _round1024(n: int) -> int:
+    return (n + 1023) // 1024 * 1024
+
+
+def ring_smem_bytes(hd: int, block_q: int, block_kv: int, stages: int) -> int:
+    """Shared memory of the tensor-core design: the Q tile, ``stages``
+    stages of a K and a V tile (bf16, each rounded up to the 128-byte
+    swizzle's 1024-byte period), the mbarriers, and 1024 bytes to align."""
+    return (1024 + _round1024(2 * block_q * hd) + stages * 2 * _round1024(2 * block_kv * hd)
+            + 8 * (1 + 2 * stages))
+
+
+def ring_stages(hd: int, block_q: int, block_kv: int) -> int:
+    """Stages of the tensor-core design's K/V ring: the most, up to
+    ``MAX_STAGES``, that fit ``SMEM_LIMIT`` (0 when not even one does)."""
+    for stages in range(MAX_STAGES, 0, -1):
+        if ring_smem_bytes(hd, block_q, block_kv, stages) <= SMEM_LIMIT:
+            return stages
+    return 0
+
+
+def design(itemsize: int, hd: int, block_q: int, block_kv: int, strides=(), aligned: bool = True) -> str:
+    """``"wgmma"`` when the tensor-core kernel runs this call, else
+    ``"simt"``.  A pure function of the dtype (``itemsize`` 2: bf16), the
+    head dim, the (clamped) tile, the batch/head/sequence strides of q, k, v
+    and o in elements (TMA needs multiples of 16 bytes) and whether the
+    tensors start on 16-byte boundaries."""
+    if itemsize != 2 or not aligned or hd not in HEAD_DIMS:
+        return "simt"
+    if block_q not in WGMMA_BLOCK_Q or block_kv not in WGMMA_BLOCK_KV:
+        return "simt"
+    if any(st % 8 for st in strides) or ring_stages(hd, block_q, block_kv) < 2:
+        return "simt"
+    return "wgmma"
+
+
+def check_blocks(hd: int, block_q: int, block_kv: int, itemsize: int, strides=(),
+                 aligned: bool = True) -> str:
+    """The design that runs this call; ``ValueError`` for shapes and tiles
+    neither CUDA kernel can run."""
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {hd} not instantiated (have {HEAD_DIMS})")
+    if design(itemsize, hd, block_q, block_kv, strides, aligned) == "wgmma":
+        return "wgmma"
     if block_q * TPR > MAX_THREADS:
         raise ValueError(
             f"block_q={block_q} needs {block_q * TPR} threads per block (max {MAX_THREADS})"
@@ -86,6 +148,7 @@ def check_blocks(hd: int, block_q: int, block_kv: int, itemsize: int) -> None:
             f"block_q={block_q} block_kv={block_kv} (hd {hd}) needs {smem} bytes of "
             f"shared memory (max {SMEM_LIMIT})"
         )
+    return "simt"
 
 
 def legal_blocks(hd: int, Sq: int, Skv: int, block_q: int, block_kv: int, itemsize: int,
@@ -168,34 +231,45 @@ def _check_cuda(q, k, v) -> None:
             raise ValueError("flash_attention_fwd: q, k and v must share device and dtype")
 
 
-def _launch(q, k, v, out, causal: bool, block_q: int, block_kv: int) -> None:
+def _strides(q, k, v, out) -> tuple:
+    """Batch, head and sequence strides of q, k, v and o, in elements."""
+    return tuple(t.stride(i) for t in (q, k, v, out) for i in range(3))
+
+
+def _launch(q, k, v, out, causal: bool, block_q: int, block_kv: int, kind: str) -> None:
     global launches
     B, H, Sq, hd = q.shape
     Kh, Skv = k.shape[1], k.shape[2]
-    lib = _cuda.load("flash_attention")
-    fn = getattr(lib, f"repro_flash_attention_{_SUFFIX[q.dtype]}")
+    if kind == "wgmma":
+        source, fn_name = "flash_attention_wgmma", "repro_flash_attention_wgmma_bf16"
+        extra = [ring_stages(hd, block_q, block_kv)]
+    else:
+        source, fn_name = "flash_attention", f"repro_flash_attention_{_SUFFIX[q.dtype]}"
+        extra = []
+    lib = _cuda.load(source)
+    fn = getattr(lib, fn_name)
     fn.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+        + [ctypes.c_int] * (3 + len(extra)) + [ctypes.c_float, ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
-    strides = (ctypes.c_longlong * 12)(
-        *[t.stride(i) for t in (q, k, v, out) for i in range(3)]
-    )
+    strides = (ctypes.c_longlong * 12)(*_strides(q, k, v, out))
     scale = float(torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, Kh, Sq, Skv, hd,
-                ctypes.cast(strides, ctypes.c_void_p), block_q, block_kv, int(causal), scale, stream)
+                ctypes.cast(strides, ctypes.c_void_p), block_q, block_kv, *extra, int(causal), scale,
+                stream)
     if rc != 0:
-        lib.repro_flash_attention_error_string.restype = ctypes.c_char_p
-        msg = lib.repro_flash_attention_error_string(rc).decode()
+        err = getattr(lib, f"repro_{source}_error_string")
+        err.restype = ctypes.c_char_p
         raise RuntimeError(
-            f"flash_attention kernel launch failed (blocks {block_q}x{block_kv}): "
-            f"CUDA error {rc}: {msg}"
+            f"flash_attention kernel ({kind}) launch failed (blocks {block_q}x{block_kv}): "
+            f"CUDA error {rc}: {err(rc).decode()}"
         )
     with _count_lock:
         launches += 1
+        launches_by_design[kind] += 1
 
 
 def flash_attention_fwd(
@@ -224,5 +298,7 @@ def flash_attention_fwd(
         return flash_attention_plain(q, k, v, causal=causal, block_q=block_q, block_kv=block_kv)
     _check_cuda(q, k, v)
     out = torch.empty_like(q)  # keeps q's strides when q is a transposed view
-    _launch(q, k, v, out, causal, block_q, block_kv)
+    kind = design(q.element_size(), hd, block_q, block_kv, _strides(q, k, v, out),
+                  aligned=all(t.data_ptr() % 16 == 0 for t in (q, k, v, out)))
+    _launch(q, k, v, out, causal, block_q, block_kv, kind)
     return out

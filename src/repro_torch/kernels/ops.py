@@ -105,5 +105,5 @@ def lru_scan(a, b, h0, *, chunk=128, block_d=LRU_BLOCK_D, interpret=False):
 
 
 # -------------------------------------------------------------------- matmul
-def matmul(a, b, *, bm=128, bn=128, bk=32, interpret=False):
+def matmul(a, b, *, bm=None, bn=None, bk=None, interpret=False):
     return matmul_tiled(a, b, bm=bm, bn=bn, bk=bk, interpret=interpret)

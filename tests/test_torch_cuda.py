@@ -7,7 +7,12 @@ a machine that has only PyTorch:
 The kernels are held against their plain PyTorch versions on the same
 inputs: fp32 at atol=rtol=1e-5 (the same fp32 arithmetic summed in another
 order), bf16 at 2e-2 (plus output rounding); decode attention as well.  The scans' bf16 outputs are
-held at the JAX tests' bf16 limits (3e-2 lru, 5e-2 rwkv).
+held at the JAX tests' bf16 limits (3e-2 lru, 5e-2 rwkv).  The matmul and
+flash-attention cases also assert which design ran (``launches_by_design``:
+the tensor-core ``wgmma`` kernel or the SIMT one); the ``wgmma`` cases cover
+every swizzle width, one and two consumer warpgroups, several turns of the
+ring, every instantiated head dim and ``block_kv``, Sq != Skv, GQA and the
+strided q that ``ops.flash_attention`` passes.
 """
 import math
 
@@ -42,40 +47,180 @@ def _close(got, want):
     torch.testing.assert_close(got.float().cpu(), want.float().cpu(), atol=tol, rtol=tol)
 
 
+def _ran(counts: dict, before: dict) -> str:
+    """The one design whose launch count grew by one since ``before``."""
+    (kind,) = [k for k in counts if counts[k] == before[k] + 1]
+    assert sum(counts.values()) == sum(before.values()) + 1
+    return kind
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("bm,bn,bk", [(32, 32, 32), (64, 32, 96), (128, 64, 48), (16, 64, 8)])
+@pytest.mark.parametrize("bm,bn,bk,bf16_design", [
+    (32, 32, 32, "simt"), (64, 32, 96, "simt"), (128, 64, 48, "simt"), (16, 64, 8, "simt"),
+    (64, 32, 64, "wgmma"), (128, 64, 32, "wgmma"),
+])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_matmul_kernel_matches_plain(dtype, bm, bn, bk):
+def test_matmul_kernel_matches_plain(dtype, bm, bn, bk, bf16_design):
     dev = _card()
     a = _randn(0, (256, 192), dtype, dev)
     b = _randn(1, (192, 128), dtype, dev, 1.0 / math.sqrt(192))
-    before = tmm.launches
+    before, by_design = tmm.launches, dict(tmm.launches_by_design)
     got = ops.matmul(a, b, bm=bm, bn=bn, bk=bk)
     assert tmm.launches == before + 1 and got.dtype == dtype and got.is_cuda
+    assert _ran(tmm.launches_by_design, by_design) == (bf16_design if dtype == torch.bfloat16 else "simt")
     _close(got, tmm.matmul_plain(a, b, bm=bm, bn=bn, bk=bk))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,H,Kh,Sq,Skv,hd,bq,bkv", [
-    (1, 2, 2, 32, 32, 16, 16, 16),
-    (2, 4, 2, 64, 64, 32, 32, 16),
-    (1, 8, 1, 64, 64, 16, 16, 64),
-    (1, 2, 1, 128, 128, 64, 64, 32),
-    (1, 4, 2, 32, 64, 128, 16, 32),  # Sq != Skv: top-left causal alignment
+@pytest.mark.parametrize("M,K,N,bm,bn,bk", [
+    (256, 1024, 512, 128, 256, 64),  # the default tile; 16 k-tiles over a 4-stage ring
+    (512, 1024, 256, 128, 128, 32),  # 32 k-tiles over 8 stages
+    (256, 512, 256, 64, 128, 32),  # non-square tiles, one consumer warpgroup
+    (256, 512, 256, 128, 64, 64),
+    (512, 768, 256, 256, 128, 64),  # two 64-row slices per consumer warpgroup
+    (128, 512, 256, 64, 256, 128),  # bk 128: two swizzle rows of A
+    (128, 768, 128, 64, 32, 256),  # 64-byte swizzle of B, bk 256
+    (128, 96, 64, 64, 16, 16),  # 32-byte swizzles
+    (256, 960, 128, 128, 64, 192),  # bk 192, five ring turns
+])
+def test_matmul_wgmma_matches_plain(M, K, N, bm, bn, bk):
+    dev = _card()
+    a = _randn(60, (M, K), torch.bfloat16, dev)
+    b = _randn(61, (K, N), torch.bfloat16, dev, 1.0 / math.sqrt(K))
+    by_design = dict(tmm.launches_by_design)
+    got = ops.matmul(a, b, bm=bm, bn=bn, bk=bk)
+    assert _ran(tmm.launches_by_design, by_design) == "wgmma"
+    _close(got, tmm.matmul_plain(a, b, bm=bm, bn=bn, bk=bk))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,M,K,N,want", [
+    (torch.float32, 256, 512, 512, "simt"),  # 128/128/32: fp32 never takes the tensor cores
+    (torch.bfloat16, 256, 512, 512, "wgmma"),  # 128/256/64
+    (torch.bfloat16, 256, 512, 384, "wgmma"),  # N not a multiple of 256: 128/128/32
+    (torch.bfloat16, 256, 96, 512, "wgmma"),  # K not a multiple of 64: 128/128/32
+])
+def test_matmul_runs_without_knobs_at_every_dtype(dtype, M, K, N, want):
+    """ops.matmul without knobs and a cold ``autotuned`` call (the registry's
+    defaults) both run, on the design the default tile picks."""
+    dev = _card()
+    a = _randn(64, (M, K), dtype, dev)
+    b = _randn(65, (K, N), dtype, dev, 1.0 / math.sqrt(K))
+    by_design = dict(tmm.launches_by_design)
+    got = ops.matmul(a, b)
+    assert _ran(tmm.launches_by_design, by_design) == want
+    bm, bn, bk = tmm.default_tiles(M, N, K, a.element_size())
+    _close(got, tmm.matmul_plain(a, b, bm=bm, bn=bn, bk=bk))
+    by_design = dict(tmm.launches_by_design)
+    got = autotuned("matmul", a, b, db=TuningDB(None))
+    assert _ran(tmm.launches_by_design, by_design) == want
+    _close(got, tmm.matmul_plain(a, b, **get_spec("matmul").defaults(a, b)))
+
+
+@pytest.mark.cuda
+def test_matmul_misaligned_operand_runs_simt_or_raises_before_launch():
+    dev = _card()
+    a = _randn(66, (256 * 512 + 1,), torch.bfloat16, dev)[1:].view(256, 512)  # 2 bytes off 16
+    b = _randn(67, (512, 512), torch.bfloat16, dev, 1.0 / math.sqrt(512))
+    assert a.is_contiguous() and a.data_ptr() % 16 == 2
+    by_design = dict(tmm.launches_by_design)
+    got = ops.matmul(a, b)  # the default falls back to the tile SIMT runs
+    assert _ran(tmm.launches_by_design, by_design) == "simt"
+    _close(got, tmm.matmul_plain(a, b, bm=128, bn=128, bk=32))
+    before = tmm.launches
+    with pytest.raises(ValueError, match="accumulators"):  # a tile only wgmma runs
+        ops.matmul(a, b, bm=128, bn=256, bk=64)
+    assert tmm.launches == before
+    torch.cuda.synchronize()  # the context is still healthy
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Kh,Sq,Skv,hd,bq,bkv,bf16_design", [
+    (1, 2, 2, 32, 32, 16, 16, 16, "simt"),
+    (2, 4, 2, 64, 64, 32, 32, 16, "simt"),
+    (1, 8, 1, 64, 64, 16, 16, 64, "simt"),
+    (1, 2, 1, 128, 128, 64, 64, 32, "wgmma"),
+    (1, 4, 2, 32, 64, 128, 16, 32, "simt"),  # Sq != Skv: top-left causal alignment
 ])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_kernel_matches_plain(dtype, causal, B, H, Kh, Sq, Skv, hd, bq, bkv):
+def test_flash_kernel_matches_plain(dtype, causal, B, H, Kh, Sq, Skv, hd, bq, bkv, bf16_design):
     dev = _card()
     q = _randn(2, (B, Sq, H, hd), dtype, dev)
     k = _randn(3, (B, Kh, Skv, hd), dtype, dev)
     v = _randn(4, (B, Kh, Skv, hd), dtype, dev)
-    before = tfa.launches
+    before, by_design = tfa.launches, dict(tfa.launches_by_design)
     got = ops.flash_attention(q, k, v, causal=causal, block_q=bq, block_kv=bkv)
     assert tfa.launches == before + 1 and got.shape == q.shape
+    assert _ran(tfa.launches_by_design, by_design) == (bf16_design if dtype == torch.bfloat16 else "simt")
     want = tfa.flash_attention_plain(q.transpose(1, 2), k, v, causal=causal,
                                      block_q=bq, block_kv=bkv).transpose(1, 2)
     _close(got, want)
+
+
+def _flash_wgmma_case(B, H, Kh, Sq, Skv, hd, bq, bkv, causal):
+    dev = _card()
+    q = _randn(70, (B, Sq, H, hd), torch.bfloat16, dev)  # ops passes the transposed view
+    k = _randn(71, (B, Kh, Skv, hd), torch.bfloat16, dev)
+    v = _randn(72, (B, Kh, Skv, hd), torch.bfloat16, dev)
+    by_design = dict(tfa.launches_by_design)
+    got = ops.flash_attention(q, k, v, causal=causal, block_q=bq, block_kv=bkv)
+    assert _ran(tfa.launches_by_design, by_design) == "wgmma"
+    want = tfa.flash_attention_plain(q.transpose(1, 2), k, v, causal=causal,
+                                     block_q=bq, block_kv=bkv).transpose(1, 2)
+    tol = 5e-3  # chip_smoke.py's bf16 limit for flash attention
+    torch.testing.assert_close(got.float().cpu(), want.float().cpu(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_wgmma_kernels_launch_from_a_fresh_thread():
+    """The tuner launches candidates from worker threads; the tensor maps
+    are encoded there too (a thread with no current context once refused
+    every tensor-core launch with "invalid argument")."""
+    import threading
+
+    dev = _card()
+    a = _randn(80, (256, 256), torch.bfloat16, dev)
+    q = _randn(81, (1, 128, 2, 64), torch.bfloat16, dev)
+    k = _randn(82, (1, 2, 128, 64), torch.bfloat16, dev)
+    out, errors = {}, []
+
+    def work():
+        try:
+            out["mm"] = ops.matmul(a, a, bm=128, bn=128, bk=64)
+            out["fa"] = ops.flash_attention(q, k, k, block_q=128, block_kv=64)
+            torch.cuda.synchronize()
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    th = threading.Thread(target=work)
+    th.start()
+    th.join()
+    assert not errors, errors
+    _close(out["mm"], tmm.matmul_plain(a, a, bm=128, bn=128, bk=64))
+    want = tfa.flash_attention_plain(q.transpose(1, 2), k, k, block_q=128, block_kv=64).transpose(1, 2)
+    torch.testing.assert_close(out["fa"].float().cpu(), want.float().cpu(), atol=5e-3, rtol=5e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("bkv", [16, 32, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_wgmma_every_head_dim_and_block_kv(hd, bkv, causal):
+    bq = 128 if bkv % 32 == 0 else 64  # one and two consumer warpgroups
+    _flash_wgmma_case(1, 4, 2, 256, 256, hd, bq, bkv, causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Kh,Sq,Skv,hd,bq,bkv", [
+    (2, 14, 2, 256, 256, 128, 128, 128),  # GQA g = 7, the default tile
+    (1, 4, 2, 64, 256, 64, 64, 32),  # Sq < Skv: top-left, later keys masked
+    (1, 4, 1, 256, 128, 32, 128, 64),  # Sq > Skv: late rows see every key
+    (2, 28, 4, 512, 512, 128, 64, 64),  # qwen2-7b heads
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_wgmma_gqa_and_unequal_lengths(causal, B, H, Kh, Sq, Skv, hd, bq, bkv):
+    _flash_wgmma_case(B, H, Kh, Sq, Skv, hd, bq, bkv, causal)
 
 
 @pytest.mark.cuda
