@@ -20,10 +20,14 @@ Phases, each printing its numbers on lines of its own:
    scan shapes (RG-LRU a, b (8, 2048, 2560) fp32 of recurrentgemma-2b;
    RWKV-6 r, k, v (8, 2048, 64, 64) bf16 with fp32 lw, u, s0 of rwkv6-7b),
    at default and non-default knobs, plus a small fp32 case each, the RWKV
-   strong-decay case (lw = -14) and a decode row with no valid slot; the
-   matmul and flash attention at their default tile and one more tile of
-   the tensor-core (``wgmma``) design and at one tile of the SIMT design,
-   each line naming the design that ran;
+   strong-decay case (lw = -14, fp32 and bf16) and a decode row with no
+   valid slot; the matmul and flash attention at their default tile and one
+   more tile of the tensor-core (``wgmma``) design and at one tile of the
+   SIMT design, each line naming the design that ran; decode with its split
+   count and grid, held against the plain version at that split count; the
+   RWKV scan naming its design (the bf16 serving shape must run the
+   sub-chunked tensor-core design ``tc``, fp32 the ``per_token`` one), and
+   the per-token design once through its C entry point;
 3. the PATSMA tuning loop: ``tune_call`` on the five calls with the default
    CSA budget, committing records to ``DIR/tune.json``, and once more on
    the decode call with ``strategy="csa+nm"`` into ``DIR/tune_csa_nm.json``;
@@ -45,7 +49,10 @@ Phases, each printing its numbers on lines of its own:
    library call for the same function where one exists (a yardstick the
    port never calls; no single PyTorch call computes either scan), and the
    analytic roofline bound; the default and tuned matmul and flash calls
-   must run the ``wgmma`` design;
+   must run the ``wgmma`` design; decode's split count, grid, share of the
+   bytes bound and ratio to SDPA at default and tuned knobs; the RWKV
+   tensor-core design at ``chunk=4`` and the tuned chunk beside the
+   per-token design on the same inputs, with its share of the bytes bound;
 8. serving recurrentgemma-2b at full width and depth through
    ``repro_torch.launch.serve`` (batch 8, prompt 2048, 64 new tokens, random
    weights from seed 0) twice on one DB: the first run tunes the decode
@@ -56,7 +63,7 @@ Phases, each printing its numbers on lines of its own:
    scan kernel against its plain version on the last layer's scan inputs
    as served (bf16 r, k, v for rwkv);
 9. the same for rwkv6-7b at full width and depth (32 ``rwkv_scan`` launches
-   per prefill).
+   per prefill, every one of the tensor-core design).
 
 Phases 3-5 (the tuning loop), phase 6 (the route) and phases 8-9 (serving)
 are the main paths:
@@ -304,11 +311,25 @@ def main(argv=None) -> int:
         compare(f"flash_attention fp32 q(1, 64, 8, 32) kv(1, 2, 64, 32) causal={causal} {knobs}",
                 "flash_attention", got, want)
 
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def split_of(args, knobs):
+        """(splits, grid) the decode kernel runs ``args`` with at ``knobs``."""
+        q_, k_ = args[0], args[1]
+        g_ = q_.shape[1] // k_.shape[1]
+        tile = da.legal_tile(g_, q_.shape[2], k_.shape[2], knobs["block_kv"], on_card=True)
+        grid_ = da.grid(q_.shape[0], k_.shape[1], g_, k_.shape[2], tile, n_sm)
+        return grid_[2], grid_
+
     da_args = call_args["decode_attention"][0]
     for knobs in (defaults["decode_attention"], {"block_kv": 128}):
+        nsplit, grid_ = split_of(da_args, knobs)
+        got, design = ran(da, lambda: ops.decode_attention(*da_args, **knobs))
         compare(f"decode_attention bf16 q{tuple(dq.shape)} kv{tuple(dk.shape)} valid prefixes "
-                f"{lens.tolist()} {knobs}", "decode_attention", ops.decode_attention(*da_args, **knobs),
-                da.decode_attention_plain(*da_args, **knobs), full=True)
+                f"{lens.tolist()} {knobs} ({nsplit} splits, grid {grid_} = "
+                f"{math.prod(grid_)} blocks on {n_sm} SMs, {design} loads)", "decode_attention", got,
+                da.decode_attention_plain(*da_args, **knobs, splits=nsplit), full=True)
+        check(design == "vec16", f"decode_attention {knobs} at the main shape ran {design} loads")
     # recurrentgemma-2b's served MQA decode: the ring buffer's slot s holds
     # the latest position p <= t with p = s (mod W); the model's mask keeps
     # p <= t and t - p < W (models/attention.py::_mask)
@@ -320,17 +341,19 @@ def main(argv=None) -> int:
     rg_args = (randn((gB, gH, ghd), torch.bfloat16), randn((gB, gKh, gW, ghd), torch.bfloat16),
                randn((gB, gKh, gW, ghd), torch.bfloat16), ring_valid[None].expand(gB, gW).contiguous())
     for knobs in (get_spec("decode_attention").defaults(*rg_args), {"block_kv": 64}):
+        nsplit, grid_ = split_of(rg_args, knobs)
         compare(f"decode_attention bf16 recurrentgemma-2b MQA q{tuple(rg_args[0].shape)} "
                 f"kv{tuple(rg_args[1].shape)} ring after {RING_TOKENS} tokens "
-                f"({int(ring_valid.sum())} of {gW} slots valid) {knobs}", "decode_attention",
-                ops.decode_attention(*rg_args, **knobs), da.decode_attention_plain(*rg_args, **knobs),
-                full=True)
+                f"({int(ring_valid.sum())} of {gW} slots valid) {knobs} ({nsplit} splits, grid "
+                f"{grid_})", "decode_attention", ops.decode_attention(*rg_args, **knobs),
+                da.decode_attention_plain(*rg_args, **knobs, splits=nsplit), full=True)
     # fp32, and rows with no valid slot (mean of V) or a masked leading part
     small_da = [randn((2, 14, 64), torch.float32), randn((2, 2, 256, 64), torch.float32),
                 randn((2, 2, 256, 64), torch.float32), torch.ones(2, 256, dtype=torch.int32, device=dev)]
     small_da[3][0] = 0
     small_da[3][1, :100] = 0
     got = ops.decode_attention(*small_da, block_kv=64)
+    small_splits = split_of(small_da, {"block_kv": 64})[0]
     mean_v = small_da[2][0].mean(dim=1).repeat_interleave(7, dim=0)
     invalid_ok = bool(torch.isfinite(got).all()) and bool(
         torch.allclose(got[0], mean_v, atol=1e-5, rtol=1e-5))
@@ -339,16 +362,21 @@ def main(argv=None) -> int:
     check(invalid_ok, "decode_attention: a row with no valid slot is not the mean of V")
     compare("decode_attention fp32 q(2, 14, 64) kv(2, 2, 256, 64) block_kv=64, rows all / first "
             "100 slots invalid", "decode_attention", got,
-            da.decode_attention_plain(*small_da, block_kv=64), full=False)
+            da.decode_attention_plain(*small_da, block_kv=64, splits=small_splits), full=False)
 
     lru_args = call_args["lru_scan"][0]
     for knobs in (defaults["lru_scan"], {"chunk": 4}, {"chunk": 32, "block_d": 64}):
         compare(f"lru_scan fp32 a,b{LRU_SHAPE} {knobs}", "lru_scan", ops.lru_scan(*lru_args, **knobs),
                 ls.lru_scan_plain(*lru_args, **knobs))
     rwkv_args = call_args["rwkv_scan"][0]
-    for knobs in (defaults["rwkv_scan"], {"chunk": 4}):
-        compare(f"rwkv_scan bf16 r,k,v{RWKV_SHAPE} lw,u,s0 fp32 {knobs}", "rwkv_scan",
-                ops.rwkv_scan(*rwkv_args, **knobs), ls.rwkv_scan_plain(*rwkv_args, **knobs))
+    for knobs in (defaults["rwkv_scan"], {"chunk": 4}, {"chunk": 16}):
+        got, design = ran(ls, lambda: ops.rwkv_scan(*rwkv_args, **knobs))
+        compare(f"rwkv_scan bf16 r,k,v{RWKV_SHAPE} lw,u,s0 fp32 {knobs} ({design})", "rwkv_scan",
+                got, ls.rwkv_scan_plain(*rwkv_args, **knobs))
+        check(design == "tc", f"rwkv_scan {knobs} at the serving shape ran {design}, not tc")
+    got = ls._rwkv_launch(*rwkv_args, 4, "per_token")
+    compare(f"rwkv_scan bf16 r,k,v{RWKV_SHAPE} chunk=4 through the per_token entry point", "rwkv_scan",
+            got, ls.rwkv_scan_plain(*rwkv_args, chunk=4))
     small_lru = (torch.sigmoid(randn((2, 64, 96), torch.float32)), randn((2, 64, 96), torch.float32),
                  randn((2, 96), torch.float32))
     knobs = {"chunk": 16, "block_d": 32}
@@ -360,10 +388,21 @@ def main(argv=None) -> int:
         small.append(torch.full(shape, -14.0, device=dev) if strong
                      else -torch.exp(randn(shape, torch.float32)))
         small += [randn((2, hd_), torch.float32, 0.5), randn((2, 2, hd_, hd_), torch.float32)]
-        got = ops.rwkv_scan(*small, chunk=16)
+        got, design = ran(ls, lambda: ops.rwkv_scan(*small, chunk=16))
         check(bool(torch.isfinite(got[0]).all()), f"rwkv_scan hd {hd_}: non-finite output")
-        compare(f"rwkv_scan fp32 r,k,v{shape}{' lw=-14' if strong else ''} chunk=16", "rwkv_scan",
-                got, ls.rwkv_scan_plain(*small, chunk=16))
+        compare(f"rwkv_scan fp32 r,k,v{shape}{' lw=-14' if strong else ''} chunk=16 ({design})",
+                "rwkv_scan", got, ls.rwkv_scan_plain(*small, chunk=16))
+        check(design == "per_token", f"rwkv_scan fp32 ran {design}, not per_token")
+    # bf16 at strong decay through the tensor-core design
+    shape = (2, 64, 2, 64)
+    strong = [randn(shape, torch.bfloat16) for _ in range(3)]
+    strong += [torch.full(shape, -14.0, device=dev), randn((2, 64), torch.float32, 0.5),
+               randn((2, 2, 64, 64), torch.float32)]
+    got, design = ran(ls, lambda: ops.rwkv_scan(*strong, chunk=16))
+    check(bool(torch.isfinite(got[0].float()).all()) and design == "tc",
+          f"rwkv_scan bf16 lw=-14: design {design}, finite {bool(torch.isfinite(got[0].float()).all())}")
+    compare(f"rwkv_scan bf16 r,k,v{shape} lw=-14 chunk=16 ({design})", "rwkv_scan", got,
+            ls.rwkv_scan_plain(*strong, chunk=16))
 
     def counts():
         return {"matmul": mm.launches, "flash_attention": fa.launches,
@@ -648,6 +687,40 @@ def main(argv=None) -> int:
               f"{bound_ms / row['tuned']:.4f} of the roofline tuned); launches by phase: "
               f"tune {phase_launches['tune'][name]}, replay {phase_launches['replay'][name]}, "
               f"pretune {phase_launches['pretune'][name]}, route {phase_launches['route'][name]}")
+    # the two kernels redesigned for the card: split count and grid, share of
+    # the bytes bound, decode against SDPA and the rwkv tensor-core design
+    # against the per-token design on the same inputs (its C entry point)
+    d_row = times["decode_attention"]
+    d_bytes_ms = d_row["terms"].memory_s * 1e3
+    for which in ("default", "tuned"):
+        knobs = defaults["decode_attention"] if which == "default" else records["decode_attention"].point
+        nsplit, grid_ = split_of(da_args, knobs)
+        d_row[f"splits_{which}"], d_row[f"grid_{which}"] = nsplit, list(grid_)
+        print(f"[7] decode_attention {which} {knobs}: {d_row[which]:.4f} ms, {nsplit} splits, grid "
+              f"{grid_} = {math.prod(grid_)} blocks on {n_sm} SMs, {d_bytes_ms / d_row[which]:.4f} of "
+              f"the bytes bound {d_bytes_ms:.4f} ms; SDPA {d_row['library']:.4f} ms: "
+              f"{'faster' if d_row[which] < d_row['library'] else 'SLOWER'} than SDPA "
+              f"({d_row['library'] / d_row[which]:.2f}x)")
+    r_row, r_terms = times["rwkv_scan"], times["rwkv_scan"]["terms"]
+    tc_tensor, tc_cuda = ls.rwkv_tc_flops(rB, rT, rH)
+    r_row["tc_bound_ms"] = max(r_terms.memory_s, tc_tensor / 495e12, tc_cuda / 67e12) * 1e3
+    r_row["bytes_bound_ms"] = r_terms.memory_s * 1e3
+    r_row["per_token"] = {}
+    for label, chunk in (("serving chunk=4", 4), (f"tuned chunk={records['rwkv_scan'].point['chunk']}",
+                                                   records["rwkv_scan"].point["chunk"])):
+        _, design = ran(ls, lambda: ops.rwkv_scan(*rwkv_args, chunk=chunk))
+        tc_ms = cuda_ms(lambda: ops.rwkv_scan(*rwkv_args, chunk=chunk), 5)
+        pt_ms = cuda_ms(lambda: ls._rwkv_launch(*rwkv_args, chunk, "per_token"), 5)
+        tc_ms2 = cuda_ms(lambda: ops.rwkv_scan(*rwkv_args, chunk=chunk), 5)
+        r_row["per_token"][chunk] = pt_ms
+        print(f"[7] rwkv_scan {label}: {design} design {tc_ms:.4f} / {tc_ms2:.4f} ms, per_token "
+              f"design {pt_ms:.4f} ms on the same inputs ({pt_ms / min(tc_ms, tc_ms2):.2f}x); "
+              f"{r_row['bytes_bound_ms'] / min(tc_ms, tc_ms2):.4f} of the bytes bound "
+              f"{r_row['bytes_bound_ms']:.4f} ms ({r_terms.bytes_accessed / 1e6:.1f} MB); tensor-core "
+              f"design's bound {r_row['tc_bound_ms']:.4f} ms ({tc_tensor / 1e9:.1f} GFLOP TF32, "
+              f"{tc_cuda / 1e9:.2f} GFLOP fp32); fp32 operations bound of the per-token design "
+              f"{r_terms.compute_s * 1e3:.4f} ms")
+        check(design == "tc", f"rwkv_scan {label} at the serving shape ran {design}, not tc")
     csa_nm_ms = cuda_ms(lambda: ops.decode_attention(*da_args, **records_csa_nm.point), 5)
     print(f"[7] decode_attention tuned by csa+nm: {csa_nm_ms:.4f} ms {records_csa_nm.point}; "
           f"by the route: {drec.point}")
@@ -682,10 +755,12 @@ def main(argv=None) -> int:
         runs = []
         for run in (1, 2):
             reset_counts()
+            by_design = dict(ls.launches_by_design)
             buf = io.StringIO()
             with contextlib.redirect_stdout(buf):
                 res = serve.serve(["--arch", arch, *SERVE_ARGS, "--db", db_path])
             launched = counts()
+            by_design = {d: n - by_design[d] for d, n in ls.launches_by_design.items()}
             for line in buf.getvalue().splitlines():
                 print(f"[{phase}] {arch} run {run}: {line}")
             print(f"[{phase}] {arch} run {run}: prefill {res['prefill_ms']:.1f} ms, decode "
@@ -696,6 +771,11 @@ def main(argv=None) -> int:
                   f"expected {per_prefill} (one per layer)")
             check(all(n == 0 for name, n in launched.items() if name != scan),
                   f"{arch} run {run}: unexpected launches {launched}")
+            if scan == "rwkv_scan":
+                print(f"[{phase}] {arch} run {run}: rwkv_scan launches by design {by_design}")
+                check(by_design["tc"] == per_prefill,
+                      f"{arch} run {run}: the prefill's rwkv_scan calls ran {by_design}, "
+                      f"not {per_prefill} of the tensor-core design")
             h = res["hidden"]
             check(h.shape == (8, res["model"].cfg.d_model) and bool(torch.isfinite(h.float()).all()),
                   f"{arch} run {run}: prefill hidden {tuple(h.shape)} not finite of width d_model")
@@ -776,7 +856,8 @@ def main(argv=None) -> int:
     main_launches = {n: tuning_launches[n] + route_launches[n] + serve_launches.get(n, 0)
                      for n in names}
     print(f"[9] serving launches: {serve_launches}; all main paths: {main_launches}; launches by "
-          f"design since the start: matmul {mm.launches_by_design}, flash_attention {fa.launches_by_design}")
+          f"design since the start: matmul {mm.launches_by_design}, flash_attention {fa.launches_by_design}, "
+          f"decode_attention {da.launches_by_design}, rwkv_scan {ls.launches_by_design}")
     for name, n in main_launches.items():
         check(n > 0, f"no main path launched the {name} kernel")
 
@@ -787,7 +868,7 @@ def main(argv=None) -> int:
                                     "src/repro/kernels/decode_attention.py:58"),
                "lru_scan": ("src/repro_torch/kernels/csrc/linear_scan.cu",
                             "src/repro/kernels/linear_scan.py:147"),
-               "rwkv_scan": ("src/repro_torch/kernels/csrc/linear_scan.cu",
+               "rwkv_scan": ("src/repro_torch/kernels/csrc/rwkv_subchunk.cu",
                              "src/repro/kernels/linear_scan.py:77")}
     kernels = []
     for name in names:
@@ -801,6 +882,14 @@ def main(argv=None) -> int:
             "bound_ms": terms.bound_s * 1e3, "bound_by": terms.dominant,
             "library_ms": row["library"],
         }
+        if name == "rwkv_scan":  # the tensor-core design ran; its bound is the bytes'
+            entry.update(design="tc", bound_ms=row["tc_bound_ms"], bound_by="bytes",
+                         fp32_operations_bound_ms=terms.compute_s * 1e3,
+                         per_token_ms={str(c): t for c, t in row["per_token"].items()},
+                         per_token_source="src/repro_torch/kernels/csrc/linear_scan.cu")
+        if name == "decode_attention":
+            entry.update(design="split_kv", splits=row["splits_tuned"], grid=row["grid_tuned"],
+                         splits_default=row["splits_default"], grid_default=row["grid_default"])
         if row["main_path"] is not None:
             entry["ms_serving_chunk4"] = row["main_path"]
         if "rg_mqa" in row:  # recurrentgemma-2b's MQA decode, at its default knobs

@@ -6,9 +6,10 @@
 At the qwen2-7b decode shape (q (8, 28, 128), k/v (8, 4, 32768, 128) bf16,
 a random valid prefix per row) and at recurrentgemma-2b's MQA decode shape
 (q (8, 10, 256), k/v (8, 1, 2048, 256) bf16, every slot valid), it prints
-the card's name and power limit, the kernel's max |error| against its plain
-version and its time (CUDA events, one warm-up, 10 repetitions) at each
-``block_kv`` of the tuning space, the plain version's time at 512 (2
+the card's name and power limit, the kernel's split count and grid, its
+max |error| against its plain version at that split count, its time (CUDA
+events, one warm-up, 10 repetitions) and its share of the bytes bound at
+each ``block_kv`` of the tuning space, the plain version's time at 512 (2
 repetitions) and ``F.scaled_dot_product_attention`` with the bool mask and
 the KV heads expanded (10 repetitions), beside the roofline bound.  Weights
 come from seed 0.  It builds the CUDA kernels first and exits 1 without a
@@ -62,11 +63,16 @@ def main() -> int:
         terms = roofline("decode_attention", q, k, v, valid)
         print(f"shape B,H,Kh,S,hd={(B, H, Kh, S, hd)}: bound {terms.bound_s * 1e3:.4f} ms by "
               f"{terms.dominant}")
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
         for bkv in (64, 128, 256, 512, 1024):
+            grid = da.grid(B, Kh, H // Kh, S, bkv, n_sm)
             err = (ops.decode_attention(q, k, v, valid, block_kv=bkv).float()
-                   - da.decode_attention_plain(q, k, v, valid, block_kv=bkv).float()).abs().max()
+                   - da.decode_attention_plain(q, k, v, valid, block_kv=bkv, splits=grid[2]).float()
+                   ).abs().max()
             ms = cuda_ms(lambda: ops.decode_attention(q, k, v, valid, block_kv=bkv), 10)
-            print(f"  block_kv {bkv}: max |kernel - plain| {err.item():.3e}, kernel {ms:.4f} ms")
+            print(f"  block_kv {bkv}: {grid[2]} splits, grid {grid} ({grid[0] * grid[1] * grid[2]} "
+                  f"blocks), max |kernel - plain| {err.item():.3e}, kernel {ms:.4f} ms, "
+                  f"{terms.memory_s * 1e3 / ms:.4f} of the bytes bound")
         print(f"  plain (512): {cuda_ms(lambda: da.decode_attention_plain(q, k, v, valid), 2):.4f} ms")
         k_exp, v_exp = k.repeat_interleave(H // Kh, 1), v.repeat_interleave(H // Kh, 1)
         mask = (valid > 0)[:, None, None, :]

@@ -231,7 +231,8 @@ register(
         work=_ls.rwkv_flops_bytes,
         arith_dtype="float32",
         check=lambda r, k, v, lw, u, s0, *, chunk, interpret: _ls.legal_rwkv(
-            r.shape[1], r.shape[3], chunk, not interpret
+            r.shape[1], r.shape[3], chunk, not interpret, r.element_size(),
+            all(x.data_ptr() % 16 == 0 for x in (r, k, v, lw, u, s0)),
         ),
     )
 )

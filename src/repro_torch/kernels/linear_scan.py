@@ -3,18 +3,27 @@ kernels for Hopper.
 
 Replace the JAX package's ``kernels/linear_scan.py::lru_scan_chunked`` and
 ``::rwkv_scan_chunked`` (Pallas TPU kernels ``_lru_kernel`` and
-``_rwkv_kernel``).  The CUDA source is ``csrc/linear_scan.cu``: each block
-owns its whole time axis with the fp32 state in registers, staging
-``chunk`` time steps of its inputs in shared memory per load.
+``_rwkv_kernel``).  Each block owns its whole time axis with the fp32 state
+on chip, staging ``chunk`` time steps of its inputs in shared memory per load.
 
-* ``lru_scan_chunked``: h_t = a_t ⊙ h_{t−1} + b_t over (B, T, D), one
-  thread per channel, grid (D / block_d, B).  Memory-bound (a and b read,
-  hs written).  ``chunk`` and ``block_d`` are both real knobs of the kernel.
-* ``rwkv_scan_chunked``: the exact per-token WKV recurrence, one block per
-  (batch, head), one thread per state column.  Operation-bound (about
-  5·hd² fp32 FLOP per token and head on the CUDA cores).  Unlike the TPU
-  kernel it forms no cumulative-decay differences, so it stays finite at
-  any decay; head dims 8, 16, 32 and 64 are instantiated.
+* ``lru_scan_chunked`` (``csrc/linear_scan.cu``): h_t = a_t ⊙ h_{t−1} + b_t
+  over (B, T, D), one thread per channel, grid (D / block_d, B).
+  Memory-bound (a and b read, hs written).  ``chunk`` and ``block_d`` are
+  both real knobs of the kernel.
+* ``rwkv_scan_chunked``: one block per (batch, head), two designs chosen
+  before launch by the pure function :func:`rwkv_design`:
+
+  - ``"tc"`` (``csrc/rwkv_subchunk.cu``), bf16 r, k, v at head dim 64 where
+    T is a multiple of max(chunk, 16): per sub-chunk of 16 tokens the
+    inter-chunk product r·e^{c}·S and the state update run on the tensor
+    cores (TF32 ``mma.sync``, the state's operand split into a high and a
+    low part to keep fp32 accuracy), the intra-chunk scores exactly per
+    channel on the CUDA cores, with c the decay's cumulative sum restarted
+    at each sub-chunk so that no exponent is positive;
+    :func:`rwkv_scan_subchunk_plain` is its arithmetic in plain PyTorch;
+  - ``"per_token"`` (``csrc/linear_scan.cu``), every other call: the exact
+    per-token recurrence, one thread per state column, about 5·hd² fp32
+    FLOP per token and head on the CUDA cores; head dims 8, 16, 32, 64.
 
 Knobs the kernels cannot run raise ``ValueError`` naming the knob before
 any launch (the tuner charges them ``inf``).  :func:`lru_scan_plain` and
@@ -37,9 +46,13 @@ __all__ = [
     "rwkv_scan_plain",
     "legal_lru",
     "legal_rwkv",
+    "rwkv_design",
+    "rwkv_scan_subchunk_plain",
+    "rwkv_tc_flops",
     "lru_flops_bytes",
     "rwkv_flops_bytes",
     "launches",
+    "launches_by_design",
 ]
 
 #: shared memory one block may use on Hopper (227 KB)
@@ -52,14 +65,27 @@ LRU_BLOCK_D = 128
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
-#: kernel launches so far, per kernel (the plain versions do not count)
+#: the tensor-core RWKV design (csrc/rwkv_subchunk.cu): head dim, tokens
+#: per sub-chunk, bytes staged per token (bf16 r, k, v rows of 144 bytes,
+#: an fp32 lw row of 272), ring stages and its fixed fp32 arrays
+TC_HEAD_DIM = 64
+TC_SUBCHUNK = 16
+TC_TOKEN_BYTES = 3 * 144 + 272
+TC_STAGES = 2
+TC_FIXED_BYTES = 4 * (64 * 72 + 16 * 68 + 16 * 72 + 16 * 20 + 2 * 64)
+
+#: kernel launches so far, per kernel, and the rwkv scan's by design (the
+#: plain versions do not count)
 launches = {"lru_scan": 0, "rwkv_scan": 0}
+launches_by_design = {"tc": 0, "per_token": 0}
 _count_lock = threading.Lock()
 
 
-def _count(name: str) -> None:
+def _count(name: str, design: str = "") -> None:
     with _count_lock:
         launches[name] += 1
+        if design:
+            launches_by_design[design] += 1
 
 
 def _chunk(T: int, chunk: int) -> int:
@@ -89,6 +115,27 @@ def rwkv_smem_bytes(chunk: int, hd: int) -> int:
     """Shared memory of one rwkv block: five fp32 (chunk, hd) tiles (r, k, v,
     exp(lw), u·k)."""
     return 5 * chunk * hd * 4
+
+
+def rwkv_tc_smem_bytes(chunk: int) -> int:
+    """Shared memory of one block of the tensor-core design: two ring
+    stages of max(chunk, 16) tokens and the fixed fp32 arrays (the state,
+    the decay-weighted r and k, the intra scores, e^{c})."""
+    return TC_STAGES * max(chunk, TC_SUBCHUNK) * TC_TOKEN_BYTES + TC_FIXED_BYTES
+
+
+def rwkv_design(itemsize: int, hd: int, T: int, chunk: int, aligned: bool = True) -> str:
+    """``"tc"`` when the sub-chunked tensor-core kernel runs this call, else
+    ``"per_token"``: a pure function of the dtype (``itemsize`` 2: bf16),
+    the head dim, the sequence length, the (clamped) chunk and whether the
+    tensors start on 16-byte boundaries.  The tensor-core kernel stages
+    max(chunk, 16) tokens per load, which must divide T."""
+    staged = max(chunk, TC_SUBCHUNK)
+    if itemsize != 2 or hd != TC_HEAD_DIM or not aligned or T % staged:
+        return "per_token"
+    if rwkv_tc_smem_bytes(chunk) > SMEM_LIMIT:
+        return "per_token"
+    return "tc"
 
 
 def check_lru(chunk: int, block_d: int) -> None:
@@ -122,11 +169,12 @@ def legal_lru(T: int, D: int, chunk: int, block_d: int, on_card: bool) -> tuple:
     return L, bd
 
 
-def legal_rwkv(T: int, hd: int, chunk: int, on_card: bool) -> int:
+def legal_rwkv(T: int, hd: int, chunk: int, on_card: bool, itemsize: int = 4,
+               aligned: bool = True) -> int:
     """The chunk a call runs with (clamped), or ``ValueError``: it must
-    divide T, and on the card fit the kernel at this head dim."""
+    divide T, and on the card fit the design that will launch."""
     L = _chunk(T, chunk)
-    if on_card:
+    if on_card and rwkv_design(itemsize, hd, T, L, aligned) == "per_token":
         check_rwkv(L, hd)
     return L
 
@@ -156,6 +204,21 @@ def rwkv_flops_bytes(r, k, v, lw, u, s0) -> tuple:
     return flops, float(nbytes)
 
 
+def rwkv_tc_flops(B: int, T: int, H: int) -> tuple:
+    """(tensor-core TF32 FLOP, CUDA-core fp32 FLOP) the tensor-core design
+    does for one call at head dim 64.  Per (batch, head) and sub-chunk of
+    16 tokens: on the tensor cores the inter product (16·64·64 multiply-adds),
+    A @ v (16·16·64) and the state update twice (high and low part,
+    2·64·64·16); on the CUDA cores the decay scan (16·64 adds), the
+    decay-weighted r and k (16·64 · 2 exps and 2 multiplies), the 120 intra
+    pairs (64 channels · a subtract, an exp, a multiply and a multiply-add),
+    the diagonal (16·64 · 3) and the state's row scale (64·64)."""
+    n = B * H * (T // TC_SUBCHUNK)
+    tensor = 2.0 * (16 * 64 * 64 + 16 * 16 * 64 + 2 * 64 * 64 * 16)
+    cuda = 16 * 64 + 16 * 64 * 4 + 120 * 64 * 5 + 16 * 64 * 3 + 64 * 64
+    return n * tensor, float(n * cuda)
+
+
 # --------------------------------------------------------- plain versions
 def lru_scan_plain(a, b, h0, *, chunk: int = 128, block_d: int = LRU_BLOCK_D):
     """The lru kernel in plain PyTorch: the knobs are checked as the kernel
@@ -173,6 +236,35 @@ def rwkv_scan_plain(r, k, v, lw, u, s0, *, chunk: int = 64):
     oracle runs; y in ``r.dtype``, sT fp32."""
     _chunk(r.shape[1], chunk)
     return ref.rwkv_scan_ref(r, k, v, lw, u, s0)
+
+
+def rwkv_scan_subchunk_plain(r, k, v, lw, u, s0, *, sub: int = TC_SUBCHUNK):
+    """The tensor-core design's decomposition in plain fp32 PyTorch (tests
+    and ``chip_smoke.py`` only): per sub-chunk of ``sub`` tokens, with c the
+    cumulative sum of lw restarted at the sub-chunk's start,
+    y = (r ⊙ e^{c_{t−1}}) @ S + A @ v with A[t,s] = Σ_i r_t k_s e^{c_{t−1} − c_s}
+    for s < t and A[t,t] = Σ_i r_t u k_t, then S ← e^{c_L} ⊙ S +
+    (k ⊙ e^{c_L − c})ᵀ @ v.  Every exponent is ≤ 0.  y in ``r.dtype``, sT fp32."""
+    B, T, H, hd = r.shape
+    if T % sub:
+        raise ValueError(f"T={T} not divisible by the sub-chunk {sub}")
+    rf, kf, vf, wf = (x.float().permute(0, 2, 1, 3) for x in (r, k, v, lw))  # (B, H, T, hd)
+    S = s0.float().clone()
+    ys = []
+    below = torch.tril(torch.ones(sub, sub, dtype=torch.bool, device=r.device), diagonal=-1)
+    for t0 in range(0, T, sub):
+        rr, kk, vv = rf[:, :, t0:t0 + sub], kf[:, :, t0:t0 + sub], vf[:, :, t0:t0 + sub]
+        c = torch.cumsum(wf[:, :, t0:t0 + sub], dim=2)
+        cprev = torch.cat([torch.zeros_like(c[:, :, :1]), c[:, :, :-1]], dim=2)
+        diff = cprev[:, :, :, None, :] - c[:, :, None, :, :]  # [t, s, i], <= 0 below the diagonal
+        dec = torch.exp(torch.where(below[:, :, None], diff, torch.full_like(diff, -float("inf"))))
+        scores = torch.einsum("bhti,bhsi,bhtsi->bhts", rr, kk, dec)
+        scores = scores + torch.diag_embed(torch.einsum("bhti,hi,bhti->bht", rr, u.float(), kk))
+        ys.append((rr * torch.exp(cprev)) @ S + scores @ vv)
+        cl = c[:, :, -1]
+        S = torch.exp(cl)[..., None] * S + (kk * torch.exp(cl[:, :, None] - c)).transpose(-1, -2) @ vv
+    y = torch.cat(ys, dim=2).permute(0, 2, 1, 3)
+    return y.to(r.dtype), S
 
 
 # ----------------------------------------------------------- CUDA launch
@@ -248,27 +340,47 @@ def rwkv_scan_chunked(r, k, v, lw, u, s0, *, chunk: int = 64, interpret: bool = 
     if u.shape != (H, hd) or s0.shape != (B, H, hd, hd):
         raise ValueError(f"rwkv_scan: u {tuple(u.shape)} / s0 {tuple(s0.shape)} do not match "
                          f"r {tuple(r.shape)}")
-    L = legal_rwkv(T, hd, chunk, on_card=not interpret)
     if interpret:
+        L = legal_rwkv(T, hd, chunk, on_card=False)
         if any(x.is_cuda for x in (r, k, v, lw, u, s0)):
             raise ValueError("rwkv_scan: interpret=True runs the plain version on CPU tensors only")
         return rwkv_scan_plain(r, k, v, lw, u, s0, chunk=L)
     lw, u, s0 = (x.float().contiguous() for x in (lw, u, s0))
+    aligned = all(x.data_ptr() % 16 == 0 for x in (r, k, v, lw, u, s0))
+    L = legal_rwkv(T, hd, chunk, on_card=True, itemsize=r.element_size(), aligned=aligned)
     io = (torch.float32, torch.bfloat16)
     f32 = (torch.float32,)
     _check_cuda("rwkv_scan", {"r": r, "k": k, "v": v, "lw": lw, "u": u, "s0": s0},
                 {"r": io, "k": (r.dtype,), "v": (r.dtype,), "lw": f32, "u": f32, "s0": f32})
-    y = torch.empty_like(r)
+    return _rwkv_launch(r, k, v, lw, u, s0, L, rwkv_design(r.element_size(), hd, T, L, aligned))
+
+
+def _rwkv_launch(r, k, v, lw, u, s0, L: int, design: str):
+    """Launch the named design's C entry point on checked CUDA tensors (lw,
+    u, s0 fp32 and contiguous).  ``chip_smoke.py`` also calls it with
+    ``"per_token"`` to time the per-token design on the inputs the tensor-core
+    design takes."""
+    B, T, H, hd = r.shape
+    y = torch.empty_like(r)  # the caching allocator's blocks start on 512-byte boundaries
     sT = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
-    lib = _cuda.load("linear_scan")
-    fn = getattr(lib, f"repro_rwkv_scan_{_SUFFIX[r.dtype]}")
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    ptrs = [x.data_ptr() for x in (r, k, v, lw, u, s0, y, sT)]
+    if design == "tc":
+        lib = _cuda.load("rwkv_subchunk")
+        fn, err = lib.repro_rwkv_scan_tc_bf16, lib.repro_rwkv_subchunk_error_string
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        dims = (B, T, H, L)
+    else:
+        lib = _cuda.load("linear_scan")
+        fn, err = getattr(lib, f"repro_rwkv_scan_{_SUFFIX[r.dtype]}"), lib.repro_linear_scan_error_string
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        dims = (B, T, H, hd, L)
     fn.restype = ctypes.c_int
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
-        rc = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(), u.data_ptr(),
-                s0.data_ptr(), y.data_ptr(), sT.data_ptr(), B, T, H, hd, L, stream)
+        rc = fn(*ptrs, *dims, stream)
     if rc != 0:
-        _raise_launch(lib, rc, f"rwkv_scan (chunk {L}, hd {hd})")
-    _count("rwkv_scan")
+        err.restype = ctypes.c_char_p
+        raise RuntimeError(f"rwkv_scan kernel ({design}) launch failed (chunk {L}, hd {hd}): "
+                           f"CUDA error {rc}: {err(rc).decode()}")
+    _count("rwkv_scan", design)
     return y, sT

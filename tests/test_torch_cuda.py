@@ -419,15 +419,15 @@ def test_decode_kernel_all_invalid_row_is_the_mean_of_v(dtype):
 @pytest.mark.cuda
 def test_decode_tiles_the_kernel_cannot_run_raise_before_launch():
     dev = _card()
-    q, k, v, vd = _decode_inputs(1, 64, 1, 1024, 128, torch.bfloat16, dev, np.ones((1, 1024)))
+    q, k, v, vd = _decode_inputs(1, 64, 1, 8192, 128, torch.bfloat16, dev, np.ones((1, 8192)))
     before = tda.launches
     with pytest.raises(ValueError, match="shared memory"):
-        ops.decode_attention(q, k, v, vd, block_kv=1024)
+        ops.decode_attention(q, k, v, vd, block_kv=8192)  # 8 heads' fp32 scores and the ring
     with pytest.raises(ValueError, match="int32"):
         ops.decode_attention(q, k, v, vd.long(), block_kv=64)
     assert tda.launches == before
-    assert get_spec("decode_attention").defaults(q, k, v, vd) == {"block_kv": 256}
-    ops.decode_attention(q, k, v, vd, block_kv=256)
+    assert get_spec("decode_attention").defaults(q, k, v, vd) == {"block_kv": 512}
+    ops.decode_attention(q, k, v, vd, block_kv=1024)  # the space's largest tile at g = 64
     torch.cuda.synchronize()
 
 
@@ -454,3 +454,142 @@ def test_routed_decode_on_the_card():
     assert rec.key.backend == "cuda"
     out = routed("decode_attention", *args, router=router)
     assert torch.equal(out, ops.decode_attention(*args, **rec.point))
+
+
+# --------------------------------------------- split-KV decode (the redesign)
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Kh,S,hd,bkv", [
+    (1, 7, 1, 4096, 128, 64),  # 64 tiles: many splits, one tile each on a 132-SM card
+    (8, 28, 4, 128, 128, 64),  # 2 tiles: the tile count caps the splits
+    (34, 8, 8, 128, 64, 64),  # 272 (row, KV head) blocks already: one split
+    (2, 10, 1, 2048, 256, 64),  # recurrentgemma-2b MQA: two head groups of 5
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_split_kv_matches_plain_at_its_split_count(dtype, B, H, Kh, S, hd, bkv):
+    """Leading and whole-split invalid runs, a row with no valid slot, and
+    the kernel against the plain version at its own split count and at one."""
+    dev = _card()
+    valid = np.random.RandomState(14).uniform(size=(B, S)) < 0.5
+    valid[0, : S * 3 // 4] = False  # every split but the last few holds no valid slot
+    if B > 1:
+        valid[1] = False  # no valid slot at all: the mean of V
+    q, k, v, vd = _decode_inputs(B, H, Kh, S, hd, dtype, dev, valid)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    grid = tda.grid(B, Kh, H // Kh, S, bkv, n_sm)
+    before = dict(tda.launches_by_design)
+    got = ops.decode_attention(q, k, v, vd, block_kv=bkv)
+    assert _ran(tda.launches_by_design, before) == "vec16"
+    assert bool(torch.isfinite(got.float()).all())
+    _close(got, tda.decode_attention_plain(q, k, v, vd, block_kv=bkv, splits=grid[2]))
+    _close(got, tda.decode_attention_plain(q, k, v, vd, block_kv=bkv))
+    if B > 1:
+        mean_v = v[1].float().mean(dim=1).repeat_interleave(H // Kh, dim=0)
+        torch.testing.assert_close(got[1].float(), mean_v, atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_decode_ring_buffer_mqa_mask():
+    """recurrentgemma-2b's ring after 2048 + 64 tokens, at several tiles."""
+    dev = _card()
+    B, H, Kh, W, hd, t_pos = 2, 10, 1, 2048, 256, 2048 + 63
+    slots = np.arange(W)
+    pos = slots + ((t_pos - slots) // W) * W
+    valid = ((pos >= 0) & (pos <= t_pos) & (t_pos - pos < W))[None].repeat(B, 0)
+    args = _decode_inputs(B, H, Kh, W, hd, torch.bfloat16, dev, valid)
+    for bkv in (64, 256, 1024):
+        n = tda.num_splits(B, Kh, H // Kh, W, bkv, torch.cuda.get_device_properties(dev).multi_processor_count)
+        _close(ops.decode_attention(*args, block_kv=bkv),
+               tda.decode_attention_plain(*args, block_kv=bkv, splits=n))
+
+
+@pytest.mark.cuda
+def test_decode_misaligned_view_takes_element_loads():
+    """K and V 2 bytes off a 16-byte boundary, or with a row stride of 17
+    elements: the same kernel fills its ring with element loads, never a
+    launch error."""
+    dev = _card()
+    B, H, Kh, S, hd = 2, 14, 2, 512, 64
+    q, k, v, vd = _decode_inputs(B, H, Kh, S, hd, torch.bfloat16, dev, np.ones((B, S)))
+    flat = torch.empty(k.numel() + 1, dtype=k.dtype, device=dev)
+    k_off = flat[1:].view(k.shape)
+    k_off.copy_(k)
+    v_wide = torch.zeros(B, Kh, S, hd + 1, dtype=v.dtype, device=dev)[..., :hd]
+    v_wide.copy_(v)
+    before = dict(tda.launches_by_design)
+    got = ops.decode_attention(q, k_off, v_wide, vd, block_kv=128)
+    assert _ran(tda.launches_by_design, before) == "narrow"
+    _close(got, ops.decode_attention(q, k, v, vd, block_kv=128))
+
+
+@pytest.mark.cuda
+def test_redesigned_kernels_launch_from_a_fresh_thread():
+    import threading
+
+    dev = _card()
+    q, k, v, vd = _decode_inputs(2, 28, 4, 1024, 128, torch.bfloat16, dev, np.ones((2, 1024)))
+    r, kk, vv = (_randn(60 + i, (1, 64, 2, 64), torch.bfloat16, dev) for i in range(3))
+    lw = -torch.exp(_randn(63, (1, 64, 2, 64), torch.float32, dev))
+    u, s0 = _randn(64, (2, 64), torch.float32, dev), _randn(65, (1, 2, 64, 64), torch.float32, dev)
+    out, errors = {}, []
+
+    def work():
+        try:
+            out["da"] = ops.decode_attention(q, k, v, vd, block_kv=128)
+            out["rwkv"] = ops.rwkv_scan(r, kk, vv, lw, u, s0, chunk=16)
+            torch.cuda.synchronize()
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    th = threading.Thread(target=work)
+    th.start()
+    th.join()
+    assert not errors, errors
+    _close(out["da"], tda.decode_attention_plain(q, k, v, vd, block_kv=128))
+    want_y, want_s = tls.rwkv_scan_plain(r, kk, vv, lw, u, s0)
+    _scan_close("rwkv", out["rwkv"][0], want_y)
+    _scan_close("rwkv", out["rwkv"][1], want_s)
+
+
+# ------------------------------------- sub-chunked tensor-core RWKV (the redesign)
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,chunk", [
+    (2, 64, 3, 4), (1, 128, 2, 16), (1, 256, 2, 128), (2, 512, 2, 32), (1, 48, 2, 4),
+])
+def test_rwkv_tensor_core_design_matches_plain(B, T, H, chunk):
+    """y at the bf16 limit 5e-2, the fp32 state at 1e-5; launches_by_design
+    names the tensor-core design."""
+    dev = _card()
+    r, k, v = (_randn(70 + i, (B, T, H, 64), torch.bfloat16, dev) for i in range(3))
+    lw = -torch.exp(_randn(73, (B, T, H, 64), torch.float32, dev))
+    u = _randn(74, (H, 64), torch.float32, dev, 0.5)
+    s0 = _randn(75, (B, H, 64, 64), torch.float32, dev)
+    before = dict(tls.launches_by_design)
+    y, sT = ops.rwkv_scan(r, k, v, lw, u, s0, chunk=chunk)
+    assert _ran(tls.launches_by_design, before) == "tc"
+    want_y, want_s = tls.rwkv_scan_plain(r, k, v, lw, u, s0, chunk=chunk)
+    _scan_close("rwkv", y, want_y)
+    _scan_close("rwkv", sT, want_s)
+    yp, sp = tls.rwkv_scan_subchunk_plain(r, k, v, lw, u, s0)
+    _scan_close("rwkv", y, yp)
+    _scan_close("rwkv", sT, sp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,hd,T,want", [
+    (torch.bfloat16, 64, 64, "tc"), (torch.float32, 64, 64, "per_token"),
+    (torch.bfloat16, 32, 64, "per_token"), (torch.bfloat16, 64, 8, "per_token"),
+])
+def test_rwkv_strong_decay_on_each_design(dtype, hd, T, want):
+    dev = _card()
+    B, H = 1, 2
+    r, k, v = (_randn(80 + i, (B, T, H, hd), dtype, dev) for i in range(3))
+    lw = torch.full((B, T, H, hd), -14.0, device=dev)
+    u = _randn(83, (H, hd), torch.float32, dev)
+    s0 = _randn(84, (B, H, hd, hd), torch.float32, dev)
+    before = dict(tls.launches_by_design)
+    y, sT = ops.rwkv_scan(r, k, v, lw, u, s0, chunk=4 if T < 16 else 16)
+    assert _ran(tls.launches_by_design, before) == want
+    assert bool(torch.isfinite(y.float()).all()) and bool(torch.isfinite(sT).all())
+    want_y, want_s = tls.rwkv_scan_plain(r, k, v, lw, u, s0)
+    _scan_close("rwkv", y, want_y)
+    _scan_close("rwkv", sT, want_s)

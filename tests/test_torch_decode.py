@@ -120,12 +120,14 @@ def test_illegal_tiles_are_refused_by_the_knob_check():
     """On the card every point of the space runs or is refused before launch."""
     tda.check_tile(7, 128, 1024)  # qwen2-7b: the whole JAX space runs
     tda.check_tile(10, 256, 1024)  # recurrentgemma-2b MQA
-    with pytest.raises(ValueError, match="block_kv=1024.*shared memory"):
-        tda.check_tile(64, 128, 1024)
+    tda.check_tile(64, 128, 1024)  # g = 64 runs as eight blocks of eight heads
+    with pytest.raises(ValueError, match="block_kv=8192.*shared memory"):
+        tda.check_tile(64, 128, 8192)  # beyond the space: 8 x 8192 fp32 scores and the ring
     with pytest.raises(ValueError, match="head dim"):
         tda.check_tile(1, 96, 64)
     q, k = torch.empty(1, 64, 128, device="meta"), torch.empty(1, 1, 4096, 128, device="meta")
-    assert tda.default_block_kv(q, k) == 256  # 512 needs more than a block holds at g = 64
+    assert tda.default_block_kv(q, k) == 512  # a block holds at most 8 heads' score tiles
+    assert tda.smem_bytes(8, 128, 8192) > tda.SMEM_LIMIT >= tda.smem_bytes(8, 128, 4096)
     q, k = torch.empty(8, 28, 128, device="meta"), torch.empty(8, 4, 32768, 128, device="meta")
     assert tda.default_block_kv(q, k) == 512  # the JAX default where the card runs it
 
@@ -166,3 +168,64 @@ def test_roofline_counts_flops_and_bytes():
     assert terms.bytes_accessed == 2 * (2 * B * H * hd) + 2 * (2 * B * Kh * S * hd) + 4 * B * S
     assert terms.dominant == "bytes" and math.isclose(terms.bound_s, terms.bytes_accessed / 3.35e12)
     assert math.isclose(terms.compute_s, terms.flops / 67e12)  # fp32 arithmetic on the CUDA cores
+
+
+# ----------------------------------------------------- split-KV decomposition
+@pytest.mark.parametrize("splits", [1, 2, 8])  # 8 = S / block_kv: one tile per split
+@pytest.mark.parametrize("H,Kh,hd", [(14, 2, 32), (10, 1, 64)])  # g = 7 (qwen2-7b), 10 (MQA)
+def test_split_kv_plain_matches_jax_kernel_and_oracle(splits, H, Kh, hd):
+    """The kernel's partial-and-merge form: a valid prefix of 37 slots leaves
+    the later splits with no valid slot, which the merge must wipe."""
+    B, S, bkv, length = 2, 128, 16, 37
+    valid = (np.arange(S) < length).astype(np.int32)[None].repeat(B, 0)
+    jargs, targs = _inputs("float32", B, H, Kh, S, hd, valid, seed=11)
+    got = tda.decode_attention_plain(*targs, block_kv=bkv, splits=splits)
+    _close(_t2np(got), jops.decode_attention(*jargs, block_kv=bkv, interpret=True), VS_KERNEL["float32"])
+    _close(_t2np(got), jref.decode_attention_ref(*jargs[:3], length), VS_ORACLE["float32"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("splits", [1, 2, 8])
+def test_split_kv_plain_masks(dtype, splits):
+    """Rows with no valid slot (mean of V in every split count), a masked
+    leading part (whole splits invalid before the valid ones) and scattered
+    validity, against the JAX kernel."""
+    B, H, Kh, S, hd, bkv = 3, 14, 2, 128, 16, 16
+    valid = np.ones((B, S), np.int32)
+    valid[0] = 0
+    valid[1, :40] = 0
+    valid[2] = np.random.RandomState(12).uniform(size=S) < 0.3
+    jargs, targs = _inputs(dtype, B, H, Kh, S, hd, valid, seed=13)
+    got = tda.decode_attention_plain(*targs, block_kv=bkv, splits=splits)
+    assert torch.isfinite(got.float()).all()
+    _close(_t2np(got), jops.decode_attention(*jargs, block_kv=bkv, interpret=True), VS_KERNEL[dtype])
+    mean_v = targs[2][0].float().mean(dim=1).repeat_interleave(H // Kh, dim=0)
+    _close(_t2np(got[0]), mean_v.numpy(), VS_KERNEL[dtype])
+    with pytest.raises(ValueError, match="3 splits"):
+        tda.decode_attention_plain(*targs, block_kv=bkv, splits=3)
+
+
+def test_split_count_grid_and_load_width():
+    """The pure functions the wrapper launches with: about two blocks per SM
+    or more where the tile count allows, every split the same whole tiles."""
+    assert [tda.heads_per_block(g) for g in (1, 7, 8, 10, 20, 64)] == [1, 7, 8, 5, 7, 8]
+    # qwen2-7b decode on 132 SMs: 32 (row, KV head) pairs, 64 tiles of 512
+    assert tda.num_splits(8, 4, 7, 32768, 512, 132) == 16
+    assert tda.grid(8, 4, 7, 32768, 512, 132) == (4, 8, 16)
+    assert tda.num_splits(8, 4, 7, 32768, 1024, 132) == 16
+    # recurrentgemma-2b MQA: two head groups of 5; the tile count caps the splits
+    assert tda.grid(8, 1, 10, 2048, 512, 132) == (2, 8, 4)
+    assert tda.grid(8, 1, 10, 2048, 64, 132) == (2, 8, 32)
+    assert tda.num_splits(1, 1, 1, 64, 64, 132) == 1
+    assert tda.num_splits(1, 1, 1, 12 * 64, 64, 6) == 12  # want 12: all 12 tiles
+    assert tda.num_splits(2, 1, 1, 12 * 64, 64, 5) == 6  # want 5: the next divisor of 12
+    for shape in [(8, 4, 7, 32768, 512), (8, 1, 10, 2048, 64), (3, 2, 3, 96, 32)]:
+        n = tda.num_splits(*shape, 132)
+        assert (shape[3] // shape[4]) % n == 0
+    k = torch.zeros(2, 2, 8, 16, dtype=torch.bfloat16)
+    strides = [k.stride(i) for i in range(3)] * 2
+    assert tda.load_width((k, k), 2, strides) == 16
+    off = torch.zeros(2 * 2 * 8 * 16 + 1, dtype=torch.bfloat16)[1:].view(2, 2, 8, 16)
+    assert tda.load_width((off, off), 2, strides) == 2  # 2 bytes off a 16-byte boundary
+    wide = torch.zeros(2, 2, 8, 17, dtype=torch.bfloat16)[..., :16]
+    assert tda.load_width((wide, wide), 2, [wide.stride(i) for i in range(3)] * 2) == 2

@@ -6,6 +6,7 @@ clock, no RNG: the ε-scheduler is a credit counter and the search is seeded)
 and must explore and exploit the same points in the same order, fire drift
 at the same request, and commit the same point to the tuning DB.
 """
+import dataclasses
 import itertools
 
 import pytest
@@ -194,6 +195,11 @@ def test_routed_absorbs_knobs_illegal_for_an_off_bucket_shape():
     k, v = k[:, :, :96].contiguous(), v[:, :, :96].contiguous()
     valid = torch.ones(2, 96, dtype=torch.int32)
     router = kernel_router(interpret=True, db=ttuning.TuningDB(None), epsilon=1.0, fresh=True)
+    # The same route without drift detection: a slow CPU sample under load
+    # would otherwise reset the finished search and start a second one.
+    spec = router.spec("decode_attention")
+    fields = {f.name: getattr(spec, f.name) for f in dataclasses.fields(spec)}
+    router.register(fields.pop("name"), **{**fields, "drift": None})
     for _ in range(40):
         out = routed("decode_attention", q, k, v, valid, router=router, interpret=True)
         np.testing.assert_allclose(out.numpy(), ref.decode_attention_ref(q, k, v, 96).numpy(),
@@ -201,6 +207,7 @@ def test_routed_absorbs_knobs_illegal_for_an_off_bucket_shape():
         router.wait_pending()
     st = router.stats()
     assert st["candidate_failures"] >= 1 and st["searches_completed"] == 1
+    assert st["drift_resets"] == 0
     assert st["calls"] == st["explores"] + st["exploits"]
 
 

@@ -213,3 +213,66 @@ def test_roofline_names_the_arithmetic_dtype():
     mm = roofline("matmul", x, w)
     assert mm.flops == 2.0 * 4096 * 3584 * 18944
     assert abs(mm.bound_s - mm.flops / 989e12) < 1e-12
+
+
+# ------------------------------------- the tensor-core design's decomposition
+@pytest.mark.parametrize("T", [16, 48])
+@pytest.mark.parametrize("B,H,hd", [(1, 2, 16), (2, 1, 64)])
+def test_rwkv_subchunk_form_matches_oracles_and_jax_kernel(T, B, H, hd):
+    """The 16-token sub-chunked form (inter product, exact per-channel intra
+    scores, state update) against the per-token oracles: the state at their
+    fp32 limit 1e-5, y at the JAX chunked kernel's 5e-4 (y's 64-term sums
+    cancel to far below their terms, and the chunk form rounds them in
+    another order)."""
+    jargs, targs = _rwkv_inputs(B, T, H, hd, "float32", seed=9)
+    y, sT = tls.rwkv_scan_subchunk_plain(*targs)
+    assert y.dtype == torch.float32 and sT.shape == (B, H, hd, hd)
+    for yw, sw in (tref.rwkv_scan_ref(*targs), jref.rwkv_scan_ref(*jargs)):
+        _close(y, yw, JAX_RWKV_KERNEL_TOL["float32"])
+        _close(sT, sw, ORACLE_TOL["rwkv"]["float32"])
+    yk, sk = jops.rwkv_scan(*jargs, chunk=16, interpret=True)
+    _close(y, yk, JAX_RWKV_KERNEL_TOL["float32"])
+    _close(sT, sk, JAX_RWKV_KERNEL_TOL["float32"])
+
+
+@pytest.mark.parametrize("T", [16, 48])
+def test_rwkv_subchunk_form_strong_decay_and_bf16(T):
+    """lw = -14 underflows the decay of every earlier token to 0 without an
+    overflow (no exponent is positive); bf16 inputs give y in bf16."""
+    B, H, hd = 1, 2, 64
+    jargs, targs = _rwkv_inputs(B, T, H, hd, "float32", seed=10)
+    targs[3] = torch.full((B, T, H, hd), -14.0)
+    jargs[3] = jnp.full((B, T, H, hd), -14.0)
+    y, sT = tls.rwkv_scan_subchunk_plain(*targs)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(sT).all())
+    yw, sw = tref.rwkv_scan_ref(*targs)
+    _close(y, yw, 1e-5)
+    _close(sT, sw, 1e-5)
+    _close(y, jops.rwkv_scan(*jargs, chunk=16, interpret=True)[0], 1e-4)
+    jb, tb = _rwkv_inputs(B, T, H, hd, "bfloat16", seed=11)
+    yb, sb = tls.rwkv_scan_subchunk_plain(*tb)
+    assert yb.dtype == torch.bfloat16
+    ywb, swb = jref.rwkv_scan_ref(*jb)
+    _close(yb, ywb, ORACLE_TOL["rwkv"]["bfloat16"])
+    _close(sb, swb, 1e-5)
+
+
+def test_rwkv_design_names_the_kernel_that_runs():
+    """bf16 at head dim 64 where T is a multiple of max(chunk, 16) takes the
+    tensor-core design, the serving prefill's chunk=4 included; the rest
+    keeps the per-token kernel, whose knob check then applies."""
+    assert tls.rwkv_design(2, 64, 2048, 4) == "tc"  # rwkv6-7b's served prefill
+    assert [tls.rwkv_design(2, 64, 2048, c) for c in (16, 32, 64, 128)] == ["tc"] * 4
+    assert tls.rwkv_design(4, 64, 2048, 16) == "per_token"  # fp32
+    assert tls.rwkv_design(2, 32, 2048, 16) == "per_token"
+    assert tls.rwkv_design(2, 64, 8, 4) == "per_token"  # T not a multiple of 16
+    assert tls.rwkv_design(2, 64, 48, 32) == "per_token"  # 48 not a multiple of 32
+    assert tls.rwkv_design(2, 64, 2048, 16, aligned=False) == "per_token"
+    assert tls.rwkv_design(2, 64, 4096, 256) == "per_token"  # ring over a block's memory
+    assert tls.rwkv_tc_smem_bytes(4) == tls.rwkv_tc_smem_bytes(16) < tls.SMEM_LIMIT // 4
+    assert tls.rwkv_tc_smem_bytes(128) <= tls.SMEM_LIMIT
+    # the check follows the design: chunk 256 fits neither kernel at hd 64
+    assert tls.legal_rwkv(2048, 64, 128, on_card=True, itemsize=2) == 128
+    with pytest.raises(ValueError, match="shared memory"):
+        tls.legal_rwkv(4096, 64, 256, on_card=True, itemsize=2)
+    assert tls.launches_by_design == {"tc": 0, "per_token": 0}
