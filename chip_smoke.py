@@ -27,7 +27,9 @@ Phases, each printing its numbers on lines of its own:
    count and grid, held against the plain version at that split count; the
    RWKV scan naming its design (the bf16 serving shape must run the
    sub-chunked tensor-core design ``tc``, fp32 the ``per_token`` one), and
-   the per-token design once through its C entry point;
+   the per-token design once through its C entry point; the segmented lru
+   scan with its segment count, against the exact scan and against its own
+   segmented arithmetic (``lru_scan_segmented_plain``);
 3. the PATSMA tuning loop: ``tune_call`` on the five calls with the default
    CSA budget, committing records to ``DIR/tune.json``, and once more on
    the decode call with ``strategy="csa+nm"`` into ``DIR/tune_csa_nm.json``;
@@ -53,6 +55,8 @@ Phases, each printing its numbers on lines of its own:
    bytes bound and ratio to SDPA at default and tuned knobs; the RWKV
    tensor-core design at ``chunk=4`` and the tuned chunk beside the
    per-token design on the same inputs, with its share of the bytes bound;
+   the lru scan at default, tuned and ``chunk=4`` with its segment count
+   and share of the bytes bound;
 8. serving recurrentgemma-2b at full width and depth through
    ``repro_torch.launch.serve`` (batch 8, prompt 2048, 64 new tokens, random
    weights from seed 0) twice on one DB: the first run tunes the decode
@@ -61,7 +65,13 @@ Phases, each printing its numbers on lines of its own:
    served model's final prefill hidden state on the kernel path is held
    against the plain path (``attn_impl="xla"``) in fp32 arithmetic, and the
    scan kernel against its plain version on the last layer's scan inputs
-   as served (bf16 r, k, v for rwkv);
+   as served (bf16 r, k, v for rwkv).  Decode runs as CUDA graphs of the
+   tuned depth, every capture on the router's pool (none in-band).  Then
+   the decode profile: one eager step's wall time, device-busy time and
+   kernel launches (``torch.profiler``), the same for a replay of the
+   8-step graph, and the first 16 greedy tokens of the eager loop against
+   the 1-step and the 8-step graphs (equal tokens; logits within
+   ``LOGITS_TOL``);
 9. the same for rwkv6-7b at full width and depth (32 ``rwkv_scan`` launches
    per prefill, every one of the tensor-core design).
 
@@ -112,6 +122,11 @@ TOL = {"matmul": {"float32": 1e-5, "bfloat16": 2e-2},
 #: differently and 26-32 random layers spread the flips (printed, not held
 #: end to end; the served bf16 scan is held at TOL on the model's own inputs).
 HIDDEN_TOL = 1e-3
+#: decode as a CUDA graph against the eager loop: the same kernels on the same
+#: inputs, so the tokens must be equal and the bf16 logits agree to within the
+#: JAX tests' bf16 limit, 3e-2 of the largest |logit|
+LOGITS_TOL = 3e-2
+DECODE_TOKENS = 16
 
 MM_SHAPE = (4096, 3584, 18944)  # tokens (batch 2 x 2048), d_model, d_ff
 FA_SHAPE = (2, 2048, 28, 4, 128)  # batch, seq, query heads, KV heads, head dim
@@ -364,10 +379,26 @@ def main(argv=None) -> int:
             "100 slots invalid", "decode_attention", got,
             da.decode_attention_plain(*small_da, block_kv=64, splits=small_splits), full=False)
 
+    def lru_segments(args, knobs):
+        """Segments the lru kernel runs ``args`` with at ``knobs``."""
+        a_ = args[0]
+        L, bd = ls.legal_lru(a_.shape[1], a_.shape[2], knobs["chunk"], knobs.get("block_d", ls.LRU_BLOCK_D),
+                             on_card=True, itemsize=a_.element_size())
+        return ls.lru_segments(*a_.shape, L, bd, a_.element_size(), n_sm)
+
+    def lru_compare(label, args, knobs, got=None, phase=2):
+        """The lru kernel against the exact scan and against its segmented
+        arithmetic at the segment count it ran."""
+        nseg = lru_segments(args, knobs)
+        got = ops.lru_scan(*args, **knobs) if got is None else got
+        compare(f"{label} (segmented, {nseg} segments) vs the exact scan", "lru_scan", got,
+                ls.lru_scan_plain(*args, **knobs), phase=phase)
+        compare(f"{label} (segmented, {nseg} segments) vs lru_scan_segmented_plain", "lru_scan", got,
+                ls.lru_scan_segmented_plain(*args, segments=nseg), phase=phase)
+
     lru_args = call_args["lru_scan"][0]
     for knobs in (defaults["lru_scan"], {"chunk": 4}, {"chunk": 32, "block_d": 64}):
-        compare(f"lru_scan fp32 a,b{LRU_SHAPE} {knobs}", "lru_scan", ops.lru_scan(*lru_args, **knobs),
-                ls.lru_scan_plain(*lru_args, **knobs))
+        lru_compare(f"lru_scan fp32 a,b{LRU_SHAPE} {knobs}", lru_args, knobs)
     rwkv_args = call_args["rwkv_scan"][0]
     for knobs in (defaults["rwkv_scan"], {"chunk": 4}, {"chunk": 16}):
         got, design = ran(ls, lambda: ops.rwkv_scan(*rwkv_args, **knobs))
@@ -379,9 +410,8 @@ def main(argv=None) -> int:
             got, ls.rwkv_scan_plain(*rwkv_args, chunk=4))
     small_lru = (torch.sigmoid(randn((2, 64, 96), torch.float32)), randn((2, 64, 96), torch.float32),
                  randn((2, 96), torch.float32))
-    knobs = {"chunk": 16, "block_d": 32}
-    compare(f"lru_scan fp32 a,b(2, 64, 96) {knobs}", "lru_scan", ops.lru_scan(*small_lru, **knobs),
-            ls.lru_scan_plain(*small_lru, **knobs))
+    lru_compare("lru_scan fp32 a,b(2, 64, 96) {'chunk': 16, 'block_d': 32}", small_lru,
+                {"chunk": 16, "block_d": 32})
     for hd_, strong in ((8, False), (32, False), (64, True)):
         shape = (2, 64, 2, hd_)
         small = [randn(shape, torch.float32) for _ in range(3)]
@@ -721,6 +751,18 @@ def main(argv=None) -> int:
               f"{tc_cuda / 1e9:.2f} GFLOP fp32); fp32 operations bound of the per-token design "
               f"{r_terms.compute_s * 1e3:.4f} ms")
         check(design == "tc", f"rwkv_scan {label} at the serving shape ran {design}, not tc")
+    l_row = times["lru_scan"]
+    l_bytes_ms = l_row["terms"].memory_s * 1e3
+    l_row["segments"] = {}
+    for which, knobs in (("default", defaults["lru_scan"]), ("tuned", records["lru_scan"].point),
+                         ("main_path", {"chunk": 4})):
+        nseg = lru_segments(lru_args, knobs)
+        l_row["segments"][which] = nseg
+        blocks = LRU_SHAPE[0] * (LRU_SHAPE[2] // knobs.get("block_d", ls.LRU_BLOCK_D)) * nseg
+        print(f"[7] lru_scan {'serving' if which == 'main_path' else which} {knobs}: "
+              f"{l_row[which]:.4f} ms, segmented: {nseg} segments of {LRU_SHAPE[1] // nseg} steps, "
+              f"{blocks} blocks on {n_sm} SMs, {l_bytes_ms / l_row[which]:.4f} of the bytes bound "
+              f"{l_bytes_ms:.4f} ms")
     csa_nm_ms = cuda_ms(lambda: ops.decode_attention(*da_args, **records_csa_nm.point), 5)
     print(f"[7] decode_attention tuned by csa+nm: {csa_nm_ms:.4f} ms {records_csa_nm.point}; "
           f"by the route: {drec.point}")
@@ -748,6 +790,124 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # ------------------------------------------ main path 3: serving, 8-9
+    def trace_busy(fn, steps: int, name: str) -> tuple:
+        """(device-busy ms, kernel launches) per call of ``fn`` from a
+        ``torch.profiler`` trace of ``steps`` calls (the union of the kernel,
+        copy and memset intervals); the trace is kept, gzipped, in ``out``."""
+        import gzip
+
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                fn()
+            torch.cuda.synchronize()
+        path = out / f"trace_{name}.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+        with gzip.open(f"{path}.gz", "wt") as fh:
+            json.dump(events, fh)
+        path.unlink()
+        spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                       if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e)
+        busy, end = 0.0, -math.inf
+        for t0_, t1_ in spans:
+            busy += max(0.0, t1_ - max(t0_, end))
+            end = max(end, t1_)
+        return busy / 1e3 / steps, len(spans) / steps
+
+    def decode_profile(phase, arch, model, batch) -> dict:
+        """Where one decode step's time goes, eager against a CUDA graph, and
+        the graph's greedy tokens against the eager loop's, from fresh
+        prefills of the served batch on the kernel path."""
+        P = batch["tokens"].shape[1]
+        B = batch["tokens"].shape[0]
+
+        def fresh():
+            h_, st_ = model.prefill(batch)
+            return model.logits(h_[:, None])[:, 0].argmax(-1)[:, None], st_
+
+        tok, st = fresh()
+        eager_toks, eager_logits = [], []
+        for i in range(DECODE_TOKENS):
+            lg, st = model.decode_step(tok, st, P + i)
+            tok = lg.argmax(-1)[:, None]
+            eager_toks.append(tok)
+            eager_logits.append(lg)
+        state = {"tok": tok, "st": st, "pos": P + DECODE_TOKENS}
+
+        def eager_step():
+            lg_, state["st"] = model.decode_step(state["tok"], state["st"], state["pos"])
+            state["tok"] = lg_.argmax(-1)[:, None]
+            state["pos"] += 1
+
+        walls = []
+        for _ in range(8):
+            torch.cuda.synchronize()
+            t0_ = time.perf_counter()
+            eager_step()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0_) * 1e3)
+        busy, kernels = trace_busy(eager_step, 3, f"{arch}_eager")
+        del state, st, tok
+        gc.collect()
+
+        prof = {"eager_wall_ms": sorted(walls)[len(walls) // 2], "eager_wall_ms_min": min(walls),
+                "eager_wall_ms_max": max(walls), "eager_busy_ms": busy, "eager_kernels": kernels}
+        got = {}
+        for k in (1, 8):
+            tok, st = fresh()
+            graphs = serve.DecodeGraphs(model, tok, st, P)
+            del tok, st
+            t0_ = time.perf_counter()
+            run = graphs.build(k)
+            prof[f"capture_k{k}_s"] = time.perf_counter() - t0_
+            token, states, pos = graphs.token, graphs.states, graphs.pos
+            toks_, logits_ = [], []
+            for _ in range(DECODE_TOKENS // k):
+                token, states, pos, toks = run(token, states, pos)
+                toks_.append(toks.clone())
+                logits_.append(run.logits.clone())
+            got[k] = (torch.cat(toks_, dim=1), logits_)
+            if k == 8:
+                reps = []
+                for _ in range(4):
+                    torch.cuda.synchronize()
+                    t0_ = time.perf_counter()
+                    run(token, states, pos)
+                    torch.cuda.synchronize()
+                    reps.append((time.perf_counter() - t0_) * 1e3 / k)
+                gbusy, gkernels = trace_busy(lambda: run(token, states, pos), 1, f"{arch}_graph8")
+                prof.update(graph_step_ms=sorted(reps)[len(reps) // 2], graph_step_ms_min=min(reps),
+                            graph_step_ms_max=max(reps), graph_busy_ms=gbusy / k,
+                            graph_kernels=gkernels / k)
+            del run, graphs, token, states, pos
+            gc.collect()
+        eager_t = torch.cat(eager_toks, dim=1)
+        same = all(torch.equal(got[k][0], eager_t) for k in got)
+        mag = max(lg.float().abs().max().item() for lg in eager_logits)
+        dlog = max((g_.float() - e_.float()).abs().max().item()
+                   for g_, e_ in zip(got[1][1], eager_logits))
+        prof.update(tokens_equal=same, logits_max_abs_diff=dlog, logits_max_abs=mag,
+                    eager_tok_s=B * 1e3 / prof["eager_wall_ms"], graph_tok_s=B * 1e3 / prof["graph_step_ms"])
+        print(f"[{phase}] {arch} decode profile (batch {B}, position {P}+): eager step wall "
+              f"{prof['eager_wall_ms']:.2f} ms (min {prof['eager_wall_ms_min']:.2f}, max "
+              f"{prof['eager_wall_ms_max']:.2f}), device busy {busy:.3f} ms "
+              f"({busy / prof['eager_wall_ms']:.3f} of the step), {kernels:.0f} kernel launches a step; "
+              f"8-step graph replay {prof['graph_step_ms']:.3f} ms a step (min "
+              f"{prof['graph_step_ms_min']:.3f}, max {prof['graph_step_ms_max']:.3f}), device busy "
+              f"{prof['graph_busy_ms']:.3f} ms a step, {prof['graph_kernels']:.0f} kernels a step; "
+              f"captures {prof['capture_k1_s']:.2f} s (k=1) / {prof['capture_k8_s']:.2f} s (k=8); "
+              f"{prof['eager_tok_s']:.1f} -> {prof['graph_tok_s']:.1f} tok/s per step")
+        ok = same and dlog <= LOGITS_TOL * mag
+        print(f"[{phase}] {arch} first {DECODE_TOKENS} greedy tokens, eager vs 1-step and 8-step graphs: "
+              f"equal={same}; logits max |d| {dlog:.4e} (max |logit| {mag:.3f}, limit "
+              f"{LOGITS_TOL:g} x max |logit|) {'ok' if ok else 'FAIL'}")
+        check(ok, f"{arch}: decode through CUDA graphs differs from the eager loop")
+        return prof
+
+    decode_profiles = {}
     serve_launches = {}
     plain_scan = {"lru_scan": ls.lru_scan_plain, "rwkv_scan": ls.rwkv_scan_plain}
     for phase, (arch, scan, per_prefill) in enumerate(SERVE, start=8):
@@ -780,6 +940,13 @@ def main(argv=None) -> int:
             check(h.shape == (8, res["model"].cfg.d_model) and bool(torch.isfinite(h.float()).all()),
                   f"{arch} run {run}: prefill hidden {tuple(h.shape)} not finite of width d_model")
             check(run == 1 or res["db_hit"], f"{arch} run 2 was not a tuning DB hit")
+            captures = res["graphs"].captures
+            print(f"[{phase}] {arch} run {run}: {captures} decode depths captured as CUDA graphs; "
+                  f"router {res.get('router')}")
+            check(captures >= (len(serve.DECODE_KS) if run == 1 else 1),
+                  f"{arch} run {run}: decode captured {captures} CUDA graphs")
+            check(res["router"]["inband_builds"] == 0 and res["router"]["candidate_failures"] == 0,
+                  f"{arch} run {run}: a decode build ran in-band or failed")
             for name, n in launched.items():
                 serve_launches[name] = serve_launches.get(name, 0) + n
             runs.append({key: res[key] for key in ("prefill_ms", "decode_tok_s", "k", "db_hit")})
@@ -826,10 +993,17 @@ def main(argv=None) -> int:
             setattr(ops, scan, real_scan)
         s_args, s_kw = served_call["args"], served_call["kw"]
         plain_kw = {k_: v_ for k_, v_ in s_kw.items() if k_ != "interpret"}
-        compare(f"{scan} on the last layer's served inputs "
-                f"({', '.join(f'{tuple(t_.shape)} {str(t_.dtype)[6:]}' for t_ in s_args)}) {plain_kw}",
-                scan, real_scan(*s_args, **s_kw), plain_scan[scan](*s_args, **plain_kw), phase=phase)
+        label = (f"{scan} on the last layer's served inputs "
+                 f"({', '.join(f'{tuple(t_.shape)} {str(t_.dtype)[6:]}' for t_ in s_args)}) {plain_kw}")
+        if scan == "lru_scan":
+            lru_compare(label, s_args, plain_kw, got=real_scan(*s_args, **s_kw), phase=phase)
+        else:
+            compare(label, scan, real_scan(*s_args, **s_kw), plain_scan[scan](*s_args, **plain_kw),
+                    phase=phase)
         del res, h, h_first, h_bf16_plain, err_bf16, served_call, s_args
+        gc.collect()
+        torch.cuda.empty_cache()
+        decode_profiles[arch] = decode_profile(phase, arch, model, batch)
         gc.collect()
         torch.cuda.empty_cache()
         model.cfg = dataclasses.replace(cfg, compute_dtype="float32")
@@ -855,6 +1029,7 @@ def main(argv=None) -> int:
 
     main_launches = {n: tuning_launches[n] + route_launches[n] + serve_launches.get(n, 0)
                      for n in names}
+    (out / "decode_profile.json").write_text(json.dumps(decode_profiles, indent=1))
     print(f"[9] serving launches: {serve_launches}; all main paths: {main_launches}; launches by "
           f"design since the start: matmul {mm.launches_by_design}, flash_attention {fa.launches_by_design}, "
           f"decode_attention {da.launches_by_design}, rwkv_scan {ls.launches_by_design}")
@@ -890,6 +1065,10 @@ def main(argv=None) -> int:
         if name == "decode_attention":
             entry.update(design="split_kv", splits=row["splits_tuned"], grid=row["grid_tuned"],
                          splits_default=row["splits_default"], grid_default=row["grid_default"])
+        if name == "lru_scan":
+            entry.update(design="segmented", segments=row["segments"]["tuned"],
+                         segments_default=row["segments"]["default"],
+                         segments_serving_chunk4=row["segments"]["main_path"])
         if row["main_path"] is not None:
             entry["ms_serving_chunk4"] = row["main_path"]
         if "rg_mqa" in row:  # recurrentgemma-2b's MQA decode, at its default knobs

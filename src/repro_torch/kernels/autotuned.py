@@ -214,7 +214,7 @@ register(
         work=_ls.lru_flops_bytes,
         arith_dtype="float32",
         check=lambda a, b, h0, *, chunk, block_d=_ls.LRU_BLOCK_D, interpret: _ls.legal_lru(
-            a.shape[1], a.shape[2], chunk, block_d, not interpret
+            a.shape[1], a.shape[2], chunk, block_d, not interpret, a.element_size()
         ),
     )
 )

@@ -3,14 +3,19 @@ kernels for Hopper.
 
 Replace the JAX package's ``kernels/linear_scan.py::lru_scan_chunked`` and
 ``::rwkv_scan_chunked`` (Pallas TPU kernels ``_lru_kernel`` and
-``_rwkv_kernel``).  Each block owns its whole time axis with the fp32 state
-on chip, staging ``chunk`` time steps of its inputs in shared memory per load.
+``_rwkv_kernel``).
 
 * ``lru_scan_chunked`` (``csrc/linear_scan.cu``): h_t = a_t ⊙ h_{t−1} + b_t
-  over (B, T, D), one thread per channel, grid (D / block_d, B).
-  Memory-bound (a and b read, hs written).  ``chunk`` and ``block_d`` are
-  both real knobs of the kernel.
-* ``rwkv_scan_chunked``: one block per (batch, head), two designs chosen
+  over (B, T, D), memory-bound (a and b read, hs written once).  A segmented
+  scan: T is cut into :func:`lru_segments` segments of whole chunks (derived
+  from the shape and the SM count, not a knob), one block per (batch row,
+  ``block_d`` channels, segment).  A block stages its segment's a and b in
+  shared memory chunk by chunk (``chunk`` is the staging granularity),
+  scans them, takes the preceding segment's final state as its carry,
+  publishes its own, and rescans from the carry writing hs once.
+  :func:`lru_scan_segmented_plain` is its arithmetic in plain PyTorch.
+* ``rwkv_scan_chunked``: one block per (batch, head), which owns its whole
+  time axis with the fp32 state on chip; two designs chosen
   before launch by the pure function :func:`rwkv_design`:
 
   - ``"tc"`` (``csrc/rwkv_subchunk.cu``), bf16 r, k, v at head dim 64 where
@@ -38,10 +43,13 @@ import threading
 import torch
 
 from . import _cuda, ref
+from .decode_attention import sm_count
 
 __all__ = [
     "lru_scan_chunked",
     "lru_scan_plain",
+    "lru_scan_segmented_plain",
+    "lru_segments",
     "rwkv_scan_chunked",
     "rwkv_scan_plain",
     "legal_lru",
@@ -62,6 +70,12 @@ HEAD_DIMS = (8, 16, 32, 64)
 #: channels per block unless the caller picks (the TPU kernel's 512 is a
 #: lane width; on the card smaller blocks give more blocks to the SMs)
 LRU_BLOCK_D = 128
+#: the lru kernel's segments: staged a and b of at most this many bytes (three
+#: blocks per SM), and at least this many blocks per SM
+LRU_SEG_BYTES = 64 * 1024
+LRU_BLOCKS_PER_SM = 2
+#: the lru block's shared memory beyond its staged segment (the ticket)
+LRU_FIXED_BYTES = 16
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -106,9 +120,36 @@ def _lru_block_d(D: int, block_d: int) -> int:
     return bd
 
 
-def lru_smem_bytes(chunk: int, block_d: int) -> int:
-    """Shared memory of one lru block: fp32 a and b tiles of (chunk, block_d)."""
-    return 2 * chunk * block_d * 4
+def lru_smem_bytes(chunk: int, block_d: int, itemsize: int = 4) -> int:
+    """Shared memory of an lru block whose segment is one chunk, the least a
+    segment holds: a and b tiles of (chunk, block_d) in the input dtype
+    (``itemsize`` bytes), and the block's ticket."""
+    return 2 * chunk * block_d * itemsize + LRU_FIXED_BYTES
+
+
+def lru_segments(B: int, T: int, D: int, chunk: int, block_d: int, itemsize: int,
+                 sm_count: int) -> int:
+    """Segments of T per (batch row, channel block) the lru kernel runs: the
+    fewest whose staged a and b fit ``LRU_SEG_BYTES`` and that give
+    ``LRU_BLOCKS_PER_SM`` blocks per SM or more, rounded up to a divisor of
+    the chunk count so that every segment holds as many whole chunks; one
+    chunk each when there are fewer.  Not a knob: (``chunk``, ``block_d``)
+    stay the tunables."""
+    chunks = T // chunk
+    fit = -(-T * 2 * block_d * itemsize // LRU_SEG_BYTES)
+    fill = -(-LRU_BLOCKS_PER_SM * sm_count // (B * (D // block_d)))
+    want = max(1, fit, fill)
+    if want >= chunks:
+        return chunks
+    return next(n for n in range(want, chunks + 1) if chunks % n == 0)
+
+
+def lru_channels_per_thread(D: int, block_d: int, aligned: bool) -> int:
+    """Channels each thread of the lru kernel stages and scans: 4 (one 16-byte
+    fp32 or 8-byte bf16 copy per row) when D and ``block_d`` are multiples
+    of 4 and a, b and hs start on 4-element boundaries, else 1 (element
+    copies)."""
+    return 4 if aligned and D % 4 == 0 and block_d % 4 == 0 else 1
 
 
 def rwkv_smem_bytes(chunk: int, hd: int) -> int:
@@ -138,11 +179,13 @@ def rwkv_design(itemsize: int, hd: int, T: int, chunk: int, aligned: bool = True
     return "tc"
 
 
-def check_lru(chunk: int, block_d: int) -> None:
-    """Raise ``ValueError`` for (chunk, block_d) the CUDA kernel cannot run."""
+def check_lru(chunk: int, block_d: int, itemsize: int = 4) -> None:
+    """Raise ``ValueError`` for (chunk, block_d) the CUDA kernel cannot run:
+    more channels than a block has threads (one per channel when the copies
+    are element-wide), or a one-chunk segment over a block's shared memory."""
     if block_d > MAX_THREADS:
         raise ValueError(f"block_d={block_d} needs {block_d} threads per block (max {MAX_THREADS})")
-    smem = lru_smem_bytes(chunk, block_d)
+    smem = lru_smem_bytes(chunk, block_d, itemsize)
     if smem > SMEM_LIMIT:
         raise ValueError(
             f"chunk={chunk} block_d={block_d} needs {smem} bytes of shared memory (max {SMEM_LIMIT})"
@@ -160,12 +203,12 @@ def check_rwkv(chunk: int, hd: int) -> None:
         )
 
 
-def legal_lru(T: int, D: int, chunk: int, block_d: int, on_card: bool) -> tuple:
+def legal_lru(T: int, D: int, chunk: int, block_d: int, on_card: bool, itemsize: int = 4) -> tuple:
     """(chunk, block_d) a call runs with (clamped), or ``ValueError``: they
     must divide (T, D), and on the card fit the kernel."""
     L, bd = _chunk(T, chunk), _lru_block_d(D, block_d)
     if on_card:
-        check_lru(L, bd)
+        check_lru(L, bd, itemsize)
     return L, bd
 
 
@@ -228,6 +271,36 @@ def lru_scan_plain(a, b, h0, *, chunk: int = 128, block_d: int = LRU_BLOCK_D):
     _lru_block_d(a.shape[2], block_d)
     hs, hT = ref.lru_scan_ref(a.float(), b.float(), h0.float())
     return hs.to(a.dtype), hT
+
+
+def lru_scan_segmented_plain(a, b, h0, *, segments: int):
+    """The lru kernel's arithmetic in plain fp32 PyTorch (tests and
+    ``chip_smoke.py`` only): T cut into ``segments`` equal segments; each
+    forms P = ∏a and its state hloc from 0 (segment 0 from h0); the carry
+    into segment s + 1 is P_s · carry_s + hloc_s, with carry_1 segment 0's
+    last state; then every segment reruns h_t = a_t h_{t−1} + b_t from its
+    carry.  hs in ``a.dtype``, hT fp32."""
+    B, T, D = a.shape
+    if segments < 1 or T % segments:
+        raise ValueError(f"T={T} not divisible into {segments} segments")
+    L = T // segments
+    af = a.float().reshape(B, segments, L, D)
+    bf = b.float().reshape(B, segments, L, D)
+    h = torch.zeros(B, segments, D, dtype=torch.float32, device=a.device)
+    h[:, 0] = h0.float()
+    P = torch.ones_like(h)
+    for t in range(L):
+        P = P * af[:, :, t]
+        h = af[:, :, t] * h + bf[:, :, t]
+    carries = [h0.float(), h[:, 0]]
+    for s in range(1, segments - 1):
+        carries.append(P[:, s] * carries[-1] + h[:, s])
+    h = torch.stack(carries[:segments], dim=1)
+    hs = torch.empty(B, segments, L, D, dtype=torch.float32, device=a.device)
+    for t in range(L):
+        h = af[:, :, t] * h + bf[:, :, t]
+        hs[:, :, t] = h
+    return hs.reshape(B, T, D).to(a.dtype), h[:, -1]
 
 
 def rwkv_scan_plain(r, k, v, lw, u, s0, *, chunk: int = 64):
@@ -301,7 +374,7 @@ def lru_scan_chunked(a, b, h0, *, chunk: int = 128, block_d: int = LRU_BLOCK_D,
         raise ValueError(f"lru_scan: bad shapes a {tuple(a.shape)} b {tuple(b.shape)} "
                          f"h0 {tuple(h0.shape)}")
     B, T, D = a.shape
-    L, bd = legal_lru(T, D, chunk, block_d, on_card=not interpret)
+    L, bd = legal_lru(T, D, chunk, block_d, on_card=not interpret, itemsize=a.element_size())
     if interpret:
         if a.is_cuda or b.is_cuda or h0.is_cuda:
             raise ValueError("lru_scan: interpret=True runs the plain version on CPU tensors only")
@@ -310,18 +383,32 @@ def lru_scan_chunked(a, b, h0, *, chunk: int = 128, block_d: int = LRU_BLOCK_D,
     io = (torch.float32, torch.bfloat16)
     _check_cuda("lru_scan", {"a": a, "b": b, "h0": h0},
                 {"a": io, "b": (a.dtype,), "h0": (torch.float32,)})
-    hs = torch.empty_like(a)
+    nseg = lru_segments(B, T, D, L, bd, a.element_size(), sm_count(a.device))
+    return _lru_launch(a, b, h0, L, bd, nseg)
+
+
+def _lru_launch(a, b, h0, chunk: int, block_d: int, nseg: int):
+    """Launch the lru kernel with ``nseg`` segments on checked CUDA tensors
+    (h0 fp32).  ``scripts/probe_lru.py`` also calls it at other segment
+    counts."""
+    B, T, D = a.shape
+    hs = torch.empty_like(a)  # the caching allocator's blocks start on 512-byte boundaries
     hT = torch.empty((B, D), dtype=torch.float32, device=a.device)
+    ncols = B * (D // block_d)
+    flags = torch.empty(1 + ncols * nseg, dtype=torch.int32, device=a.device)  # zeroed by the launch
+    carry = torch.empty(max(1, ncols * nseg * block_d), dtype=torch.float32, device=a.device)
+    vec = 4 * a.element_size()
+    cpt = lru_channels_per_thread(D, block_d, all(x.data_ptr() % vec == 0 for x in (a, b, hs)))
     lib = _cuda.load("linear_scan")
     fn = getattr(lib, f"repro_lru_scan_{_SUFFIX[a.dtype]}")
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         rc = fn(a.data_ptr(), b.data_ptr(), h0.data_ptr(), hs.data_ptr(), hT.data_ptr(),
-                B, T, D, L, bd, stream)
+                flags.data_ptr(), carry.data_ptr(), B, T, D, chunk, block_d, nseg, cpt, stream)
     if rc != 0:
-        _raise_launch(lib, rc, f"lru_scan (chunk {L}, block_d {bd})")
+        _raise_launch(lib, rc, f"lru_scan (chunk {chunk}, block_d {block_d}, {nseg} segments)")
     _count("lru_scan")
     return hs, hT
 

@@ -19,11 +19,16 @@ come from ``torch.Generator`` seeds 0 and 1 on the device.
 Decode is routed through a :class:`repro_torch.runtime.ContextRouter`: each
 (arch × batch × device) is its own tuning context, an ε-fraction of decode
 chunks explores a candidate fusion depth ``k`` (tokens emitted per
-dispatched call), and the rest exploit the best known.  A candidate's
-"build" makes the closure that runs ``k`` decode steps; it never runs a
-step, so no build touches the live states (the port updates attention
-caches in place).  A ``DriftDetector`` watches the per-token exploit costs
-and re-tunes mid-stream when they degrade.
+dispatched call), and the rest exploit the best known.  On the card a
+candidate's "build" captures ``k`` decode steps and their argmaxes into one
+CUDA graph (:class:`DecodeGraphs`), the counterpart of the JAX launcher's
+one compiled executable of a ``lax.scan`` over ``k`` steps; a dispatched
+call replays it.  A capture that fails raises: there is no eager fallback
+on the card.  On the CPU a build is the eager loop of ``k`` steps.  No
+build touches the live states.  A ``DriftDetector`` watches the per-token
+exploit costs and re-tunes mid-stream when they degrade.  The tuning key's
+``extra`` names the decode form (``"decode": "cuda_graph"`` on the card),
+so a depth tuned for another form is never replayed as a graph's.
 
 With ``--db`` the tuned ``k`` persists across launches: the second process
 with the same context skips tuning and decodes at the stored best from the
@@ -36,6 +41,7 @@ from __future__ import annotations
 
 import argparse
 import sys
+import threading
 import time
 
 import torch
@@ -46,7 +52,8 @@ from repro_torch.models import ExecConfig, Model
 from repro_torch.runtime import ContextRouter
 from repro_torch.tuning import TuningDB, make_key
 
-__all__ = ["main", "serve", "replay_decode_k", "DECODE_KS", "NoCudaDevice"]
+__all__ = ["main", "serve", "replay_decode_k", "decode_extra", "DecodeGraphs", "DECODE_KS",
+           "NoCudaDevice"]
 
 #: candidate decode fusion depths (tokens emitted per dispatched call)
 DECODE_KS = (1, 2, 4, 8)
@@ -62,6 +69,118 @@ def replay_decode_k(db, key, *, gen: int, default: int = 1) -> int:
         if rec is not None and "k" in rec.point:
             k = int(rec.point["k"])
     return max(1, min(k, gen))
+
+
+def decode_extra(arch: str, tiny: bool, batch: int, card: str, graphs: bool) -> dict:
+    """The ``extra`` of the decode-depth tuning key: the context (arch, tiny,
+    batch, the card's name or ``"cpu"``) and, when decode runs as CUDA
+    graphs, the form, so that records of the eager loop never hit."""
+    extra = {"arch": arch, "tiny": tiny, "batch": batch, "device": card}
+    if graphs:
+        extra["decode"] = "cuda_graph"
+    return extra
+
+
+def _leaves(states: list) -> list:
+    """The tensors of a model's per-layer states, in a fixed order."""
+    out = []
+    for st in states:
+        for name in sorted(st):
+            v = st[name]
+            if isinstance(v, dict):
+                out.extend(v[n] for n in sorted(v))
+            else:
+                out.append(v)
+    return out
+
+
+class DecodeGraphs:
+    """Decode as CUDA graphs over one static set of buffers per served model.
+
+    The set holds the token (B, 1), the position (a 0-d int64 tensor) and
+    the per-layer states: the attention rings are the live ones (decode
+    writes them in place), every recurrent state a compact copy made once
+    here.  :meth:`build` captures ``k`` decode steps and their argmaxes into
+    one ``torch.cuda.CUDAGraph`` against that set, with the new recurrent
+    states, the last token and the advanced position copied back into it
+    inside the graph; every depth's graph shares the set, so depths can be
+    switched between calls.  Capture runs on a side stream with
+    ``capture_error_mode="thread_local"`` (builds run on the router's pool
+    while the serving thread replays and synchronizes), one capture at a
+    time; the warm-up it needs runs a real step, on scratch copies of the
+    states, never on the live rings.  A failed capture raises."""
+
+    _capture_lock = threading.Lock()
+
+    def __init__(self, model, token: torch.Tensor, states: list, pos: int):
+        if model.device.type != "cuda":
+            raise ValueError("DecodeGraphs: CUDA graphs need the model on the card")
+        self.model = model
+        self.token = token.clone()
+        self.pos = torch.tensor(pos, dtype=torch.int64, device=model.device)
+        self.states = [
+            {name: (v if isinstance(v, dict) else v.clone(memory_format=torch.contiguous_format))
+             for name, v in st.items()}
+            for st in states
+        ]
+        self.captures = 0
+
+    def _steps(self, k: int, token, states, pos):
+        """``k`` decode steps from (token, states, pos); pos advances in place."""
+        toks = []
+        for _ in range(k):
+            logits, states = self.model.decode_step(token, states, pos)
+            token = logits.argmax(-1)[:, None]
+            toks.append(token)
+            pos.add_(1)
+        return token, states, torch.cat(toks, dim=1), logits
+
+    def load(self, token, states, pos) -> None:
+        """Copy a (token, states, pos) that is not the static set into it."""
+        if token is not self.token:
+            self.token.copy_(token)
+        if pos is not self.pos:
+            self.pos.copy_(torch.as_tensor(pos, dtype=torch.int64))
+        for dst, src in zip(_leaves(self.states), _leaves(states)):
+            if dst is not src:
+                dst.copy_(src)
+
+    @torch.no_grad()
+    def build(self, k: int):
+        """Capture ``k`` steps; returns ``run(token, states, pos) -> (token,
+        states, pos, toks)``, which replays them (``toks`` (B, k) and the
+        runner's ``logits`` of the last step belong to the graph: the next
+        replay overwrites them)."""
+        dev = self.model.device
+        graph = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream(device=dev)
+        with DecodeGraphs._capture_lock, torch.cuda.device(dev), torch.cuda.stream(side):
+            scratch = [
+                {name: ({n: t.clone() for n, t in v.items()} if isinstance(v, dict) else v.clone())
+                 for name, v in st.items()}
+                for st in self.states
+            ]
+            self._steps(1, self.token.clone(), scratch, self.pos.clone())
+            side.synchronize()
+            del scratch
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                token, states, toks, logits = self._steps(k, self.token, self.states, self.pos)
+                for dst, src in zip(_leaves(self.states), _leaves(states)):
+                    if dst is not src:
+                        dst.copy_(src)
+                self.token.copy_(token)
+            finally:
+                graph.capture_end()
+            self.captures += 1
+
+        def run(token, states, pos):
+            self.load(token, states, pos)
+            graph.replay()
+            return self.token, self.states, self.pos, toks
+
+        run.logits = logits
+        return run
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -108,8 +227,9 @@ def main(argv=None) -> int:
 
 def serve(argv=None) -> dict:
     """Run the launcher; returns what it measured: ``prefill_ms``,
-    ``decode_tok_s``, ``k``, ``db_hit``, the prefill's last-token ``hidden``
-    and the ``model`` and ``batch`` (for a caller that checks the result)."""
+    ``decode_tok_s``, ``k``, ``db_hit``, the prefill's last-token ``hidden``,
+    the ``model`` and ``batch`` (for a caller that checks the result), on the
+    card the decode ``graphs``, and when tuning online the ``router``'s stats."""
     args = _parser().parse_args(argv)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -157,7 +277,18 @@ def _serve(args, device: torch.device) -> dict:
     out["hidden"] = hidden
     print(f"prefill {B}x{P}: {out['prefill_ms']:.0f} ms")
 
+    graphs = None
+    pos = P
+    if device.type == "cuda":
+        # the static set: the live rings, the recurrent states copied once
+        graphs = DecodeGraphs(model, token, states, P)
+        token, states, pos = graphs.token, graphs.states, graphs.pos
+        out["graphs"] = graphs
+
     def make_multi(k):
+        if graphs is not None:
+            return graphs.build(k)
+
         def run(token, states, pos):
             toks = []
             for _ in range(k):
@@ -181,9 +312,8 @@ def _serve(args, device: torch.device) -> dict:
             stats = merge_dbs(db, [TuningDB(p, autosave=False) for p in args.db[1:]])
             print(f"merged {len(args.db) - 1} shard DB(s) into {args.db[0]}: {stats}")
     card = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    extra = {"arch": args.arch, "tiny": args.tiny, "batch": args.batch, "device": card}
+    extra = decode_extra(args.arch, args.tiny, args.batch, card, graphs is not None)
     key = make_key("serve/decode_k", space=space, extra=extra) if db else None
-    pos = P
     tail_fns = {}  # final-chunk sizes (k > remaining)
 
     if args.no_tune:
@@ -272,7 +402,7 @@ def _serve(args, device: torch.device) -> dict:
           f"{rs['drift_resets']} drift re-tunes, "
           f"{rs['cache']['misses']} builds ({rs['inband_builds']} in-band), "
           f"{rs['cache']['recompiles']} rebuilds")
-    out.update(decode_tok_s=B * emitted / wall, k=tuner.best_point.get("k"))
+    out.update(decode_tok_s=B * emitted / wall, k=tuner.best_point.get("k"), router=rs)
     return out
 
 

@@ -19,7 +19,7 @@ device, which is the card unless the caller asks for the CPU.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Tuple, Union
 
 import torch
 from torch import nn
@@ -150,12 +150,19 @@ class Model(nn.Module):
         return x[:, 0], states
 
     @torch.no_grad()
-    def decode_step(self, token: torch.Tensor, states: list, pos: int) -> Tuple[torch.Tensor, list]:
+    def decode_step(self, token: torch.Tensor, states: list,
+                    pos: Union[int, torch.Tensor]) -> Tuple[torch.Tensor, list]:
         """One token for every sequence in the batch.  token: (B,1) int64;
-        pos: the current absolute position.  Returns (logits (B,V), states);
-        attention caches are written in place."""
+        pos: the current absolute position, an int or a 0-d int64 tensor on
+        the model's device (read on the device: a CUDA graph can advance it
+        in place); both give the same logits.  Returns (logits (B,V),
+        states); attention caches are written in place.  Nothing on this
+        path reads a tensor back to the host."""
         x = self.embed(token)
-        q_pos = torch.arange(pos, pos + 1, device=self.device)
+        if isinstance(pos, torch.Tensor):
+            q_pos = pos.reshape(1)
+        else:
+            q_pos = torch.arange(pos, pos + 1, device=self.device)
         x, states = self._run_stack(x, states, q_pos=q_pos, causal=True)
         x = norm_apply(self.cfg.norm, self.final_norm.tree(), x)
         return self.logits(x)[:, 0], states

@@ -14,10 +14,15 @@ every swizzle width, one and two consumer warpgroups, several turns of the
 ring, every instantiated head dim and ``block_kv``, Sq != Skv, GQA and the
 strided q that ``ops.flash_attention`` passes.
 """
+import json
 import math
+import re
 
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")  # without torch the whole module skips
+
 import torch
 
 from repro_torch.kernels import decode_attention as tda
@@ -310,6 +315,87 @@ def test_lru_scan_kernel_matches_plain(dtype, B, T, D, chunk, block_d):
     _scan_close("lru", hT, want_hT)
 
 
+def _lru_args(B, T, D, dtype, dev, seed=10):
+    a = torch.sigmoid(_randn(seed, (B, T, D), torch.float32, dev)).to(dtype)
+    return a, _randn(seed + 1, (B, T, D), dtype, dev), _randn(seed + 2, (B, D), torch.float32, dev)
+
+
+def _lru_against_both_plain(a, b, h0, chunk, block_d, hs, hT):
+    """The kernel's output against the exact oracle and against its own
+    segmented arithmetic at the segment count it ran."""
+    B, T, D = a.shape
+    L, bd = min(chunk, T), min(block_d, D)
+    nseg = tls.lru_segments(B, T, D, L, bd, a.element_size(), tda.sm_count(a.device))
+    for want_hs, want_hT in (tls.lru_scan_plain(a, b, h0, chunk=L, block_d=bd),
+                             tls.lru_scan_segmented_plain(a, b, h0, segments=nseg)):
+        _scan_close("lru", hs, want_hs)
+        _scan_close("lru", hT, want_hT)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [4, 16, 32, 64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lru_segmented_kernel_at_the_served_shape(dtype, chunk):
+    """recurrentgemma-2b's prefill scan over the whole tuning space (chunk
+    16..256) and serving's chunk 4, against both plain versions; fp32 at
+    chunk 256 needs a 256 KB one-chunk segment and is refused before launch.
+    A second launch gives the same bits (the carry is chained, not raced)."""
+    dev = _card()
+    a, b, h0 = _lru_args(8, 2048, 2560, dtype, dev)
+    before = tls.launches["lru_scan"]
+    if dtype == torch.float32 and chunk == 256:
+        with pytest.raises(ValueError, match="shared memory"):
+            ops.lru_scan(a, b, h0, chunk=chunk)
+        assert tls.launches["lru_scan"] == before
+        return
+    hs, hT = ops.lru_scan(a, b, h0, chunk=chunk)
+    hs2, hT2 = ops.lru_scan(a, b, h0, chunk=chunk)
+    assert tls.launches["lru_scan"] == before + 2
+    assert torch.equal(hs, hs2) and torch.equal(hT, hT2)
+    _lru_against_both_plain(a, b, h0, chunk, tls.LRU_BLOCK_D, hs, hT)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,D,chunk,block_d", [
+    (2, 64, 96, 16, 32), (2, 64, 96, 32, 96), (2, 64, 96, 64, 24), (2, 64, 96, 16, 6),
+    (2, 64, 96, 4, 96), (3, 96, 40, 32, 8), (1, 48, 5, 16, 5),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lru_segmented_kernel_small_odd_shapes(dtype, B, T, D, chunk, block_d):
+    """Odd widths, channel blocks that are not a multiple of 4 (element
+    copies), a misaligned view (element copies) and an aligned one."""
+    dev = _card()
+    a, b, h0 = _lru_args(B, T, D, dtype, dev, seed=13)
+    hs, hT = ops.lru_scan(a, b, h0, chunk=chunk, block_d=block_d)
+    _lru_against_both_plain(a, b, h0, chunk, block_d, hs, hT)
+    off = torch.empty(B * T * D + 1, dtype=dtype, device=dev)[1:].view(B, T, D)
+    off.copy_(a)
+    hs, hT = ops.lru_scan(off, b, h0, chunk=chunk, block_d=block_d)
+    _lru_against_both_plain(a, b, h0, chunk, block_d, hs, hT)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lru_segmented_kernel_long_carry_chains(dtype):
+    """One batch row and one channel block: every segment waits on the one
+    before it.  4096 segments of one step (through the launch entry point),
+    then the derived count at chunk 1 (512 segments of 8); the same bits on
+    every launch."""
+    dev = _card()
+    a, b, h0 = _lru_args(1, 4096, 64, dtype, dev, seed=17)
+    want = tls.lru_scan_plain(a, b, h0, chunk=1, block_d=64)
+    first = tls._lru_launch(a, b, h0, 1, 64, 4096)
+    for nseg in (4096, 4096, tls.lru_segments(1, 4096, 64, 1, 64, a.element_size(),
+                                              tda.sm_count(dev))):
+        hs, hT = tls._lru_launch(a, b, h0, 1, 64, nseg)
+        _scan_close("lru", hs, want[0])
+        _scan_close("lru", hT, want[1])
+        _scan_close("lru", hs, tls.lru_scan_segmented_plain(a, b, h0, segments=nseg)[0])
+        if nseg == 4096:
+            assert torch.equal(hs, first[0]) and torch.equal(hT, first[1])
+    assert tls.lru_segments(1, 4096, 64, 1, 64, 4, 132) == 512
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,T,H,hd,chunk", [
     (1, 32, 2, 8, 8), (2, 64, 2, 16, 16), (1, 64, 1, 32, 32), (2, 64, 3, 64, 4),
@@ -593,3 +679,87 @@ def test_rwkv_strong_decay_on_each_design(dtype, hd, T, want):
     want_y, want_s = tls.rwkv_scan_plain(r, k, v, lw, u, s0)
     _scan_close("rwkv", y, want_y)
     _scan_close("rwkv", sT, want_s)
+
+
+# ------------------------------------------------------ decode as CUDA graphs
+def _tiny_decoder(arch, dev, B=2, P=16, extra=24):
+    from repro_torch import configs
+    from repro_torch.models import ExecConfig, Model
+
+    cfg = configs.get_tiny(arch)
+    model = Model(cfg, ExecConfig(attn_impl="cuda", rec_chunk=4), device=dev, seed=0)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, P), generator=gen, device=dev),
+             "max_len": P + extra}
+
+    def prefill():
+        h, states = model.prefill(batch)
+        return model.logits(h[:, None])[:, 0].argmax(-1)[:, None], states
+
+    return model, prefill
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["recurrentgemma_2b", "rwkv6_7b"])
+def test_decode_graphs_give_the_eager_loops_tokens(arch):
+    """Every decode depth the server tunes, as one CUDA graph of k steps,
+    emits the eager loop's 16 greedy tokens; a capture between replays (a
+    drift re-tune's rebuild) runs its warm-up on scratch copies and leaves
+    the stream's next tokens unchanged."""
+    from repro_torch.launch.serve import DECODE_KS, DecodeGraphs
+
+    dev = _card()
+    P, n = 16, 16
+    model, prefill = _tiny_decoder(arch, dev, P=P)
+    tok, states = prefill()
+    eager = []
+    for i in range(n):
+        logits, states = model.decode_step(tok, states, P + i)
+        tok = logits.argmax(-1)[:, None]
+        eager.append(tok)
+    eager = torch.cat(eager, dim=1)
+    for k in DECODE_KS:
+        tok, states = prefill()
+        graphs = DecodeGraphs(model, tok, states, P)
+        run = graphs.build(k)
+        token, states, pos = tok, states, P  # the first call loads the static set
+        got = []
+        for _ in range(n // k):
+            token, states, pos, toks = run(token, states, pos)
+            got.append(toks.clone())
+        assert torch.equal(torch.cat(got, dim=1), eager), k
+        assert pos is graphs.pos and int(pos) == P + n
+    tok, states = prefill()
+    graphs = DecodeGraphs(model, tok, states, P)
+    run = graphs.build(4)
+    token, states, pos, toks = run(graphs.token, graphs.states, graphs.pos)
+    got = [toks.clone()]
+    rebuilt = graphs.build(4)
+    graphs.build(8)
+    for _ in range(3):
+        token, states, pos, toks = rebuilt(token, states, pos)
+        got.append(toks.clone())
+    assert torch.equal(torch.cat(got, dim=1), eager)
+    assert graphs.captures == 3
+
+
+@pytest.mark.cuda
+def test_serve_tiny_on_the_card_decodes_through_graphs(tmp_path, capsys):
+    """The launcher on the card: the first run captures every depth on the
+    router's pool (none in-band) and commits a depth under the graph form's
+    key; the second run is a DB hit."""
+    from repro_torch.launch import serve
+
+    _card()
+    db = str(tmp_path / "serve.json")
+    argv = ["--arch", "recurrentgemma_2b", "--tiny", "--prompt-len", "16", "--gen", "64",
+            "--epsilon", "0.5", "--db", db]
+    first = serve.serve(argv)
+    text = capsys.readouterr().out
+    assert not first["db_hit"] and first["graphs"].captures >= len(serve.DECODE_KS)
+    assert re.search(r"\(0 in-band\)", text), text
+    assert first["router"]["inband_builds"] == 0
+    (rec,) = TuningDB(db, autosave=False).records()
+    assert json.loads(rec.key.extra)["decode"] == "cuda_graph"
+    second = serve.serve(argv)
+    assert second["db_hit"] and "tuning db hit" in capsys.readouterr().out

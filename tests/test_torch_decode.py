@@ -15,6 +15,9 @@ import shutil
 import jax.numpy as jnp
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")  # without torch the whole module skips
+
 import torch
 
 import repro.tuning as jtuning

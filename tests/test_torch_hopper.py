@@ -14,6 +14,9 @@ from importlib import import_module
 
 import jax.numpy as jnp
 import pytest
+
+pytest.importorskip("torch")  # without torch the whole module skips
+
 import torch
 
 from repro_torch.kernels import _cuda

@@ -18,6 +18,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")  # without torch the whole module skips
+
 import torch
 
 from repro import configs as jconfigs
@@ -248,6 +251,56 @@ def test_prefill_and_decode_match_jax_in_bf16(arch, impl):
         assert a.dtype == torch.bfloat16
         err = np.abs(a.float().numpy() - b).max()
         assert err <= 3e-2 * np.abs(b).max(), (err, np.abs(b).max())
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_step_takes_a_tensor_position(arch):
+    """A 0-d int64 ``pos`` (what a CUDA graph advances in place) gives the
+    same logits, bit for bit, as the int, step after step through the ring,
+    and both match the JAX model's ``decode_step`` at the fp32 limit."""
+    tokens = np.random.RandomState(4).randint(0, 512, (2, PROMPT))
+    jl, jt = _jax_stream(arch, "float32", "xla", tokens)
+    model = _port(arch, "float32", "xla")
+    batch = {"tokens": torch.from_numpy(tokens), "max_len": PROMPT + GEN}
+    (h_int, s_int), (h_ten, s_ten) = model.prefill(batch), model.prefill(batch)
+    tok = model.logits(h_int[:, None])[:, 0].argmax(-1)[:, None]
+    pos = torch.tensor(PROMPT, dtype=torch.int64)
+    for i in range(GEN):
+        assert tok.numpy().tolist() == jt[i].tolist()
+        lg_int, s_int = model.decode_step(tok, s_int, PROMPT + i)
+        lg_ten, s_ten = model.decode_step(tok, s_ten, pos)
+        assert torch.equal(lg_int, lg_ten)
+        _close(lg_ten, jl[i + 1], 1e-4)
+        tok = lg_ten.argmax(-1)[:, None]
+        pos.add_(1)
+    for a, b in zip(s_int, s_ten):
+        for name in a:
+            pairs = ([(a[name][n], b[name][n]) for n in a[name]] if isinstance(a[name], dict)
+                     else [(a[name], b[name])])
+            assert all(torch.equal(x, y) for x, y in pairs)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_writes_the_rings_in_place_and_returns_new_recurrent_states(arch):
+    """What the served CUDA graphs rest on: a decode step writes every
+    attention ring into the tensors it was given, and returns every
+    recurrent state as a new tensor (copied back into the static set)."""
+    model = _port(arch, "float32", "xla")
+    tokens = torch.from_numpy(np.random.RandomState(5).randint(0, 512, (2, PROMPT)))
+    _, states = model.prefill({"tokens": tokens, "max_len": PROMPT + GEN})
+    new_lg, new = model.decode_step(tokens[:, :1], states, torch.tensor(PROMPT))
+    assert new_lg.shape == (2, model.cfg.padded_vocab)
+    kinds = set()
+    for kind, old_st, new_st in zip(model.cfg.pattern, states, new):
+        assert sorted(old_st) == sorted(new_st)
+        for name, v in new_st.items():
+            if isinstance(v, dict):
+                kinds.add("ring")
+                assert all(v[n] is old_st[name][n] for n in v)
+            else:
+                kinds.add("recurrent")
+                assert v is not old_st[name] and v.shape == old_st[name].shape
+    assert "recurrent" in kinds
 
 
 @pytest.mark.parametrize("arch", ARCHS)

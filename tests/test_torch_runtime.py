@@ -11,6 +11,8 @@ import itertools
 
 import pytest
 
+pytest.importorskip("torch")  # without torch the whole module skips
+
 import repro.core as jcore
 import repro.runtime as jruntime
 import repro.tuning as jtuning

@@ -16,6 +16,9 @@ from importlib import import_module
 import jax.numpy as jnp
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")  # without torch the whole module skips
+
 import torch
 
 from repro.kernels import ops as jops
@@ -139,6 +142,75 @@ def test_lru_block_d_reaches_the_kernel():
         tls.check_lru(256, 128)
     except ValueError as e:
         assert tat.classify_failure(e) == "illegal"
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T,chunk,segments", [
+    (64, 16, 1), (64, 16, 2), (64, 8, 4), (64, 4, 16), (96, 32, 3), (64, 1, 64),
+])
+def test_lru_segmented_form_matches_jax_kernel_and_oracles(dtype, T, chunk, segments):
+    """The kernel's segmented arithmetic (per-segment product and state,
+    carries chained segment after segment, a rescan from each carry) against
+    the oracles and the JAX kernel at the chunk whose whole multiples make
+    the segments: one segment, two, many, a chunk that divides the segment
+    (64 / 4 = 16 = 2 chunks of 8) and segments of one step."""
+    B, D = 2, 32
+    assert (T // chunk) % segments == 0
+    jargs, targs = _lru_inputs(B, T, D, dtype)
+    hs, hT = tls.lru_scan_segmented_plain(*targs, segments=segments)
+    assert hs.dtype == TDT[dtype] and hT.dtype == torch.float32 and hT.shape == (B, D)
+    tol = ORACLE_TOL["lru"][dtype]
+    for hw, hTw in (tref.lru_scan_ref(*targs), jref.lru_scan_ref(*jargs),
+                    jops.lru_scan(*jargs, chunk=chunk, interpret=True)):
+        _close(hs, hw, tol)
+        _close(hT, hTw, tol)
+
+
+def test_lru_segmented_form_refuses_uneven_segments():
+    _, (a, b, h0) = _lru_inputs(1, 64, 8, "float32")
+    with pytest.raises(ValueError, match="segments"):
+        tls.lru_scan_segmented_plain(a, b, h0, segments=3)
+
+
+def test_lru_segments_is_a_pure_function_of_the_shape_and_the_sm_count():
+    """The segment count is derived, not tuned: the same shape and SM count
+    give the same count; it divides the chunk count, a segment's staged
+    a and b fit the block's shared memory, and the grid gives every SM two
+    blocks or more where the steps allow it."""
+    served = [tls.lru_segments(8, 2048, 2560, c, 128, 4, 132) for c in (4, 16, 32, 64, 128)]
+    assert served == [32, 32, 32, 32, 16]  # 64 steps a segment; chunk 128 holds 128
+    assert tls.lru_segments(8, 2048, 2560, 4, 128, 2, 132) == 16  # bf16 stages half the bytes
+    for args in [(8, 2048, 2560, 4, 128, 4, 132), (2, 64, 96, 16, 32, 4, 132),
+                 (1, 128, 256, 16, 128, 2, 132), (1, 4096, 64, 16, 64, 4, 78)]:
+        n = tls.lru_segments(*args)
+        assert n == tls.lru_segments(*args)
+        B, T, D, chunk, bd, itemsize, sms = args
+        assert (T // chunk) % n == 0
+        assert 2 * (T // n) * bd * itemsize + tls.LRU_FIXED_BYTES <= tls.SMEM_LIMIT
+        assert n == T // chunk or B * (D // bd) * n >= tls.LRU_BLOCKS_PER_SM * sms
+    # more SMs never mean fewer segments; a short sequence runs a chunk a segment
+    assert tls.lru_segments(1, 4096, 64, 16, 64, 4, 264) >= tls.lru_segments(1, 4096, 64, 16, 64, 4, 78)
+    assert tls.lru_segments(1, 64, 32, 16, 32, 4, 132) == 4
+
+
+def test_lru_illegal_knobs_raise_before_any_launch():
+    """Knobs the kernel cannot run raise ``ValueError`` from the wrapper's
+    legality check, before it looks at the device: a one-chunk segment over
+    the block's shared memory (in the input dtype) or more channels than
+    threads.  The JAX legality (chunk divides T, block_d divides D) holds
+    everywhere."""
+    _, (a, b, h0) = _lru_inputs(1, 256, 256, "float32")
+    with pytest.raises(ValueError, match="shared memory"):
+        tops.lru_scan(a, b, h0, chunk=256, block_d=256)
+    with pytest.raises(ValueError, match="chunk=96"):
+        tops.lru_scan(a, b, h0, chunk=96)
+    assert tls.launches == {"lru_scan": 0, "rwkv_scan": 0}
+    assert tls.lru_smem_bytes(256, 128, 4) > tls.SMEM_LIMIT >= tls.lru_smem_bytes(256, 128, 2)
+    tls.check_lru(256, 128, itemsize=2)
+    assert tls.legal_lru(2048, 2560, 4, 128, on_card=True) == (4, 128)
+    assert tls.lru_channels_per_thread(2560, 128, True) == 4
+    assert tls.lru_channels_per_thread(2560, 128, False) == 1
+    assert tls.lru_channels_per_thread(96, 6, True) == 1
 
 
 def test_scan_wrappers_refuse_cpu_tensors_without_interpret():

@@ -5,6 +5,8 @@ cost, for several seeds and spaces."""
 import numpy as np
 import pytest
 
+pytest.importorskip("torch")  # without torch the whole module skips
+
 import repro.core as jcore
 import repro_torch.core as tcore
 

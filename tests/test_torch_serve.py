@@ -14,6 +14,9 @@ import sys
 from pathlib import Path
 
 import pytest
+
+pytest.importorskip("torch")  # without torch the whole module skips
+
 import torch
 
 from repro_torch.launch import serve
@@ -47,6 +50,37 @@ def test_serve_tiny_on_the_cpu_tunes_then_hits_the_db(arch, tmp_path, capsys):
     (stored,) = TuningDB(db, autosave=False).records()
     static, text = _run(capsys, argv + ["--no-tune"])
     assert static["k"] == stored.point["k"] and f"static k={stored.point['k']}" in text
+
+
+def test_decode_key_names_the_graph_form():
+    """On the card decode runs as CUDA graphs, so its depth records carry the
+    form in ``extra``: a depth tuned by the eager loop never hits.  The
+    CPU's key is the eager loop's, as before."""
+    from repro_torch.core import ChoiceDim, SearchSpace
+    from repro_torch.tuning import make_key
+
+    space = SearchSpace([ChoiceDim("k", serve.DECODE_KS)])
+    card = "NVIDIA H100 80GB HBM3"
+    eager = serve.decode_extra("recurrentgemma_2b", False, 8, card, graphs=False)
+    graph = serve.decode_extra("recurrentgemma_2b", False, 8, card, graphs=True)
+    assert graph == dict(eager, decode="cuda_graph")
+    assert serve.decode_extra("rwkv6_7b", True, 8, "cpu", graphs=False) == {
+        "arch": "rwkv6_7b", "tiny": True, "batch": 8, "device": "cpu"}
+    keys = [make_key("serve/decode_k", space=space, extra=e) for e in (eager, graph)]
+    assert keys[0].encode() != keys[1].encode()
+
+
+def test_decode_graphs_need_the_card():
+    """There is no CPU form of a CUDA graph: on the CPU serving decodes with
+    the eager loop, and the graph set refuses a CPU model."""
+    from repro_torch import configs
+    from repro_torch.models import ExecConfig, Model
+
+    model = Model(configs.get_tiny("rwkv6_7b"), ExecConfig(interpret=True), device="cpu")
+    tokens = torch.zeros(2, 4, dtype=torch.int64)
+    _, states = model.prefill({"tokens": tokens, "max_len": 8})
+    with pytest.raises(ValueError, match="on the card"):
+        serve.DecodeGraphs(model, tokens[:, :1], states, 4)
 
 
 def test_serve_refuses_to_run_without_a_card(monkeypatch, capsys):

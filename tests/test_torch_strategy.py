@@ -11,6 +11,9 @@ from importlib import import_module
 import jax.numpy as jnp
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")  # without torch the whole module skips
+
 import torch
 
 import repro.core as jcore

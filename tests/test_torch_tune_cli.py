@@ -9,6 +9,8 @@ import json
 
 import pytest
 
+pytest.importorskip("torch")  # without torch the whole module skips
+
 import repro.tuning as jtuning
 import repro_torch.tuning as ttuning
 from repro.tune import main as jtune

@@ -14,6 +14,9 @@ from importlib import import_module
 import jax.numpy as jnp
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")  # without torch the whole module skips
+
 import torch
 
 import repro.tuning as jtuning
