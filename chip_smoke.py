@@ -73,10 +73,34 @@ Phases, each printing its numbers on lines of its own:
    the 1-step and the 8-step graphs (equal tokens; logits within
    ``LOGITS_TOL``);
 9. the same for rwkv6-7b at full width and depth (32 ``rwkv_scan`` launches
-   per prefill, every one of the tensor-core design).
+   per prefill, every one of the tensor-core design);
+10. training recurrentgemma-2b at full width and depth through ``TrainJob``
+   (weights from seed 0, fp32 masters and AdamW state on the card, the
+   kernels with ``rec_chunk`` 8, batch 4 x 256 tokens, lr 1e-3 with no
+   warmup): run 1 tunes the
+   microbatch count over {1, 2, 4} (``DIR/train.json``) and goes on 2 steps
+   past the tuning (cap 40), printing the loss per step (finite and
+   falling), step wall times, tokens/s, peak memory and ``lru_scan``
+   launches per step (18 per forward pass, so 18 x microbatches); run 2 on
+   the same DB must be an exact hit (4 steps).  Then, on one model and one
+   batch with no update, the kernel path's loss and global gradient norm
+   against the plain path's (1e-3 / 1e-2 relative), with the per-token
+   backward of the lru scan timed apart; then a tiny job with async
+   checkpoints every 2 steps, each of which must restore the parameters and
+   optimizer state ``on_step`` saw at its step, bit for bit;
+11. qwen2-7b at full width with 2 layers through ``make_train_step``, batch 1
+   x 2048 tokens: one step and a second on the kernel path (2 flash
+   launches a step, all of the ``wgmma`` design, under autograd) and on the
+   plain path from the same weights; loss and gradient norm before the
+   update (1e-3 / 1e-2 relative), step wall times and peak memory.
 
-Phases 3-5 (the tuning loop), phase 6 (the route) and phases 8-9 (serving)
-are the main paths:
+Phases 10-11 run after phase 7, before serving, in a child process
+(``--train-phases``) that has the card to itself: this process keeps what
+its caching allocator holds until it exits.  The child reports its launch
+counts on its last line.
+
+Phases 3-5 (the tuning loop), phase 6 (the route), phases 8-9 (serving)
+and phases 10-11 (training) are the main paths:
 the kernels' launch counters are set to 0 just before each path and read
 just after, and every kernel must have launched on one of them.
 The line before the last two is a JSON object with one entry per kernel;
@@ -139,6 +163,15 @@ LRU_SHAPE = (8, 2048, 2560)  # recurrentgemma-2b prefill: batch, prompt, RG-LRU 
 RWKV_SHAPE = (8, 2048, 64, 64)  # rwkv6-7b prefill: batch, prompt, heads, head dim
 SERVE = (("recurrentgemma_2b", "lru_scan", 18), ("rwkv6_7b", "rwkv_scan", 32))
 SERVE_ARGS = ["--batch", "8", "--prompt-len", "2048", "--gen", "64", "--epsilon", "0.5"]
+# training (phase 10): recurrentgemma-2b at full width and depth; the batch is
+# what one card holds beside its fp32 weights, gradients and AdamW state
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_CAP = "recurrentgemma_2b", 4, 256, 40
+RG_LRU_LAYERS = 18  # lru_scan launches per forward pass
+# phase 11: qwen2-7b at full width, 2 layers, one sequence of 2048 tokens
+QWEN_LAYERS, QWEN_SEQ = 2, 2048
+TRAIN_TIMEOUT_S = 600  # the training child process
+TRAIN_RESULT = "train launches: "  # the child's last line: its launch counts as JSON
+KERNELS = ["matmul", "flash_attention", "decode_attention", "lru_scan", "rwkv_scan"]
 
 
 class SmokeFailure(Exception):
@@ -163,10 +196,277 @@ def _tensors(x) -> list:
     return list(x) if isinstance(x, (tuple, list)) else [x]
 
 
+def counts() -> dict:
+    """Every kernel's launch count: each wrapper adds one where it launches."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import linear_scan as ls
+    from repro_torch.kernels import matmul as mm
+
+    return {"matmul": mm.launches, "flash_attention": fa.launches,
+            "decode_attention": da.launches, **ls.launches}
+
+
+def reset_counts() -> None:
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import linear_scan as ls
+    from repro_torch.kernels import matmul as mm
+
+    mm.launches = 0
+    fa.launches = 0
+    da.launches = 0
+    for n in ls.launches:
+        ls.launches[n] = 0
+
+
+def train_phases(out: Path, smi: str) -> dict:
+    """Phases 10-11, the training main path, on a card nothing else holds
+    memory on (``main`` runs this in a child process: ``--train-phases``).
+    Returns the kernels' launch counts over the training runs."""
+    import dataclasses
+    import gc
+    import tempfile
+
+    import torch
+
+    from repro_torch import configs as tconfigs
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.data import make_batch_for
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import linear_scan as ls
+    from repro_torch.kernels import ops
+    from repro_torch.models import ExecConfig, TrainModel
+    from repro_torch.optim import AdamW, cosine_schedule, global_norm, tree_leaves
+    from repro_torch.runtime import TrainJob
+    from repro_torch.train import make_loss_fn, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.empty(0, device=dev)  # a context before the memory statistics are read
+    names = KERNELS
+
+    gc.collect()
+    print(f"[10] training starts with torch.cuda.memory_allocated "
+          f"{torch.cuda.memory_allocated(dev) / 1e9:.3f} GB on {smi}")
+    train_launches = {n: 0 for n in names}
+    train_report = {}
+
+    def add_train_launches(launched):
+        for n_, c_ in launched.items():
+            train_launches[n_] += c_
+
+    def loss_and_grads(model, batch):
+        """Loss and global gradient norm of one forward/backward, no update;
+        the gradients stay in ``.grad``."""
+        model.zero_grad(set_to_none=True)
+        loss_, _ = make_loss_fn(model)(model.params(), batch)
+        loss_.backward()
+        grads_ = [p_.grad for p_ in model.params().values()]
+        return loss_.item(), global_norm(grads_).item()
+
+    # 10. recurrentgemma-2b at full width and depth through TrainJob
+    rg_cfg = tconfigs.get(TRAIN_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    runs10 = {}
+    for run in (1, 2):
+        reset_counts()
+        per_step = []
+
+        def on_step(step_, metrics_, per_step=per_step):
+            per_step.append(ls.launches["lru_scan"] - sum(per_step))
+
+        job = TrainJob(arch=TRAIN_ARCH, tiny=False, steps=TRAIN_CAP if run == 1 else 4,
+                       # lr 1e-3 (the launcher's) with no warmup, so that a dozen
+                       # steps move the loss past the batches' spread
+                       global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, warmup=0, tune=True,
+                       tune_db=str(out / "train.json"), seed=0, device="cuda",
+                       stop_after_tuned=2 if run == 1 else None)
+        t0 = time.perf_counter()
+        hist = job.run(on_step=on_step)
+        wall = time.perf_counter() - t0
+        launched = counts()
+        add_train_launches(launched)
+        del job
+        gc.collect()
+        losses, times_ = hist["loss"], hist["step_time"]
+        mbs = [k_["microbatches"] for k_ in hist["knobs"]]
+        med = sorted(times_)[len(times_) // 2]
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        tuning = "a db hit" if hist["db_hit"] else f"finished after {hist['tuned_at']} steps"
+        print(f"[10] {TRAIN_ARCH} train run {run}: {len(losses)} steps in {wall:.1f}s, tuning "
+              f"{tuning}, microbatches chosen {hist['final_knobs']}, per step {mbs}")
+        print(f"[10] {TRAIN_ARCH} run {run} loss per step: {[round(x_, 4) for x_ in losses]}")
+        print(f"[10] {TRAIN_ARCH} run {run} step wall ms per step: {[round(t_ * 1e3, 1) for t_ in times_]}; "
+              f"median {med * 1e3:.1f} ms, {TRAIN_BATCH * TRAIN_SEQ / med:.1f} tokens/s "
+              f"(batch {TRAIN_BATCH} x {TRAIN_SEQ}); torch.cuda.max_memory_allocated {peak:.2f} GB; "
+              f"lru_scan launches per step {per_step}; launches {launched}; {smi}")
+        check(all(math.isfinite(x_) for x_ in losses), f"run {run}: a loss is not finite")
+        check(all(n_ == RG_LRU_LAYERS * m_ for n_, m_ in zip(per_step, mbs)),
+              f"run {run}: lru_scan launches per step {per_step} are not {RG_LRU_LAYERS} x "
+              f"microbatches {mbs}")
+        check(all(n_ == 0 for k_, n_ in launched.items() if k_ != "lru_scan"),
+              f"run {run}: unexpected launches {launched}")
+        check(peak < 80.0, f"run {run}: peak memory {peak:.2f} GB")
+        if run == 1:
+            check(hist["tuned_at"] is not None and len(losses) == hist["tuned_at"] + 2,
+                  f"run 1 did not finish tuning within {TRAIN_CAP} steps: {hist['tuned_at']}")
+            check(losses[-1] < losses[0], f"run 1: the loss did not fall ({losses[0]} -> {losses[-1]})")
+        else:
+            check(hist["db_hit"] and len(losses) == 4 and set(mbs) == {hist["final_knobs"]["microbatches"]}
+                  and hist["final_knobs"] == runs10[1]["final_knobs"],
+                  f"run 2 was not an exact DB hit: {hist['db_hit']} {mbs} {hist['final_knobs']}")
+        runs10[run] = {"steps": len(losses), "tuned_at": hist["tuned_at"], "db_hit": hist["db_hit"],
+                       "final_knobs": hist["final_knobs"], "microbatches": mbs, "loss": losses,
+                       "step_ms": [t_ * 1e3 for t_ in times_], "median_step_ms": med * 1e3,
+                       "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / med, "peak_gb": peak}
+    train_report["recurrentgemma_2b"] = runs10
+
+    # the kernel path against the plain path on one model and one batch, no
+    # update; the per-token backward of the lru scan timed apart
+    reset_counts()
+    model = TrainModel(rg_cfg, ExecConfig(attn_impl="cuda", rec_chunk=8), device=dev, seed=0)
+    batch = make_batch_for(rg_cfg, TRAIN_BATCH, TRAIN_SEQ, step=0, seed=0, device=dev)
+    lru_bwd = []
+    lru_backward = ops._Lru.backward
+
+    def timed_backward(ctx, ghs, ghT):
+        torch.cuda.synchronize()
+        t_ = time.perf_counter()
+        got_ = lru_backward(ctx, ghs, ghT)
+        torch.cuda.synchronize()
+        lru_bwd.append(time.perf_counter() - t_)
+        return got_
+
+    paths = {}
+    for impl in ("cuda", "xla"):
+        model.exec_cfg = ExecConfig(attn_impl=impl, rec_chunk=8)
+        if impl == "cuda":
+            ops._Lru.backward = staticmethod(timed_backward)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            paths[impl] = loss_and_grads(model, batch)
+            torch.cuda.synchronize()
+            fb_s = time.perf_counter() - t0
+        finally:
+            ops._Lru.backward = lru_backward
+        if impl == "cuda":
+            paths["cuda_fb_s"], paths["lru_bwd_s"] = fb_s, sum(lru_bwd)
+        else:
+            paths["xla_fb_s"] = fb_s
+    launched = counts()
+    (lk, gk), (lp, gp) = paths["cuda"], paths["xla"]
+    ok = abs(lk - lp) <= 1e-3 * abs(lp) and abs(gk - gp) <= 1e-2 * abs(gp)
+    print(f"[10] {TRAIN_ARCH} kernel path vs plain path, batch {TRAIN_BATCH} x {TRAIN_SEQ}, no update: "
+          f"loss {lk:.6f} / {lp:.6f} (rel {abs(lk - lp) / abs(lp):.2e}, limit 1e-3), global grad norm "
+          f"{gk:.6f} / {gp:.6f} (rel {abs(gk - gp) / abs(gp):.2e}, limit 1e-2) {'ok' if ok else 'FAIL'}; "
+          f"forward+backward {paths['cuda_fb_s'] * 1e3:.1f} ms (kernel path, {len(lru_bwd)} lru "
+          f"backward calls {paths['lru_bwd_s'] * 1e3:.1f} ms, synchronized around each) / "
+          f"{paths['xla_fb_s'] * 1e3:.1f} ms (plain path); launches {launched}")
+    check(ok, f"{TRAIN_ARCH}: the kernel path's loss or gradient norm disagrees with the plain path")
+    check(launched["lru_scan"] == RG_LRU_LAYERS and len(lru_bwd) == RG_LRU_LAYERS,
+          f"{TRAIN_ARCH}: kernel path launched lru_scan {launched['lru_scan']} times, "
+          f"{len(lru_bwd)} backward calls")
+    train_report["recurrentgemma_2b_paths"] = {
+        "loss": [lk, lp], "grad_norm": [gk, gp], "forward_backward_ms": [paths["cuda_fb_s"] * 1e3,
+                                                                      paths["xla_fb_s"] * 1e3],
+        "lru_backward_ms": paths["lru_bwd_s"] * 1e3, "lru_backward_calls": len(lru_bwd)}
+    del model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the async checkpoints of a tiny job restore what on_step saw, bit for bit
+    reset_counts()
+    with tempfile.TemporaryDirectory(dir=str(out)) as ckpt_dir:
+        job = TrainJob(arch=TRAIN_ARCH, tiny=True, steps=6, global_batch=4, seq_len=32,
+                       ckpt_dir=ckpt_dir, ckpt_every=2, ckpt_keep=10, ckpt_async=True, device="cuda")
+        snaps = {}
+        job.run(on_step=lambda step_, m_: snaps.__setitem__(
+            step_, [t_.detach().clone() for t_ in tree_leaves(job.state)]))
+        equal = {}
+        for step_ in (1, 3, 5):
+            loaded, got_step, _ = load_checkpoint(ckpt_dir, job.state, step=step_)
+            equal[step_] = got_step == step_ and all(
+                torch.equal(a_, b_) for a_, b_ in zip(tree_leaves(loaded), snaps[step_]))
+        moved = not all(torch.equal(a_, b_) for a_, b_ in zip(snaps[1], snaps[5]))
+        print(f"[10] tiny {TRAIN_ARCH} TrainJob, ckpt_async every 2 steps: checkpoints at steps "
+              f"{sorted(equal)} restore the on_step snapshot bit for bit: {equal}; weights moved "
+              f"between them: {moved}")
+        check(all(equal.values()) and moved, "an async checkpoint does not hold its step's snapshot")
+        del job, snaps
+    add_train_launches(counts())
+
+    # 11. qwen2-7b at full width, depth cut to 2 layers, through make_train_step
+    q_cfg = dataclasses.replace(tconfigs.get("qwen2_7b"), n_layers=2, n_groups=0)
+    q_batch = make_batch_for(q_cfg, 1, QWEN_SEQ, step=0, seed=0, device=dev)
+    q_paths = {}
+    for impl in ("cuda", "xla"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        wgmma0 = fa.launches_by_design["wgmma"]
+        model = TrainModel(q_cfg, ExecConfig(attn_impl=impl), device=dev, seed=0)
+        params = model.params()
+        fingerprint = sum(p_.double().square().sum().item() for p_ in params.values())
+        opt = AdamW(lr=cosine_schedule(1e-3, 10, 50))
+        opt_state = opt.init(params)
+        step_fn = make_train_step(model, opt)
+        walls, mets = [], []
+        for i in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt_state, met = step_fn(params, opt_state, q_batch if i == 0 else
+                                             make_batch_for(q_cfg, 1, QWEN_SEQ, step=1, device=dev))
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            mets.append({k_: v_.item() for k_, v_ in met.items()})
+        launched = counts()
+        wgmma = fa.launches_by_design["wgmma"] - wgmma0
+        if impl == "cuda":
+            add_train_launches(launched)
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        q_paths[impl] = {"fingerprint": fingerprint, "loss": mets[0]["loss"],
+                         "grad_norm": mets[0]["grad_norm"], "step_ms": walls, "peak_gb": peak,
+                         "flash_launches": launched["flash_attention"], "wgmma": wgmma}
+        print(f"[11] qwen2-7b 2 layers (d_model {q_cfg.d_model}, {q_cfg.n_heads}/{q_cfg.n_kv_heads} "
+              f"heads of {q_cfg.d_head}, d_ff {q_cfg.d_ff}, vocab {q_cfg.vocab_size}; "
+              f"{sum(p_.numel() for p_ in params.values()) / 1e9:.3f} B parameters), batch 1 x "
+              f"{QWEN_SEQ}, {'kernel' if impl == 'cuda' else 'plain'} path: loss {mets[0]['loss']:.6f}, "
+              f"grad norm {mets[0]['grad_norm']:.6f} (before the update); step wall {walls[0]:.1f} ms "
+              f"(first), {walls[1]:.1f} ms (second); peak {peak:.2f} GB; flash_attention launches "
+              f"{launched['flash_attention']} ({wgmma} wgmma); weights fingerprint {fingerprint:.6e}; {smi}")
+        check(all(math.isfinite(v_) for m_ in mets for v_ in m_.values()), f"qwen2-7b {impl}: non-finite")
+        check(peak < 80.0, f"qwen2-7b {impl}: peak memory {peak:.2f} GB")
+        del model, params, opt_state, step_fn, opt
+    qk, qp = q_paths["cuda"], q_paths["xla"]
+    ok = (qk["fingerprint"] == qp["fingerprint"] and abs(qk["loss"] - qp["loss"]) <= 1e-3 * abs(qp["loss"])
+          and abs(qk["grad_norm"] - qp["grad_norm"]) <= 1e-2 * abs(qp["grad_norm"]))
+    print(f"[11] qwen2-7b kernel path vs plain path from the same weights: loss rel "
+          f"{abs(qk['loss'] - qp['loss']) / abs(qp['loss']):.2e} (limit 1e-3), grad norm rel "
+          f"{abs(qk['grad_norm'] - qp['grad_norm']) / abs(qp['grad_norm']):.2e} (limit 1e-2) "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, "qwen2-7b: the kernel path's loss or gradient norm disagrees with the plain path")
+    check(qk["flash_launches"] == 2 * QWEN_LAYERS and qk["wgmma"] == 2 * QWEN_LAYERS
+          and qp["flash_launches"] == 0,
+          f"qwen2-7b: flash launches {qk['flash_launches']} ({qk['wgmma']} wgmma) over two steps, "
+          f"expected {2 * QWEN_LAYERS} of the wgmma design; plain path {qp['flash_launches']}")
+    train_report["qwen2_7b_2_layers"] = q_paths
+    (out / "train_report.json").write_text(json.dumps(train_report, indent=1))
+    return train_launches
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" / "chip_smoke"),
                     help="directory for the tuning DBs this run writes")
+    ap.add_argument("--train-phases", action="store_true",
+                    help="run phases 10-11 only (the child process the full run starts)")
     args = ap.parse_args(argv)
 
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -179,6 +479,10 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device: the port's kernels run only on the card", file=sys.stderr)
         return 1
+    if args.train_phases:
+        launched = train_phases(Path(args.out), nvidia_smi())
+        print(TRAIN_RESULT + json.dumps(launched))
+        return 0
 
     import dataclasses
     import gc
@@ -205,7 +509,7 @@ def main(argv=None) -> int:
     out.mkdir(parents=True, exist_ok=True)
     for name in ("tune.json", "tune_csa_nm.json", "pretune.json", "pretune.json.journal",
                  "pretune_analytic.json", "pretune_analytic.json.journal", "route.json",
-                 *(f"serve_{arch}.json" for arch, _, _ in SERVE)):
+                 "train.json", "train_report.json", *(f"serve_{arch}.json" for arch, _, _ in SERVE)):
         (out / name).unlink(missing_ok=True)
 
     # ---------------------------------------------------------- 1. device
@@ -225,9 +529,10 @@ def main(argv=None) -> int:
         lines = {ln.split(":", 1)[-1].strip() for ln, w in zip(report, warned)
                  if w is None and ("registers" in ln or "spill" in ln)}
         codes = sorted({w.group(1) for w in warned if w is not None})
-        counts = ", ".join(f"{c} x{sum(1 for w in warned if w is not None and w.group(1) == c)}" for c in codes)
+        warnings_ = ", ".join(f"{c} x{sum(1 for w in warned if w is not None and w.group(1) == c)}"
+                              for c in codes)
         print(f"[1] ptxas {n} (every instantiation): {'; '.join(sorted(lines))}"
-              f"{'; performance warnings ' + counts if codes else ''}")
+              f"{'; performance warnings ' + warnings_ if codes else ''}")
 
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -433,17 +738,6 @@ def main(argv=None) -> int:
           f"rwkv_scan bf16 lw=-14: design {design}, finite {bool(torch.isfinite(got[0].float()).all())}")
     compare(f"rwkv_scan bf16 r,k,v{shape} lw=-14 chunk=16 ({design})", "rwkv_scan", got,
             ls.rwkv_scan_plain(*strong, chunk=16))
-
-    def counts():
-        return {"matmul": mm.launches, "flash_attention": fa.launches,
-                "decode_attention": da.launches, **ls.launches}
-
-    def reset_counts():
-        mm.launches = 0
-        fa.launches = 0
-        da.launches = 0
-        for n in ls.launches:
-            ls.launches[n] = 0
 
     check(all(n > 0 for n in counts().values()), f"phase 2 did not launch every kernel: {counts()}")
     print(f"[2] launches: {counts()}")
@@ -789,6 +1083,25 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # ---------------------------------------------- main path 4: training, 10-11
+    # in a child process, before serving: a full-width model's fp32 weights,
+    # gradients and AdamW state need most of the card, and this process
+    # keeps what its caching allocator holds until it exits
+    print(f"[7] before training: torch.cuda.memory_allocated {torch.cuda.memory_allocated(dev) / 1e9:.3f} GB, "
+          f"reserved {torch.cuda.memory_reserved(dev) / 1e9:.3f} GB")
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--train-phases", "--out", str(out)],
+                          capture_output=True, text=True, cwd=str(ROOT), timeout=TRAIN_TIMEOUT_S)
+    train_launches = None
+    for line in proc.stdout.splitlines():
+        if line.startswith(TRAIN_RESULT):
+            train_launches = json.loads(line[len(TRAIN_RESULT):])
+        else:
+            print(line)
+    if proc.returncode != 0 or train_launches is None:
+        print(proc.stderr[-6000:], file=sys.stderr)
+    check(proc.returncode == 0 and train_launches is not None,
+          f"the training phases failed (exit {proc.returncode})")
+
     # ------------------------------------------ main path 3: serving, 8-9
     def trace_busy(fn, steps: int, name: str) -> tuple:
         """(device-busy ms, kernel launches) per call of ``fn`` from a
@@ -1027,10 +1340,26 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()  # free the first model before the second loads
 
-    main_launches = {n: tuning_launches[n] + route_launches[n] + serve_launches.get(n, 0)
-                     for n in names}
     (out / "decode_profile.json").write_text(json.dumps(decode_profiles, indent=1))
-    print(f"[9] serving launches: {serve_launches}; all main paths: {main_launches}; launches by "
+    print(f"[9] serving launches: {serve_launches}")
+
+    # what serving leaves allocated (PERF.md §7): the largest live CUDA
+    # tensors and what refers to them
+    gc.collect()
+    torch.cuda.empty_cache()
+    live = sorted((o_ for o_ in gc.get_objects() if isinstance(o_, torch.Tensor) and o_.is_cuda),
+                  key=lambda t_: -t_.numel() * t_.element_size())
+    print(f"[9] after serving: torch.cuda.memory_allocated {torch.cuda.memory_allocated(dev) / 1e9:.3f} GB, "
+          f"reserved {torch.cuda.memory_reserved(dev) / 1e9:.3f} GB; {len(live)} live CUDA tensors reachable "
+          f"from Python, {sum(t_.numel() * t_.element_size() for t_ in live) / 1e9:.3f} GB")
+    for t_ in live[:5]:
+        refs = [type(r_).__name__ for r_ in gc.get_referrers(t_) if r_ is not live][:4]
+        print(f"[9]   {tuple(t_.shape)} {t_.dtype} {t_.numel() * t_.element_size() / 1e9:.3f} GB, "
+              f"referred to by {refs}")
+    del live
+    main_launches = {n: tuning_launches[n] + route_launches[n] + serve_launches.get(n, 0)
+                     + train_launches[n] for n in names}
+    print(f"[11] training launches: {train_launches}; all main paths: {main_launches}; launches by "
           f"design since the start: matmul {mm.launches_by_design}, flash_attention {fa.launches_by_design}, "
           f"decode_attention {da.launches_by_design}, rwkv_scan {ls.launches_by_design}")
     for name, n in main_launches.items():
@@ -1053,6 +1382,12 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": sources[name][0], "replaces": sources[name][1],
             "design": designs.get((name, "tuned"), "simt"),
             "launches": main_launches[name], "max_abs_err": max_err[name],
+            "launches_by_path": {"tune": phase_launches["tune"][name],
+                                 "replay": phase_launches["replay"][name],
+                                 "pretune": phase_launches["pretune"][name],
+                                 "route": route_launches[name],
+                                 "serving": serve_launches.get(name, 0),
+                                 "train": train_launches[name]},
             "ms": row["tuned"], "ms_default": row["default"], "plain_ms": row["plain"],
             "bound_ms": terms.bound_s * 1e3, "bound_by": terms.dominant,
             "library_ms": row["library"],
@@ -1076,7 +1411,7 @@ def main(argv=None) -> int:
             entry["plain_ms_recurrentgemma_2b_mqa"] = row["rg_mqa"]["plain"]
             entry["library_ms_recurrentgemma_2b_mqa"] = row["rg_mqa"]["library"]
         kernels.append(entry)
-    print(f"[9] total {time.perf_counter() - t_start:.1f}s; DBs in {out}; "
+    print(f"[11] total {time.perf_counter() - t_start:.1f}s; DBs in {out}; "
           f"exec cache {exec_cache().stats()}")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())

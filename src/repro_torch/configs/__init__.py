@@ -2,9 +2,10 @@
 
 Each module is a copy of the JAX package's ``repro.configs.<id>``: ``CONFIG``
 (the published config) and ``tiny()`` (a reduced same-family config for CPU
-tests).  Select with ``--arch <id>``; ``get(name)`` / ``get_tiny(name)``
-here.  The other eight architectures need block kinds the port does not run
-yet (``cross``, MoE, the encoder) and are listed in ROADMAP.md.
+tests).  Select with ``--arch <id>`` (or the dashed name); ``get(name)`` /
+``get_tiny(name)`` here.  The other four architectures need block kinds the
+port does not run yet (``cross``, MoE, the encoder) and are listed in
+ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -15,6 +16,10 @@ from repro_torch.models.config import ModelConfig
 __all__ = ["ARCH_IDS", "ALIASES", "get", "get_tiny"]
 
 ARCH_IDS = [
+    "qwen2_7b",
+    "starcoder2_15b",
+    "qwen2_72b",
+    "llama3_405b",
     "rwkv6_7b",
     "recurrentgemma_2b",
 ]

@@ -8,8 +8,8 @@ spaces are copies (same trajectories, bit for bit); measurement synchronizes
 CUDA instead of blocking on JAX arrays; the roofline bound comes from
 analytic FLOP and byte counts over :data:`H100_SXM`.  The search
 strategies (``strategy.py``: pipelines, portfolios and the spec grammar;
-``grid_random.py``) are copies too.  ``tuned_jit.py`` waits for the
-training slice.
+``grid_random.py``) are copies too, and ``tuned_jit.py`` wires the loop
+into a step function (:class:`TunedStep`).
 """
 from .autotuning import Autotuning
 from .costs import (
@@ -56,6 +56,7 @@ from .strategy import (
     make_strategy,
     strategy_label,
 )
+from .tuned_jit import TunedStep
 
 __all__ = [
     "Autotuning",
@@ -76,6 +77,7 @@ __all__ = [
     "FloatDim",
     "LogIntDim",
     "ChoiceDim",
+    "TunedStep",
     "RuntimeCost",
     "MeasurePolicy",
     "MeasureResult",

@@ -2,10 +2,10 @@
 
 ``ModelConfig`` is the same dataclass (derived properties and analytic
 parameter counts), so a config module reads the same in both packages, less
-the fields nothing here reads: ``param_dtype`` (the port stores each weight
-in the dtype the JAX model uses it in, see ``model.py``), and
 ``capacity_factor`` and ``ctx_tokens``, which wait for the MoE and VLM
-slices.  A model is a stack of *blocks* arranged as
+slices.  ``param_dtype`` is the dtype of the trainable model's master
+weights; the serving model stores each weight in the dtype the JAX model
+uses it in (see ``model.py``).  A model is a stack of *blocks* arranged as
 ``group * n_groups + tail``; the port runs them as one ``nn.ModuleList`` in
 pattern order.  Block kinds:
 
@@ -21,8 +21,9 @@ the encoder stack wait for a later slice.
 ``ExecConfig`` keeps the knobs the port reads.  The kernel option is
 ``attn_impl="cuda"`` (the JAX package's ``"pallas"``); ``interpret=True``
 runs the kernels' plain versions on CPU tensors.  ``"flashcost"`` (a
-dry-run cost surrogate), the layer-scan, remat and chunked-loss knobs wait
-with the dry-run and training slices.
+dry-run cost surrogate) and the layer-scan and remat knobs wait with the
+dry-run slice; the vocab-chunked loss is an argument of
+``train.make_loss_fn`` / ``train.make_train_step``, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -63,6 +64,7 @@ class ModelConfig:
     # --- encoder-decoder / cross-attention context ---
     enc_layers: int = 0  # >0 -> encoder-decoder (seamless)
     # --- numerics ---
+    param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
     vocab_pad_multiple: int = 256
 

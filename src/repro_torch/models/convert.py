@@ -7,7 +7,8 @@ group's parameters on axis 0 (``stages[s]["pos<i>"]``, run under
 ``lax.scan``); the port has one module per layer in pattern order, so each
 stage is unstacked group by group.  Loading the result with
 ``Model.load_state_dict`` casts each weight to the dtype the port stores it
-in, which rounds exactly as the JAX model's cast at use does.
+in, which rounds exactly as the JAX model's cast at use does; a
+``TrainModel`` keeps the fp32 masters as they are, with no rounding.
 """
 from __future__ import annotations
 

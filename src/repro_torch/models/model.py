@@ -16,10 +16,17 @@ rest in fp32: the norms, the RG-LRU gates (``wa``, ``ba``, ``wi``, ``bi``,
 ``lam``) and the RWKV decay and bonus (``w0``, ``w1``, ``w2``, ``u``).
 Parameters are drawn from an explicit ``torch.Generator`` on the model's
 device, which is the card unless the caller asks for the CPU.
+
+Training.  :class:`TrainModel` is the trainable form: every weight is an
+fp32 master (``cfg.param_dtype``) that requires grad and is cast at use, as
+in the JAX model, and ``forward`` builds the autograd graph and returns
+``(hidden, aux)`` like the JAX ``Model.forward`` (aux is 0: no MoE yet).
+The same seed draws the same numbers in both forms; the serving form keeps
+the cast of them.
 """
 from __future__ import annotations
 
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -28,7 +35,7 @@ from .blocks import apply_block, init_block, init_block_state
 from .config import ExecConfig, ModelConfig
 from .layers import Init, embed_init, norm_apply, norm_init
 
-__all__ = ["Model", "ParamTree", "keeps_fp32"]
+__all__ = ["Model", "TrainModel", "ParamTree", "keeps_fp32"]
 
 _NORMS = ("norm1", "norm2", "ln1", "ln2", "final_norm")
 _FP32_AT_USE = {"rec": ("wa", "ba", "wi", "bi", "lam"), "tm": ("w0", "w1", "w2", "u")}
@@ -43,15 +50,20 @@ def keeps_fp32(path: Tuple[str, ...]) -> bool:
 
 class ParamTree(nn.Module):
     """A nested dict of tensors as a module: sub-dicts become child modules,
-    tensors frozen parameters, so ``state_dict`` keys are the dotted paths
-    (``rec.wa``, ``tm.ln_x.scale``)."""
+    tensors parameters, so ``state_dict`` keys are the dotted paths
+    (``rec.wa``, ``tm.ln_x.scale``).  Without ``master`` the parameters are
+    frozen in the dtype they are used in (serving); with it, every one is a
+    trainable master in that dtype."""
 
-    def __init__(self, tree: dict, compute_dtype: torch.dtype, path: Tuple[str, ...] = ()):
+    def __init__(self, tree: dict, compute_dtype: torch.dtype, path: Tuple[str, ...] = (),
+                 master: Optional[torch.dtype] = None):
         super().__init__()
         for name, val in tree.items():
             sub = path + (name,)
             if isinstance(val, dict):
-                self.add_module(name, ParamTree(val, compute_dtype, sub))
+                self.add_module(name, ParamTree(val, compute_dtype, sub, master))
+            elif master is not None:
+                self.register_parameter(name, nn.Parameter(val.to(master)))
             else:
                 dt = torch.float32 if keeps_fp32(sub) else compute_dtype
                 self.register_parameter(name, nn.Parameter(val.to(dt), requires_grad=False))
@@ -64,6 +76,9 @@ class ParamTree(nn.Module):
 
 
 class Model(nn.Module):
+    #: store fp32 masters that require grad (:class:`TrainModel`)
+    trainable = False
+
     def __init__(self, cfg: ModelConfig, exec_cfg: ExecConfig = ExecConfig(), *,
                  device="cuda", seed: int = 0):
         super().__init__()
@@ -77,14 +92,16 @@ class Model(nn.Module):
         dt = getattr(torch, cfg.compute_dtype)
         gen = torch.Generator(device=self.device).manual_seed(seed)
         ini = Init(gen, self.device)
-        self.embedding = ParamTree({"table": embed_init(ini, cfg.padded_vocab, cfg.d_model)["table"]}, dt)
+        m = getattr(torch, cfg.param_dtype) if self.trainable else None
+        self.embedding = ParamTree({"table": embed_init(ini, cfg.padded_vocab, cfg.d_model)["table"]},
+                                   dt, master=m)
         self.layers = nn.ModuleList(
-            ParamTree(init_block(ini, kind, cfg), dt) for kind in cfg.pattern
+            ParamTree(init_block(ini, kind, cfg), dt, master=m) for kind in cfg.pattern
         )
-        self.final_norm = ParamTree(norm_init(ini, cfg.norm, cfg.d_model), dt, ("final_norm",))
+        self.final_norm = ParamTree(norm_init(ini, cfg.norm, cfg.d_model), dt, ("final_norm",), m)
         if not cfg.tie_embeddings:
             self.lm_head = ParamTree({"w": ini.nrm((cfg.d_model, cfg.padded_vocab),
-                                                   cfg.d_model ** -0.5)}, dt)
+                                                   cfg.d_model ** -0.5)}, dt, master=m)
 
     # ------------------------------------------------------------- plumbing
     def _layer_trees(self) -> list:
@@ -166,3 +183,28 @@ class Model(nn.Module):
         x, states = self._run_stack(x, states, q_pos=q_pos, causal=True)
         x = norm_apply(self.cfg.norm, self.final_norm.tree(), x)
         return self.logits(x)[:, 0], states
+
+
+class TrainModel(Model):
+    """The trainable form of :class:`Model`: fp32 masters (``cfg.param_dtype``)
+    that require grad, cast to the compute dtype at each use.  ``prefill``
+    and ``decode_step`` work as in the serving form (under ``no_grad``)."""
+
+    trainable = True
+
+    def params(self) -> dict:
+        """The parameters by dotted name: the ``params`` of the train step,
+        the optimizer and the checkpoint (the live tensors, updated in place)."""
+        return dict(self.named_parameters())
+
+    def forward(self, batch: dict) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Teacher-forced full-sequence pass that builds the autograd graph.
+        batch["tokens"]: (B,S).  Returns (hidden (B,S,D), aux loss) like the
+        JAX ``Model.forward``; aux is a 0-d fp32 zero (no MoE block yet)."""
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        x = self.embed(tokens)
+        states = self.init_states(B, S, mode="train")
+        x, _ = self._run_stack(x, states, q_pos=torch.arange(S, device=self.device), causal=True)
+        x = norm_apply(self.cfg.norm, self.final_norm.tree(), x)
+        return x, torch.zeros((), dtype=torch.float32, device=self.device)

@@ -56,7 +56,9 @@ import repro_torch.tuning, repro_torch.tuning.pretune, repro_torch.tuning.fleet
 import repro_torch.configs, repro_torch.models, repro_torch.models.convert, repro_torch.runtime
 import repro_torch.core.strategy, repro_torch.core.grid_random, repro_torch.obs.report
 import repro_torch.tune, repro_torch.kernels.decode_attention
-from repro_torch.launch import serve
+import repro_torch.data, repro_torch.optim, repro_torch.train, repro_torch.checkpoint
+import repro_torch.core.tuned_jit, repro_torch.runtime.driver
+from repro_torch.launch import serve, train
 from repro_torch.kernels import autotuned, kernel_router, routed, tune_call
 from repro_torch.tuning import TuningDB
 a = torch.from_numpy(np.random.RandomState(0).standard_normal((64, 64)).astype(np.float32))
@@ -71,6 +73,9 @@ assert out.shape == (2, 4, 16) and router.stats()["calls"] == 1
 served = serve.serve(["--arch", "rwkv6_7b", "--tiny", "--device", "cpu", "--prompt-len", "4",
                       "--gen", "2"])
 assert served["hidden"].shape == (8, 64)
+trained = train.train(["--arch", "qwen2_7b", "--tiny", "--device", "cpu", "--steps", "2",
+                       "--global-batch", "2", "--seq-len", "8"])
+assert trained["steps"] == 2
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")]
 print("isolated-ok", rec.point)
 """

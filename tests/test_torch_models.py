@@ -320,4 +320,4 @@ def test_unported_kinds_raise():
     with pytest.raises(NotImplementedError, match="MoE"):
         TModel(dataclasses.replace(cfg, group=("attn",), ffn="moe"), device="cpu")
     with pytest.raises(KeyError, match="not ported"):
-        tconfigs.get("qwen2_7b")
+        tconfigs.get("arctic_480b")
