@@ -56,7 +56,10 @@ Phases, each printing its numbers on lines of its own:
    tensor-core design at ``chunk=4`` and the tuned chunk beside the
    per-token design on the same inputs, with its share of the bytes bound;
    the lru scan at default, tuned and ``chunk=4`` with its segment count
-   and share of the bytes bound;
+   and share of the bytes bound; and flash attention at the shape of
+   seamless-m4t-large-v2's encoder (q (8, 4096, 16, 64), k/v (8, 16, 4096,
+   64) bf16, non-causal) against its plain version, at the default tiles
+   and tuned (its own DB), with SDPA's time and the bound;
 8. serving recurrentgemma-2b at full width and depth through
    ``repro_torch.launch.serve`` (batch 8, prompt 2048, 64 new tokens, random
    weights from seed 0) twice on one DB: the first run tunes the decode
@@ -92,15 +95,32 @@ Phases, each printing its numbers on lines of its own:
    x 2048 tokens: one step and a second on the kernel path (2 flash
    launches a step, all of the ``wgmma`` design, under autograd) and on the
    plain path from the same weights; loss and gradient norm before the
-   update (1e-3 / 1e-2 relative), step wall times and peak memory.
+   update (1e-3 / 1e-2 relative), step wall times and peak memory;
+12. serving seamless-m4t-large-v2 at full width and depth (24 encoder and 24
+   decoder layers, frames (8, 4096, 1024), batch 8, prompt 2048, 64 new
+   tokens) twice on one DB (the second a DB hit): every prefill launches
+   the flash kernel 24 times, all non-causal and of the ``wgmma`` design;
+   the kernel on the last encoder layer's served q, k, v against its plain
+   version; the decode profile and graph-vs-eager tokens as in phase 8; the
+   final prefill hidden state on the kernel path against the plain path in
+   fp32 arithmetic (``HIDDEN_TOL``);
+13. moonshot-v1-16b-a3b (MoE, 64 experts, top-6) at full width and depth,
+   the same serve arguments, twice on one DB: prefill takes the capacity branch (C = 1920,
+   the drops counted per layer), a decode step is drop-free (C = T·K =
+   48), graph tokens equal eager tokens;
+14. qwen2-7b at full width and depth, the same serve arguments, twice on
+   one DB (no kernel on this path), graph decode against eager;
+15. llama-3.2-vision-11b and arctic-480b ``--tiny`` on the card (batch 8,
+   prompt 256): prefill and graph decode against eager.
 
-Phases 10-11 run after phase 7, before serving, in a child process
-(``--train-phases``) that has the card to itself: this process keeps what
-its caching allocator holds until it exits.  The child reports its launch
-counts on its last line.
+Phases 10-11 and 12-15 run after phase 7, before serving, in two child
+processes (``--train-phases``, ``--family-phases``), one after the other,
+each with the card to itself: this process keeps what its caching
+allocator holds until it exits.  Each child reports its launch counts on
+its last line.
 
-Phases 3-5 (the tuning loop), phase 6 (the route), phases 8-9 (serving)
-and phases 10-11 (training) are the main paths:
+Phases 3-5 (the tuning loop), phase 6 (the route), phases 8-9 and 12-15
+(serving) and phases 10-11 (training) are the main paths:
 the kernels' launch counters are set to 0 just before each path and read
 just after, and every kernel must have launched on one of them.
 The line before the last two is a JSON object with one entry per kernel;
@@ -171,6 +191,15 @@ RG_LRU_LAYERS = 18  # lru_scan launches per forward pass
 QWEN_LAYERS, QWEN_SEQ = 2, 2048
 TRAIN_TIMEOUT_S = 600  # the training child process
 TRAIN_RESULT = "train launches: "  # the child's last line: its launch counts as JSON
+# phases 12-15: the encoder-decoder, VLM and MoE families served, in a child
+# process of their own (moonshot-v1-16b-a3b needs most of the card)
+SEAMLESS, MOONSHOT, QWEN = "seamless_m4t_large_v2", "moonshot_v1_16b_a3b", "qwen2_7b"
+SEAMLESS_ENC_LAYERS = 24  # non-causal flash launches per seamless prefill
+ENC_FA_SHAPE = (8, 4096, 16, 16, 64)  # seamless encoder: batch, frames, heads, KV heads, head dim
+FAMILY_TINY = ("llama_3_2_vision_11b", "arctic_480b")  # served --tiny on the card
+TINY_SERVE_ARGS = ["--tiny", "--batch", "8", "--prompt-len", "256", "--gen", "64", "--epsilon", "0.5"]
+FAMILY_TIMEOUT_S = 700
+FAMILY_RESULT = "family launches: "  # the child's last line: its launch counts as JSON
 KERNELS = ["matmul", "flash_attention", "decode_attention", "lru_scan", "rwkv_scan"]
 
 
@@ -218,6 +247,458 @@ def reset_counts() -> None:
     da.launches = 0
     for n in ls.launches:
         ls.launches[n] = 0
+
+
+def trace_busy(out: Path, fn, steps: int, name: str) -> tuple:
+    """(device-busy ms, kernel launches) per call of ``fn`` from a
+    ``torch.profiler`` trace of ``steps`` calls (the union of the kernel,
+    copy and memset intervals); the trace is kept, gzipped, in ``out``."""
+    import gzip
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    path = out / f"trace_{name}.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    with gzip.open(f"{path}.gz", "wt") as fh:
+        json.dump(events, fh)
+    path.unlink()
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e)
+    busy, end = 0.0, -math.inf
+    for t0_, t1_ in spans:
+        busy += max(0.0, t1_ - max(t0_, end))
+        end = max(end, t1_)
+    return busy / 1e3 / steps, len(spans) / steps
+
+
+def decode_profile(out: Path, phase, arch, model, batch) -> dict:
+    """Where one decode step's time goes, eager against a CUDA graph, and
+    the graph's greedy tokens against the eager loop's, from fresh
+    prefills of the served batch on the kernel path."""
+    import gc
+
+    import torch
+
+    from repro_torch.launch import serve
+
+    P = batch["tokens"].shape[1]
+    B = batch["tokens"].shape[0]
+
+    def fresh():
+        h_, st_ = model.prefill(batch)
+        return model.logits(h_[:, None])[:, 0].argmax(-1)[:, None], st_
+
+    tok, st = fresh()
+    eager_toks, eager_logits = [], []
+    for i in range(DECODE_TOKENS):
+        lg, st = model.decode_step(tok, st, P + i)
+        tok = lg.argmax(-1)[:, None]
+        eager_toks.append(tok)
+        eager_logits.append(lg)
+    state = {"tok": tok, "st": st, "pos": P + DECODE_TOKENS}
+
+    def eager_step():
+        lg_, state["st"] = model.decode_step(state["tok"], state["st"], state["pos"])
+        state["tok"] = lg_.argmax(-1)[:, None]
+        state["pos"] += 1
+
+    walls = []
+    for _ in range(8):
+        torch.cuda.synchronize()
+        t0_ = time.perf_counter()
+        eager_step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0_) * 1e3)
+    busy, kernels = trace_busy(out, eager_step, 3, f"{arch}_eager")
+    del state, st, tok
+    gc.collect()
+
+    prof = {"eager_wall_ms": sorted(walls)[len(walls) // 2], "eager_wall_ms_min": min(walls),
+            "eager_wall_ms_max": max(walls), "eager_busy_ms": busy, "eager_kernels": kernels}
+    got = {}
+    for k in (1, 8):
+        tok, st = fresh()
+        graphs = serve.DecodeGraphs(model, tok, st, P)
+        del tok, st
+        t0_ = time.perf_counter()
+        run = graphs.build(k)
+        prof[f"capture_k{k}_s"] = time.perf_counter() - t0_
+        token, states, pos = graphs.token, graphs.states, graphs.pos
+        toks_, logits_ = [], []
+        for _ in range(DECODE_TOKENS // k):
+            token, states, pos, toks = run(token, states, pos)
+            toks_.append(toks.clone())
+            logits_.append(run.logits.clone())
+        got[k] = (torch.cat(toks_, dim=1), logits_)
+        if k == 8:
+            reps = []
+            for _ in range(4):
+                torch.cuda.synchronize()
+                t0_ = time.perf_counter()
+                run(token, states, pos)
+                torch.cuda.synchronize()
+                reps.append((time.perf_counter() - t0_) * 1e3 / k)
+            gbusy, gkernels = trace_busy(out, lambda: run(token, states, pos), 1, f"{arch}_graph8")
+            prof.update(graph_step_ms=sorted(reps)[len(reps) // 2], graph_step_ms_min=min(reps),
+                        graph_step_ms_max=max(reps), graph_busy_ms=gbusy / k,
+                        graph_kernels=gkernels / k)
+        del run, graphs, token, states, pos
+        gc.collect()
+    eager_t = torch.cat(eager_toks, dim=1)
+    same = all(torch.equal(got[k][0], eager_t) for k in got)
+    mag = max(lg.float().abs().max().item() for lg in eager_logits)
+    dlog = max((g_.float() - e_.float()).abs().max().item()
+               for g_, e_ in zip(got[1][1], eager_logits))
+    prof.update(tokens_equal=same, logits_max_abs_diff=dlog, logits_max_abs=mag,
+                eager_tok_s=B * 1e3 / prof["eager_wall_ms"], graph_tok_s=B * 1e3 / prof["graph_step_ms"])
+    print(f"[{phase}] {arch} decode profile (batch {B}, position {P}+): eager step wall "
+          f"{prof['eager_wall_ms']:.2f} ms (min {prof['eager_wall_ms_min']:.2f}, max "
+          f"{prof['eager_wall_ms_max']:.2f}), device busy {busy:.3f} ms "
+          f"({busy / prof['eager_wall_ms']:.3f} of the step), {kernels:.0f} kernel launches a step; "
+          f"8-step graph replay {prof['graph_step_ms']:.3f} ms a step (min "
+          f"{prof['graph_step_ms_min']:.3f}, max {prof['graph_step_ms_max']:.3f}), device busy "
+          f"{prof['graph_busy_ms']:.3f} ms a step, {prof['graph_kernels']:.0f} kernels a step; "
+          f"captures {prof['capture_k1_s']:.2f} s (k=1) / {prof['capture_k8_s']:.2f} s (k=8); "
+          f"{prof['eager_tok_s']:.1f} -> {prof['graph_tok_s']:.1f} tok/s per step")
+    ok = same and dlog <= LOGITS_TOL * mag
+    print(f"[{phase}] {arch} first {DECODE_TOKENS} greedy tokens, eager vs 1-step and 8-step graphs: "
+          f"equal={same}; logits max |d| {dlog:.4e} (max |logit| {mag:.3f}, limit "
+          f"{LOGITS_TOL:g} x max |logit|) {'ok' if ok else 'FAIL'}")
+    check(ok, f"{arch}: decode through CUDA graphs differs from the eager loop")
+    return prof
+
+
+def family_phases(out: Path, smi: str) -> dict:
+    """Phases 12-15, serving the encoder-decoder, VLM and MoE families on a
+    card nothing else holds memory on (``main`` runs this in a child
+    process: ``--family-phases``), one model at a time.  Returns the
+    kernels' launch counts over the serve runs (the main path)."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import ExecConfig, blocks, moe
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.empty(0, device=dev)  # a context before the memory statistics are read
+    print(f"[12] the families start with torch.cuda.memory_allocated "
+          f"{torch.cuda.memory_allocated(dev) / 1e9:.3f} GB on {smi}")
+    launched_total = {n: 0 for n in KERNELS}
+    report = {}
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def served(phase, arch, argv, run):
+        """One ``serve`` run, counted as the main path: (result, launches,
+        flash launches by design, the ``causal`` of every flash call)."""
+        reset_counts()
+        by_design = dict(fa.launches_by_design)
+        flags = []
+        real = ops.flash_attention
+
+        def spy(*args_, **kw_):
+            flags.append(kw_["causal"])
+            return real(*args_, **kw_)
+
+        torch.cuda.reset_peak_memory_stats(dev)
+        buf = io.StringIO()
+        ops.flash_attention = spy
+        try:
+            with contextlib.redirect_stdout(buf):
+                res = serve.serve(["--arch", arch, *argv])
+        finally:
+            ops.flash_attention = real
+        launched = counts()
+        design = {d: n - by_design[d] for d, n in fa.launches_by_design.items()}
+        for n, c in launched.items():
+            launched_total[n] += c
+        for line in buf.getvalue().splitlines():
+            print(f"[{phase}] {arch} run {run}: {line}")
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        graphs = res.pop("graphs")  # the static set holds the rings and the context K/V
+        cfg = res["model"].cfg
+        print(f"[{phase}] {arch} run {run}: prefill {res['prefill_ms']:.1f} ms, decode "
+              f"{res['decode_tok_s']:.1f} tok/s, k={res['k']}, db_hit={res['db_hit']}, "
+              f"{graphs.captures} decode depths captured as CUDA graphs, router {res['router']}; "
+              f"launches {launched}, flash by design {design}, flash causal flags "
+              f"{sorted(set(flags))}; torch.cuda.max_memory_allocated {peak:.2f} GB; {smi}")
+        h = res["hidden"]
+        check(h.shape == (res["batch"]["tokens"].shape[0], cfg.d_model)
+              and bool(torch.isfinite(h.float()).all()),
+              f"{arch} run {run}: prefill hidden {tuple(h.shape)} not finite of width d_model")
+        check(graphs.captures >= 1 and res["router"]["inband_builds"] == 0
+              and res["router"]["candidate_failures"] == 0,
+              f"{arch} run {run}: decode captured {graphs.captures} graphs, router {res['router']}")
+        check(peak < 80.0, f"{arch} run {run}: peak memory {peak:.2f} GB")
+        del graphs
+        free()
+        return res, launched, design, flags, peak
+
+    def weights(phase, arch, model):
+        n = sum(p_.numel() for p_ in model.parameters())
+        gb = sum(p_.numel() * p_.element_size() for p_ in model.parameters()) / 1e9
+        print(f"[{phase}] {arch}: {n / 1e9:.3f} B parameters, {gb:.3f} GB as served; "
+              f"torch.cuda.memory_allocated {torch.cuda.memory_allocated(dev) / 1e9:.3f} GB")
+        return n
+
+    def summary(res, peak):
+        return {"prefill_ms": res["prefill_ms"], "decode_tok_s": res["decode_tok_s"], "k": res["k"],
+                "db_hit": res["db_hit"], "peak_gb": peak}
+
+    # 12. seamless-m4t-large-v2 at full width and depth: the encoder's 24
+    # layers on the flash kernel, non-causal, at head dim 64
+    runs = []
+    for run in (1, 2):
+        res, launched, design, flags, peak = served(
+            12, SEAMLESS, [*SERVE_ARGS, "--db", str(out / f"serve_{SEAMLESS}.json")], run)
+        check(launched["flash_attention"] == SEAMLESS_ENC_LAYERS
+              and design["wgmma"] == SEAMLESS_ENC_LAYERS and flags == [False] * SEAMLESS_ENC_LAYERS,
+              f"{SEAMLESS} run {run}: flash launched {launched['flash_attention']} times ({design}, "
+              f"causal {flags}), expected {SEAMLESS_ENC_LAYERS} non-causal wgmma launches")
+        check(all(n == 0 for name, n in launched.items() if name != "flash_attention"),
+              f"{SEAMLESS} run {run}: unexpected launches {launched}")
+        check(run == 1 or res["db_hit"], f"{SEAMLESS} run 2 was not a tuning DB hit")
+        runs.append(summary(res, peak))
+        if run == 1:
+            h_first = res["hidden"].clone()
+            del res
+            free()
+    check(torch.equal(h_first, res["hidden"]), f"{SEAMLESS}: the two runs' prefills differ")
+    model, batch, h = res["model"], res["batch"], res["hidden"]
+    del res, h_first
+    cfg = model.cfg
+    n_params = weights(12, SEAMLESS, model)
+    # the kernel on the served inputs: the last encoder layer's q, k, v
+    captured, real = {}, ops.flash_attention
+
+    def capture(q_, k_, v_, **kw_):
+        captured.update(args=[t_.detach().clone() for t_ in (q_, k_, v_)], kw=kw_)
+        return real(q_, k_, v_, **kw_)
+
+    ops.flash_attention = capture
+    try:
+        model.prefill(batch)
+    finally:
+        ops.flash_attention = real
+    (cq, ck, cv), ckw = captured["args"], captured["kw"]
+    got = real(cq, ck, cv, causal=ckw["causal"], block_q=ckw["block_q"], block_kv=ckw["block_kv"])
+    want = fa.flash_attention_plain(cq.transpose(1, 2), ck, cv, causal=ckw["causal"],
+                                    block_q=ckw["block_q"], block_kv=ckw["block_kv"]).transpose(1, 2)
+    # served activations reach |o| ~ 3, where one bf16 step (2^-6 in [2, 4))
+    # is above TOL's atol + rtol |o| for |o| < 2.12: an element outside TOL
+    # must be within one bf16 rounding step of the plain value
+    tol = TOL["flash_attention"]["bfloat16"]
+    g32, w32 = got.float(), want.float()
+    diff = (g32 - w32).abs()
+    flash_err = diff.max().item()
+    outside = diff > tol + tol * w32.abs()
+    step = torch.pow(2.0, torch.floor(torch.log2(w32.abs().clamp_min(2.0 ** -126))) - 7)
+    ok = bool((diff[outside] <= step[outside]).all()) and math.isfinite(flash_err)
+    print(f"[12] flash_attention on the last encoder layer's served inputs q{tuple(cq.shape)} "
+          f"kv{tuple(ck.shape)} {str(cq.dtype)[6:]} causal={ckw['causal']} blocks "
+          f"{ckw['block_q']}/{ckw['block_kv']}: max_abs_err={flash_err:.3e} max|plain|="
+          f"{w32.abs().max().item():.4g}; {int(outside.sum())} of {diff.numel()} elements outside "
+          f"allclose(atol={tol:g}, rtol={tol:g}), each within one bf16 step of the plain value: "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok and not ckw["causal"], f"{SEAMLESS}: the encoder's flash kernel disagrees with its plain version")
+    del g32, w32, diff, outside, step
+    del captured, cq, ck, cv, got, want
+    free()
+    model.exec_cfg = ExecConfig(attn_impl="xla", rec_chunk=4)
+    h_plain, _ = model.prefill(batch)
+    err_bf16 = (h.float() - h_plain.float()).abs()
+    print(f"[12] {SEAMLESS} bf16 as served, kernel path vs plain path: max |dh| "
+          f"{err_bf16.max().item():.4e}, mean {err_bf16.mean().item():.4e}, max |h| "
+          f"{h_plain.float().abs().max().item():.4f} (rounding spread, not held)")
+    model.exec_cfg = ExecConfig(attn_impl="cuda", rec_chunk=4)
+    del h, h_plain, _, err_bf16
+    free()
+    prof = decode_profile(out, 12, SEAMLESS, model, batch)
+    free()
+    model.cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    hidden32 = {}
+    for impl in ("cuda", "xla"):
+        model.exec_cfg = ExecConfig(attn_impl=impl, rec_chunk=4)
+        hidden32[impl], _ = model.prefill(batch)
+        del _
+        free()
+    hk, hp = hidden32["cuda"], hidden32["xla"]
+    err = (hk - hp).abs().max().item()
+    ok = hk.dtype == torch.float32 and bool(torch.allclose(hk, hp, atol=HIDDEN_TOL, rtol=HIDDEN_TOL))
+    print(f"[12] {SEAMLESS} fp32 arithmetic on the served weights, kernel path (the encoder on "
+          f"the fp32 flash kernel) vs plain path: max |dh| {err:.4e}, max |h| "
+          f"{hp.abs().max().item():.4f}, allclose(atol={HIDDEN_TOL:g}, rtol={HIDDEN_TOL:g}) "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok and math.isfinite(err), f"{SEAMLESS}: kernel path disagrees with the plain path")
+    print(f"[12] {SEAMLESS} summary: prefill ms {[round(r['prefill_ms'], 1) for r in runs]}, decode "
+          f"tok/s {[round(r['decode_tok_s'], 1) for r in runs]} (batch 8, frames 4096, prompt 2048, "
+          f"64 new tokens; {SEAMLESS_ENC_LAYERS} non-causal wgmma flash launches per prefill; {smi})")
+    report[SEAMLESS] = {"runs": runs, "params": n_params, "decode_profile": prof,
+                        "flash_served_max_abs_err": flash_err, "hidden_fp32_max_abs_diff": err}
+    del model, batch, hidden32, hk, hp
+    free()
+
+    def served_twice(phase, arch):
+        """Two serve runs on one DB (the second a DB hit), no kernel
+        launched; returns the second run's model and batch and both runs'
+        numbers."""
+        runs_ = []
+        for run_ in (1, 2):
+            res_, launched_, _, _, peak_ = served(
+                phase, arch, [*SERVE_ARGS, "--db", str(out / f"serve_{arch}.json")], run_)
+            check(all(n_ == 0 for n_ in launched_.values()), f"{arch}: unexpected launches {launched_}")
+            check(run_ == 1 or res_["db_hit"], f"{arch} run 2 was not a tuning DB hit")
+            runs_.append(summary(res_, peak_))
+            if run_ == 1:
+                h_first_ = res_["hidden"].clone()
+                del res_
+                free()
+        check(torch.equal(h_first_, res_["hidden"]), f"{arch}: the two runs' prefills differ")
+        return res_["model"], res_["batch"], runs_
+
+    # 13. moonshot-v1-16b-a3b at full width and depth: MoE, 64 experts, top-6
+    model, batch, runs = served_twice(13, MOONSHOT)
+    free()
+    cfg = model.cfg
+    n_params = weights(13, MOONSHOT, model)
+    # the dispatch as served: the capacity branch at prefill (with drops),
+    # drop-free in decode
+    stats, real_moe = [], blocks.moe_apply
+
+    def moe_spy(cfg_, p_, x_):
+        r_ = moe.route(cfg_, p_, x_.reshape(-1, x_.shape[-1]))
+        stats.append((x_.shape[0] * x_.shape[1], r_["capacity"], (~r_["keep"]).sum()))
+        return real_moe(cfg_, p_, x_)
+
+    blocks.moe_apply = moe_spy
+    try:
+        h_, st_ = model.prefill(batch)
+        pre = [(t_, c_, int(d_)) for t_, c_, d_ in stats]
+        stats.clear()
+        model.decode_step(model.logits(h_[:, None])[:, 0].argmax(-1)[:, None], st_,
+                          batch["tokens"].shape[1])
+        dec = [(t_, c_, int(d_)) for t_, c_, d_ in stats]
+    finally:
+        blocks.moe_apply = real_moe
+    del h_, st_, stats
+    free()
+    T, K = pre[0][0], cfg.top_k
+    drops = [d_ for _, _, d_ in pre]
+    print(f"[13] {MOONSHOT} prefill dispatch: {len(pre)} MoE layers, T = {T} tokens, T*K = {T * K} "
+          f"assignments (> {moe.DROP_FREE_ASSIGNMENTS}: the capacity branch), C = "
+          f"{sorted({c_ for _, c_, _ in pre})} slots per expert; dropped per layer {drops} (total "
+          f"{sum(drops)} of {T * K * len(pre)}); decode step: T*K = {dec[0][0] * K}, C = "
+          f"{sorted({c_ for _, c_, _ in dec})}, dropped {sum(d_ for _, _, d_ in dec)}")
+    check(len(pre) == cfg.n_layers and all(c_ == moe.capacity(cfg, T) == 1920 for _, c_, _ in pre)
+          and T * K > moe.DROP_FREE_ASSIGNMENTS, f"{MOONSHOT}: prefill did not take the capacity branch")
+    check(len(dec) == cfg.n_layers and all(c_ == t_ * K == 48 and d_ == 0 for t_, c_, d_ in dec),
+          f"{MOONSHOT}: decode is not drop-free: {dec[:3]}")
+    prof = decode_profile(out, 13, MOONSHOT, model, batch)
+    print(f"[13] {MOONSHOT} summary: prefill ms {[round(r['prefill_ms'], 1) for r in runs]}, decode "
+          f"tok/s {[round(r['decode_tok_s'], 1) for r in runs]} (batch 8, prompt 2048, 64 new tokens; "
+          f"{smi})")
+    report[MOONSHOT] = {"runs": runs, "params": n_params, "decode_profile": prof, "prefill_drops": drops,
+                        "capacity_prefill": pre[0][1], "capacity_decode": dec[0][1]}
+    del model, batch
+    free()
+
+    # 14. qwen2-7b at full width and depth (no kernel: prefill and decode
+    # attend through the cache, as in the JAX model)
+    model, batch, runs = served_twice(14, QWEN)
+    free()
+    n_params = weights(14, QWEN, model)
+    prof = decode_profile(out, 14, QWEN, model, batch)
+    print(f"[14] {QWEN} summary: prefill ms {[round(r['prefill_ms'], 1) for r in runs]}, decode "
+          f"tok/s {[round(r['decode_tok_s'], 1) for r in runs]} (batch 8, prompt 2048, 64 new tokens; "
+          f"{smi})")
+    report[QWEN] = {"runs": runs, "params": n_params, "decode_profile": prof}
+    del model, batch
+    free()
+
+    # 15. llama-3.2-vision-11b and arctic-480b, --tiny on the card
+    for arch in FAMILY_TINY:
+        res, launched, _, _, peak = served(15, arch, [*TINY_SERVE_ARGS, "--db",
+                                                      str(out / f"serve_{arch}_tiny.json")], 1)
+        check(all(n == 0 for n in launched.values()), f"{arch} tiny: unexpected launches {launched}")
+        model, batch = res["model"], res["batch"]
+        runs = [summary(res, peak)]
+        del res
+        prof = decode_profile(out, 15, f"{arch}_tiny", model, batch)
+        report[f"{arch}_tiny"] = {"runs": runs, "decode_profile": prof}
+        del model, batch
+        free()
+    (out / "family_report.json").write_text(json.dumps(report, indent=1))
+    return launched_total
+
+
+def live_cuda_report(phase: str, dev) -> None:
+    """What still holds CUDA memory: the serving objects alive, and the
+    largest live CUDA tensors with what refers to them, two levels up (a
+    function's frame by the function's name; none: held only from C++)."""
+    import gc
+    import threading
+    import types
+
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+    from repro_torch.runtime import ContextRouter
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    objs = gc.get_objects()
+    alive: dict = {}
+    for o_ in objs:
+        for cls in (Model, serve.DecodeGraphs, ContextRouter, torch.cuda.CUDAGraph):
+            if isinstance(o_, cls):
+                alive[cls.__name__] = alive.get(cls.__name__, 0) + 1
+    live = sorted((o_ for o_ in objs if isinstance(o_, torch.Tensor) and o_.is_cuda),
+                  key=lambda t_: -t_.numel() * t_.element_size())
+    del objs
+    top = live[:6]
+    mine = {id(live), id(top), id(sys._getframe())}
+
+    def holders(o_):
+        return [r_ for r_ in gc.get_referrers(o_) if id(r_) not in mine]
+
+    def name(o_):
+        if isinstance(o_, dict):
+            return f"dict{sorted(map(str, o_))[:4]}"
+        if isinstance(o_, types.FunctionType):
+            return f"function {o_.__qualname__}"
+        if isinstance(o_, types.FrameType):
+            names = [k_ for k_, v_ in o_.f_locals.items() if v_ is t_]
+            return f"frame of {o_.f_code.co_name}{' (local ' + ', '.join(names) + ')' if names else ''}"
+        return type(o_).__name__
+
+    print(f"[{phase}] live CUDA memory: torch.cuda.memory_allocated "
+          f"{torch.cuda.memory_allocated(dev) / 1e9:.3f} GB, reserved "
+          f"{torch.cuda.memory_reserved(dev) / 1e9:.3f} GB; {len(live)} live CUDA tensors reachable from "
+          f"Python, {sum(t_.numel() * t_.element_size() for t_ in live) / 1e9:.3f} GB; serving objects "
+          f"alive {alive}; {threading.active_count()} threads")
+    for t_ in top:
+        hs = holders(t_)
+        mine.add(id(hs))
+        up = [f"{name(h_)} <- {[name(g_) for g_ in holders(h_)][:3]}" for h_ in hs[:3]]
+        print(f"[{phase}]   {tuple(t_.shape)} {t_.dtype} {t_.numel() * t_.element_size() / 1e9:.3f} GB, "
+              f"grad_fn {type(t_.grad_fn).__name__ if t_.grad_fn is not None else None}, held by "
+              f"{up or 'nothing in Python (C++ only)'}")
 
 
 def train_phases(out: Path, smi: str) -> dict:
@@ -467,6 +948,8 @@ def main(argv=None) -> int:
                     help="directory for the tuning DBs this run writes")
     ap.add_argument("--train-phases", action="store_true",
                     help="run phases 10-11 only (the child process the full run starts)")
+    ap.add_argument("--family-phases", action="store_true",
+                    help="run phases 12-15 only (the child process the full run starts)")
     args = ap.parse_args(argv)
 
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -482,6 +965,10 @@ def main(argv=None) -> int:
     if args.train_phases:
         launched = train_phases(Path(args.out), nvidia_smi())
         print(TRAIN_RESULT + json.dumps(launched))
+        return 0
+    if args.family_phases:
+        launched = family_phases(Path(args.out), nvidia_smi())
+        print(FAMILY_RESULT + json.dumps(launched))
         return 0
 
     import dataclasses
@@ -509,7 +996,10 @@ def main(argv=None) -> int:
     out.mkdir(parents=True, exist_ok=True)
     for name in ("tune.json", "tune_csa_nm.json", "pretune.json", "pretune.json.journal",
                  "pretune_analytic.json", "pretune_analytic.json.journal", "route.json",
-                 "train.json", "train_report.json", *(f"serve_{arch}.json" for arch, _, _ in SERVE)):
+                 "train.json", "train_report.json", "tune_encoder.json", "family_report.json",
+                 *(f"serve_{arch}.json" for arch, _, _ in SERVE),
+                 *(f"serve_{arch}.json" for arch in (SEAMLESS, MOONSHOT, QWEN)),
+                 *(f"serve_{arch}_tiny.json" for arch in FAMILY_TINY)):
         (out / name).unlink(missing_ok=True)
 
     # ---------------------------------------------------------- 1. device
@@ -1077,6 +1567,47 @@ def main(argv=None) -> int:
           f"{rg_row['plain']:.4f} ms, library {rg_row['library']:.4f} ms, bound "
           f"{rg_terms.bound_s * 1e3:.4f} ms by {rg_terms.dominant} "
           f"({rg_terms.bytes_accessed / 1e6:.1f} MB: inside the 50 MB L2, warm between repetitions)")
+    # the seamless encoder's flash call alone (the shape phase 12 serves):
+    # non-causal at head dim 64, at the default tiles and tuned (its own DB,
+    # after the main paths' counts were read), against its plain version
+    # at the default tiles, SDPA and its bound
+    eB, eS, eH, eKh, ehd = ENC_FA_SHAPE
+    eq = randn((eB, eS, eH, ehd), torch.bfloat16)
+    ek = randn((eB, eKh, eS, ehd), torch.bfloat16)
+    ev = randn((eB, eKh, eS, ehd), torch.bfloat16)
+    eq_bhsd = eq.transpose(1, 2)
+    e_def = get_spec("flash_attention").defaults(eq, ek, ev, causal=False)
+    e_want = fa.flash_attention_plain(eq_bhsd, ek, ev, causal=False, **e_def).transpose(1, 2)
+    e_label = f"flash_attention bf16 seamless encoder q{tuple(eq.shape)} kv{tuple(ek.shape)} causal=False"
+    got, design = ran(fa, lambda: ops.flash_attention(eq, ek, ev, causal=False, **e_def))
+    compare(f"{e_label} {e_def} ({design})", "flash_attention", got, e_want, phase=7)
+    check(design == "wgmma", f"the encoder-shape flash call at its default tiles ran {design}, not wgmma")
+    t0 = time.perf_counter()
+    e_rec = tune_call("flash_attention", eq, ek, ev, causal=False,
+                      db=TuningDB(str(out / "tune_encoder.json")))
+    check(e_rec is not None and math.isfinite(e_rec.cost), "tune_call at the encoder shape committed nothing")
+    print(f"[7] tune_call flash_attention at the encoder shape: point={e_rec.point} "
+          f"cost={e_rec.cost * 1e3:.4f}ms evals={e_rec.evals} ({time.perf_counter() - t0:.1f}s)")
+    got, e_design = ran(fa, lambda: ops.flash_attention(eq, ek, ev, causal=False, **e_rec.point))
+    compare(f"{e_label} tuned {e_rec.point} ({e_design}) vs the plain version at {e_def}",
+            "flash_attention", got, e_want, phase=7)
+    del got, e_want
+    e_terms = roofline("flash_attention", eq, ek, ev, causal=False)
+    enc = {"default": cuda_ms(lambda: ops.flash_attention(eq, ek, ev, causal=False, **e_def), 5),
+           "tuned": cuda_ms(lambda: ops.flash_attention(eq, ek, ev, causal=False, **e_rec.point), 5),
+           "plain": cuda_ms(lambda: fa.flash_attention_plain(eq_bhsd, ek, ev, causal=False, **e_def), 1),
+           "library": cuda_ms(lambda: F.scaled_dot_product_attention(eq_bhsd, ek, ev), 20),
+           "terms": e_terms, "knobs_default": e_def, "knobs": e_rec.point, "design": e_design}
+    times["flash_attention"]["encoder"] = enc
+    e_bound = e_terms.bound_s * 1e3
+    print(f"[7] flash_attention seamless encoder shape q{tuple(eq.shape)} kv{tuple(ek.shape)} "
+          f"causal=False: default {enc['default']:.4f} ms {e_def} (wgmma), tuned {enc['tuned']:.4f} ms "
+          f"{e_rec.point} ({e_design}), plain {enc['plain']:.4f} ms, SDPA {enc['library']:.4f} ms, bound "
+          f"{e_bound:.4f} ms by {e_terms.dominant} ({e_terms.flops / 1e9:.1f} GFLOP, "
+          f"{e_terms.bytes_accessed / 1e6:.1f} MB; bytes alone {e_terms.memory_s * 1e3:.4f} ms); "
+          f"{e_bound / enc['default']:.4f} of the bound at the default tiles, "
+          f"{enc['default'] / enc['library']:.2f}x SDPA")
+    del eq, ek, ev, eq_bhsd
     del a, b, q, k, v, k_exp, v_exp, q_bhsd, lru_a, lru_b, lru_h0, rr, rk, rv, rlw, ru, rs0
     del dq, dk, dv, dvalid, dk_exp, dv_exp, dmask, rg_args, rg_k_exp, rg_v_exp, small_da
     del call_args, lru_args, rwkv_args, da_args, timing
@@ -1087,143 +1618,38 @@ def main(argv=None) -> int:
     # in a child process, before serving: a full-width model's fp32 weights,
     # gradients and AdamW state need most of the card, and this process
     # keeps what its caching allocator holds until it exits
-    print(f"[7] before training: torch.cuda.memory_allocated {torch.cuda.memory_allocated(dev) / 1e9:.3f} GB, "
-          f"reserved {torch.cuda.memory_reserved(dev) / 1e9:.3f} GB")
-    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--train-phases", "--out", str(out)],
-                          capture_output=True, text=True, cwd=str(ROOT), timeout=TRAIN_TIMEOUT_S)
-    train_launches = None
-    for line in proc.stdout.splitlines():
-        if line.startswith(TRAIN_RESULT):
-            train_launches = json.loads(line[len(TRAIN_RESULT):])
-        else:
-            print(line)
-    if proc.returncode != 0 or train_launches is None:
-        print(proc.stderr[-6000:], file=sys.stderr)
-    check(proc.returncode == 0 and train_launches is not None,
-          f"the training phases failed (exit {proc.returncode})")
+    live_cuda_report("7", dev)
+
+    def child(flag: str, result: str, timeout: int, what: str) -> dict:
+        """Run this script as a child process for ``flag``; its output is
+        printed, its last line (``result`` + JSON) returned."""
+        proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), flag, "--out", str(out)],
+                              capture_output=True, text=True, cwd=str(ROOT), timeout=timeout)
+        got_ = None
+        for line in proc.stdout.splitlines():
+            if line.startswith(result):
+                got_ = json.loads(line[len(result):])
+            else:
+                print(line)
+        if proc.returncode != 0 or got_ is None:
+            print(proc.stderr[-6000:], file=sys.stderr)
+        check(proc.returncode == 0 and got_ is not None, f"the {what} failed (exit {proc.returncode})")
+        return got_
+
+    train_launches = child("--train-phases", TRAIN_RESULT, TRAIN_TIMEOUT_S, "training phases")
+
+    # ------------------------------ main path 5: the families served, 12-15
+    # a child process too: moonshot-v1-16b-a3b's weights alone are 56 GB
+    family_launches = child("--family-phases", FAMILY_RESULT, FAMILY_TIMEOUT_S, "family phases")
 
     # ------------------------------------------ main path 3: serving, 8-9
-    def trace_busy(fn, steps: int, name: str) -> tuple:
-        """(device-busy ms, kernel launches) per call of ``fn`` from a
-        ``torch.profiler`` trace of ``steps`` calls (the union of the kernel,
-        copy and memset intervals); the trace is kept, gzipped, in ``out``."""
-        import gzip
-
-        from torch.profiler import ProfilerActivity, profile
-
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(steps):
-                fn()
-            torch.cuda.synchronize()
-        path = out / f"trace_{name}.json"
-        prof.export_chrome_trace(str(path))
-        events = json.loads(path.read_text())["traceEvents"]
-        with gzip.open(f"{path}.gz", "wt") as fh:
-            json.dump(events, fh)
-        path.unlink()
-        spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
-                       if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e)
-        busy, end = 0.0, -math.inf
-        for t0_, t1_ in spans:
-            busy += max(0.0, t1_ - max(t0_, end))
-            end = max(end, t1_)
-        return busy / 1e3 / steps, len(spans) / steps
-
-    def decode_profile(phase, arch, model, batch) -> dict:
-        """Where one decode step's time goes, eager against a CUDA graph, and
-        the graph's greedy tokens against the eager loop's, from fresh
-        prefills of the served batch on the kernel path."""
-        P = batch["tokens"].shape[1]
-        B = batch["tokens"].shape[0]
-
-        def fresh():
-            h_, st_ = model.prefill(batch)
-            return model.logits(h_[:, None])[:, 0].argmax(-1)[:, None], st_
-
-        tok, st = fresh()
-        eager_toks, eager_logits = [], []
-        for i in range(DECODE_TOKENS):
-            lg, st = model.decode_step(tok, st, P + i)
-            tok = lg.argmax(-1)[:, None]
-            eager_toks.append(tok)
-            eager_logits.append(lg)
-        state = {"tok": tok, "st": st, "pos": P + DECODE_TOKENS}
-
-        def eager_step():
-            lg_, state["st"] = model.decode_step(state["tok"], state["st"], state["pos"])
-            state["tok"] = lg_.argmax(-1)[:, None]
-            state["pos"] += 1
-
-        walls = []
-        for _ in range(8):
-            torch.cuda.synchronize()
-            t0_ = time.perf_counter()
-            eager_step()
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0_) * 1e3)
-        busy, kernels = trace_busy(eager_step, 3, f"{arch}_eager")
-        del state, st, tok
-        gc.collect()
-
-        prof = {"eager_wall_ms": sorted(walls)[len(walls) // 2], "eager_wall_ms_min": min(walls),
-                "eager_wall_ms_max": max(walls), "eager_busy_ms": busy, "eager_kernels": kernels}
-        got = {}
-        for k in (1, 8):
-            tok, st = fresh()
-            graphs = serve.DecodeGraphs(model, tok, st, P)
-            del tok, st
-            t0_ = time.perf_counter()
-            run = graphs.build(k)
-            prof[f"capture_k{k}_s"] = time.perf_counter() - t0_
-            token, states, pos = graphs.token, graphs.states, graphs.pos
-            toks_, logits_ = [], []
-            for _ in range(DECODE_TOKENS // k):
-                token, states, pos, toks = run(token, states, pos)
-                toks_.append(toks.clone())
-                logits_.append(run.logits.clone())
-            got[k] = (torch.cat(toks_, dim=1), logits_)
-            if k == 8:
-                reps = []
-                for _ in range(4):
-                    torch.cuda.synchronize()
-                    t0_ = time.perf_counter()
-                    run(token, states, pos)
-                    torch.cuda.synchronize()
-                    reps.append((time.perf_counter() - t0_) * 1e3 / k)
-                gbusy, gkernels = trace_busy(lambda: run(token, states, pos), 1, f"{arch}_graph8")
-                prof.update(graph_step_ms=sorted(reps)[len(reps) // 2], graph_step_ms_min=min(reps),
-                            graph_step_ms_max=max(reps), graph_busy_ms=gbusy / k,
-                            graph_kernels=gkernels / k)
-            del run, graphs, token, states, pos
-            gc.collect()
-        eager_t = torch.cat(eager_toks, dim=1)
-        same = all(torch.equal(got[k][0], eager_t) for k in got)
-        mag = max(lg.float().abs().max().item() for lg in eager_logits)
-        dlog = max((g_.float() - e_.float()).abs().max().item()
-                   for g_, e_ in zip(got[1][1], eager_logits))
-        prof.update(tokens_equal=same, logits_max_abs_diff=dlog, logits_max_abs=mag,
-                    eager_tok_s=B * 1e3 / prof["eager_wall_ms"], graph_tok_s=B * 1e3 / prof["graph_step_ms"])
-        print(f"[{phase}] {arch} decode profile (batch {B}, position {P}+): eager step wall "
-              f"{prof['eager_wall_ms']:.2f} ms (min {prof['eager_wall_ms_min']:.2f}, max "
-              f"{prof['eager_wall_ms_max']:.2f}), device busy {busy:.3f} ms "
-              f"({busy / prof['eager_wall_ms']:.3f} of the step), {kernels:.0f} kernel launches a step; "
-              f"8-step graph replay {prof['graph_step_ms']:.3f} ms a step (min "
-              f"{prof['graph_step_ms_min']:.3f}, max {prof['graph_step_ms_max']:.3f}), device busy "
-              f"{prof['graph_busy_ms']:.3f} ms a step, {prof['graph_kernels']:.0f} kernels a step; "
-              f"captures {prof['capture_k1_s']:.2f} s (k=1) / {prof['capture_k8_s']:.2f} s (k=8); "
-              f"{prof['eager_tok_s']:.1f} -> {prof['graph_tok_s']:.1f} tok/s per step")
-        ok = same and dlog <= LOGITS_TOL * mag
-        print(f"[{phase}] {arch} first {DECODE_TOKENS} greedy tokens, eager vs 1-step and 8-step graphs: "
-              f"equal={same}; logits max |d| {dlog:.4e} (max |logit| {mag:.3f}, limit "
-              f"{LOGITS_TOL:g} x max |logit|) {'ok' if ok else 'FAIL'}")
-        check(ok, f"{arch}: decode through CUDA graphs differs from the eager loop")
-        return prof
-
     decode_profiles = {}
     serve_launches = {}
     plain_scan = {"lru_scan": ls.lru_scan_plain, "rwkv_scan": ls.rwkv_scan_plain}
-    for phase, (arch, scan, per_prefill) in enumerate(SERVE, start=8):
+
+    def serve_phase(phase, arch, scan, per_prefill):
+        """One served model (phases 8-9); every tensor it made dies with
+        its locals when it returns."""
         db_path = str(out / f"serve_{arch}.json")
         runs = []
         for run in (1, 2):
@@ -1316,7 +1742,7 @@ def main(argv=None) -> int:
         del res, h, h_first, h_bf16_plain, err_bf16, served_call, s_args
         gc.collect()
         torch.cuda.empty_cache()
-        decode_profiles[arch] = decode_profile(phase, arch, model, batch)
+        decode_profiles[arch] = decode_profile(out, phase, arch, model, batch)
         gc.collect()
         torch.cuda.empty_cache()
         model.cfg = dataclasses.replace(cfg, compute_dtype="float32")
@@ -1337,29 +1763,21 @@ def main(argv=None) -> int:
               f"decode tok/s {[round(r['decode_tok_s'], 1) for r in runs]} "
               f"(batch 8, prompt 2048, 64 new tokens; {smi})")
         del model, batch, hidden32, hk, hp
+
+    for phase, (arch, scan, per_prefill) in enumerate(SERVE, start=8):
+        serve_phase(phase, arch, scan, per_prefill)
         gc.collect()
         torch.cuda.empty_cache()  # free the first model before the second loads
 
     (out / "decode_profile.json").write_text(json.dumps(decode_profiles, indent=1))
     print(f"[9] serving launches: {serve_launches}")
 
-    # what serving leaves allocated (PERF.md §7): the largest live CUDA
-    # tensors and what refers to them
-    gc.collect()
-    torch.cuda.empty_cache()
-    live = sorted((o_ for o_ in gc.get_objects() if isinstance(o_, torch.Tensor) and o_.is_cuda),
-                  key=lambda t_: -t_.numel() * t_.element_size())
-    print(f"[9] after serving: torch.cuda.memory_allocated {torch.cuda.memory_allocated(dev) / 1e9:.3f} GB, "
-          f"reserved {torch.cuda.memory_reserved(dev) / 1e9:.3f} GB; {len(live)} live CUDA tensors reachable "
-          f"from Python, {sum(t_.numel() * t_.element_size() for t_ in live) / 1e9:.3f} GB")
-    for t_ in live[:5]:
-        refs = [type(r_).__name__ for r_ in gc.get_referrers(t_) if r_ is not live][:4]
-        print(f"[9]   {tuple(t_.shape)} {t_.dtype} {t_.numel() * t_.element_size() / 1e9:.3f} GB, "
-              f"referred to by {refs}")
-    del live
+    # what serving leaves allocated (PERF.md §7)
+    live_cuda_report("9", dev)
     main_launches = {n: tuning_launches[n] + route_launches[n] + serve_launches.get(n, 0)
-                     + train_launches[n] for n in names}
-    print(f"[11] training launches: {train_launches}; all main paths: {main_launches}; launches by "
+                     + train_launches[n] + family_launches[n] for n in names}
+    print(f"[11] training launches: {train_launches}; families' serving launches: {family_launches}; "
+          f"all main paths: {main_launches}; launches by "
           f"design since the start: matmul {mm.launches_by_design}, flash_attention {fa.launches_by_design}, "
           f"decode_attention {da.launches_by_design}, rwkv_scan {ls.launches_by_design}")
     for name, n in main_launches.items():
@@ -1387,7 +1805,8 @@ def main(argv=None) -> int:
                                  "pretune": phase_launches["pretune"][name],
                                  "route": route_launches[name],
                                  "serving": serve_launches.get(name, 0),
-                                 "train": train_launches[name]},
+                                 "train": train_launches[name],
+                                 "serving_families": family_launches[name]},
             "ms": row["tuned"], "ms_default": row["default"], "plain_ms": row["plain"],
             "bound_ms": terms.bound_s * 1e3, "bound_by": terms.dominant,
             "library_ms": row["library"],
@@ -1406,6 +1825,15 @@ def main(argv=None) -> int:
                          segments_serving_chunk4=row["segments"]["main_path"])
         if row["main_path"] is not None:
             entry["ms_serving_chunk4"] = row["main_path"]
+        if "encoder" in row:  # seamless's encoder call, non-causal at head dim 64
+            enc = row["encoder"]
+            entry["encoder_shape"] = {
+                "q": [eB, eS, eH, ehd], "kv": [eB, eKh, eS, ehd],
+                "causal": False, "design": enc["design"], "knobs": enc["knobs"],
+                "knobs_default": enc["knobs_default"], "ms": enc["tuned"], "ms_default": enc["default"],
+                "plain_ms": enc["plain"], "library_ms": enc["library"],
+                "bound_ms": enc["terms"].bound_s * 1e3, "bound_by": enc["terms"].dominant,
+                "launches_serving_families": family_launches[name]}
         if "rg_mqa" in row:  # recurrentgemma-2b's MQA decode, at its default knobs
             entry["ms_recurrentgemma_2b_mqa"] = row["rg_mqa"]["default"]
             entry["plain_ms_recurrentgemma_2b_mqa"] = row["rg_mqa"]["plain"]

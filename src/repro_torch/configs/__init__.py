@@ -1,11 +1,9 @@
-"""Architecture registry of the port: the configs ported so far.
+"""Architecture registry of the port: the JAX package's ten architectures.
 
 Each module is a copy of the JAX package's ``repro.configs.<id>``: ``CONFIG``
 (the published config) and ``tiny()`` (a reduced same-family config for CPU
 tests).  Select with ``--arch <id>`` (or the dashed name); ``get(name)`` /
-``get_tiny(name)`` here.  The other four architectures need block kinds the
-port does not run yet (``cross``, MoE, the encoder) and are listed in
-ROADMAP.md.
+``get_tiny(name)`` here.
 """
 from __future__ import annotations
 
@@ -16,22 +14,29 @@ from repro_torch.models.config import ModelConfig
 __all__ = ["ARCH_IDS", "ALIASES", "get", "get_tiny"]
 
 ARCH_IDS = [
+    "llama_3_2_vision_11b",
     "qwen2_7b",
     "starcoder2_15b",
     "qwen2_72b",
     "llama3_405b",
+    "seamless_m4t_large_v2",
     "rwkv6_7b",
+    "arctic_480b",
+    "moonshot_v1_16b_a3b",
     "recurrentgemma_2b",
 ]
 
 # canonical dashed names -> module ids
 ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}
+ALIASES.update({"llama-3.2-vision-11b": "llama_3_2_vision_11b",
+                "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
+                "seamless-m4t-large-v2": "seamless_m4t_large_v2"})
 
 
 def _module(name: str):
     key = ALIASES.get(name, name).replace("-", "_").replace(".", "_")
     if key not in ARCH_IDS:
-        raise KeyError(f"architecture {name!r} is not ported yet; ported: {ARCH_IDS}")
+        raise KeyError(f"unknown architecture {name!r}; known: {ARCH_IDS}")
     return importlib.import_module(f"repro_torch.configs.{key}")
 
 

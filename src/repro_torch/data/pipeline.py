@@ -48,12 +48,18 @@ class SyntheticLM:
 
 def make_batch_for(cfg, B: int, S: int, step: int = 0, seed: int = 0, *,
                    device="cuda") -> dict:
-    """A batch for ``cfg``.  The JAX package adds modality-stub inputs for the
-    encoder-decoder and VLM families (drawn from ``jax.random``); those
-    families are not ported yet."""
+    """A batch for ``cfg`` with the modality-stub inputs each family needs:
+    ``frames`` (encoder–decoder) or ``ctx_embeds`` (VLM), (B, ctx_tokens,
+    d_model) fp32 normals scaled by 0.1, drawn on ``device`` from a
+    ``torch.Generator`` seeded ``(seed << 8) ^ step`` (the JAX package draws
+    them from ``jax.random`` with that key: the same distribution, not the
+    same numbers)."""
+    base = SyntheticLM(cfg.vocab_size, S, B, seed, str(device)).batch(step)
     if cfg.is_encdec or cfg.family == "vlm":
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder and VLM inputs wait for the cross-attention "
-            "slice of the port (ROADMAP queue 4)"
-        )
-    return SyntheticLM(cfg.vocab_size, S, B, seed, str(device)).batch(step)
+        gen = torch.Generator(device=device).manual_seed((seed << 8) ^ step)
+        shape = (B, cfg.ctx_tokens, cfg.d_model)
+        if cfg.is_encdec:
+            base["frames"] = 0.1 * torch.randn(shape, generator=gen, device=device)
+        if cfg.family == "vlm":
+            base["ctx_embeds"] = 0.1 * torch.randn(shape, generator=gen, device=device)
+    return base

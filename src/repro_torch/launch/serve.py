@@ -14,7 +14,11 @@ layer, ``rwkv_scan`` in every RWKV layer) when ``rec_chunk`` divides the
 prompt length.  ``--device cpu`` runs the kernels' plain versions on the
 CPU (``interpret=True``); without a card and without ``--device cpu`` the
 launcher exits non-zero — there is no fallback.  Weights and the prompt
-come from ``torch.Generator`` seeds 0 and 1 on the device.
+come from ``torch.Generator`` seeds 0 and 1 on the device; an
+encoder–decoder model's ``frames`` and a VLM's ``ctx_embeds`` ((batch,
+ctx_tokens, d_model), 0.1 × normals, as the JAX launcher builds them) from
+seed 2.  An encoder–decoder prefill runs the encoder on the flash kernel
+(bidirectional, ``causal=False``).
 
 Decode is routed through a :class:`repro_torch.runtime.ContextRouter`: each
 (arch × batch × device) is its own tuning context, an ε-fraction of decode
@@ -57,6 +61,8 @@ __all__ = ["main", "serve", "replay_decode_k", "decode_extra", "DecodeGraphs", "
 
 #: candidate decode fusion depths (tokens emitted per dispatched call)
 DECODE_KS = (1, 2, 4, 8)
+#: per-layer state entries decode only reads (a cross block's context K/V)
+READ_ONLY = ("xk", "xv")
 
 
 def replay_decode_k(db, key, *, gen: int, default: int = 1) -> int:
@@ -99,8 +105,10 @@ class DecodeGraphs:
 
     The set holds the token (B, 1), the position (a 0-d int64 tensor) and
     the per-layer states: the attention rings are the live ones (decode
-    writes them in place), every recurrent state a compact copy made once
-    here.  :meth:`build` captures ``k`` decode steps and their argmaxes into
+    writes them in place), and so are a cross block's context K/V
+    (``xk``/``xv``, written at prefill and only read by decode: never
+    copied, not even for the warm-up), every recurrent state a compact copy
+    made once here.  :meth:`build` captures ``k`` decode steps and their argmaxes into
     one ``torch.cuda.CUDAGraph`` against that set, with the new recurrent
     states, the last token and the advanced position copied back into it
     inside the graph; every depth's graph shares the set, so depths can be
@@ -119,7 +127,8 @@ class DecodeGraphs:
         self.token = token.clone()
         self.pos = torch.tensor(pos, dtype=torch.int64, device=model.device)
         self.states = [
-            {name: (v if isinstance(v, dict) else v.clone(memory_format=torch.contiguous_format))
+            {name: (v if isinstance(v, dict) or name in READ_ONLY
+                    else v.clone(memory_format=torch.contiguous_format))
              for name, v in st.items()}
             for st in states
         ]
@@ -156,7 +165,8 @@ class DecodeGraphs:
         side = torch.cuda.Stream(device=dev)
         with DecodeGraphs._capture_lock, torch.cuda.device(dev), torch.cuda.stream(side):
             scratch = [
-                {name: ({n: t.clone() for n, t in v.items()} if isinstance(v, dict) else v.clone())
+                {name: ({n: t.clone() for n, t in v.items()} if isinstance(v, dict)
+                        else v if name in READ_ONLY else v.clone())
                  for name, v in st.items()}
                 for st in self.states
             ]
@@ -265,6 +275,10 @@ def _serve(args, device: torch.device) -> dict:
     gen = torch.Generator(device=device).manual_seed(1)
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, P), generator=gen, device=device),
              "max_len": max_len}
+    if cfg.is_encdec or cfg.family == "vlm":
+        gen.manual_seed(2)
+        ctx = 0.1 * torch.randn((B, cfg.ctx_tokens, cfg.d_model), generator=gen, device=device)
+        batch["frames" if cfg.is_encdec else "ctx_embeds"] = ctx
     out = {"model": model, "batch": batch, "db_hit": False}
 
     _sync(device)

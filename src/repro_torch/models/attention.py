@@ -1,7 +1,6 @@
-"""Attention: GQA/MQA/MHA, causal + sliding-window, KV cache.
+"""Attention: GQA/MQA/MHA, causal + sliding-window + cross, KV cache.
 
-Port of the JAX package's ``models/attention.py`` (self-attention; the
-cross-attention of encoder–decoder and VLM models waits for a later slice).
+Port of the JAX package's ``models/attention.py``.
 
 Cache layout (per attention instance):
     {"k": (B, Kh, W, hd), "v": (B, Kh, W, hd), "pos": (W,) int64}
@@ -14,7 +13,10 @@ the cache in place and returns the same dict.
 
 The plain path (:func:`_sdpa`) is einsum + softmax in fp32, which the JAX
 package leaves to XLA.  Under ``attn_impl="cuda"``, full-sequence attention
-without a cache and without a window runs the ported flash kernel.
+without a cache and without a window runs the ported flash kernel: the
+training forward pass (causal) and the encoder of encoder–decoder models
+(``causal=False``).  Cross-attention reads K/V precomputed from the context
+(:func:`cross_kv`) through the plain path, unmasked and without rope.
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ from repro_torch.kernels import ops as kops
 from .config import ExecConfig, ModelConfig
 from .layers import Init, linear_apply, linear_init, rope_apply
 
-__all__ = ["attn_init", "attn_apply", "init_attn_cache"]
+__all__ = ["attn_init", "attn_apply", "init_attn_cache", "cross_kv"]
 
 NEG_INF = -1e30
 
@@ -86,6 +88,14 @@ def _sdpa_flash(q, k, v, *, causal: bool, exec_cfg: ExecConfig) -> torch.Tensor:
                                 block_kv=exec_cfg.block_kv, interpret=exec_cfg.interpret)
 
 
+def cross_kv(cfg: ModelConfig, p: dict, ctx: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-attention K/V (B, Kh, N, hd) from context embeddings (B, N, D)."""
+    B, N, _ = ctx.shape
+    k = linear_apply(p["wk"], ctx).reshape(B, N, cfg.n_kv_heads, cfg.d_head)
+    v = linear_apply(p["wv"], ctx).reshape(B, N, cfg.n_kv_heads, cfg.d_head)
+    return k.transpose(1, 2), v.transpose(1, 2)
+
+
 def attn_apply(
     cfg: ModelConfig,
     p: dict,
@@ -93,24 +103,35 @@ def attn_apply(
     *,
     q_pos: torch.Tensor,  # (Sq,) absolute positions of the query tokens
     cache: Optional[dict] = None,
+    kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # cross-attn K/V
     causal: bool = True,
     window: int = 0,
+    rope: bool = True,
     exec_cfg: ExecConfig = ExecConfig(),
 ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """Self-attention with an optional KV cache.
+    """Self- or cross-attention with an optional KV cache.
 
     Modes:
-      * train/encode: ``cache=None`` — full-sequence self-attention.
+      * train/encode: ``cache=None, kv=None`` — full-sequence self-attention.
       * prefill:      ``cache=empty``, Sq > 1 — fills the cache.
       * decode:       ``cache=filled``, Sq = 1 — appends one step.
+      * cross:        ``kv=(k,v)`` precomputed from context; no cache update.
     """
     B, Sq, D = x.shape
     H, Kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     q = linear_apply(p["wq"], x).reshape(B, Sq, H, hd)
+
+    if kv is not None:  # ---------------------------------------- cross-attn
+        k, v = kv
+        mask = torch.ones((Sq, k.shape[2]), dtype=torch.bool, device=x.device)
+        out = _sdpa(q, k, v, mask)
+        return linear_apply(p["wo"], out.reshape(B, Sq, H * hd)), cache
+
     kc = linear_apply(p["wk"], x).reshape(B, Sq, Kh, hd)
     vc = linear_apply(p["wv"], x).reshape(B, Sq, Kh, hd)
-    q = rope_apply(q, q_pos, cfg.rope_theta)
-    kc = rope_apply(kc, q_pos, cfg.rope_theta)
+    if rope:
+        q = rope_apply(q, q_pos, cfg.rope_theta)
+        kc = rope_apply(kc, q_pos, cfg.rope_theta)
     kc = kc.transpose(1, 2)  # (B,Kh,Sq,hd)
     vc = vc.transpose(1, 2)
 

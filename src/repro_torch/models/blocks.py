@@ -1,15 +1,15 @@
 """Block kinds: init / state-init / apply, dispatched by kind string.
 
-Port of the JAX package's ``models/blocks.py`` for the kinds ``attn``,
-``rglru`` and ``rwkv``.  ``cross`` (cross-attention) and the MoE FFN wait
-for a later slice and raise ``NotImplementedError``.  Every apply shares
-the signature::
+Port of the JAX package's ``models/blocks.py``.  Every apply shares the
+signature::
 
-    apply_block(kind, cfg, p, x, st, *, q_pos, causal, exec_cfg) -> (x, new_state)
+    apply_block(kind, cfg, p, x, st, *, q_pos, ctx, mode, causal, exec_cfg)
+        -> (x, new_state, aux_loss)
 
 ``st`` is the block's cache/state ({} for stateless full-sequence
-attention).  The JAX package's MoE auxiliary loss has no counterpart until
-the MoE FFN is ported.
+attention); ``ctx`` is the cross-attention context embeddings (B, N, D)
+when present; ``aux_loss`` is the MoE router's (a 0-d fp32 zero for the
+dense FFNs and the recurrent kinds).
 """
 from __future__ import annotations
 
@@ -17,22 +17,28 @@ from typing import Optional, Tuple
 
 import torch
 
-from .attention import attn_apply, attn_init, init_attn_cache
+from .attention import attn_apply, attn_init, cross_kv, init_attn_cache
 from .config import ExecConfig, ModelConfig
 from .layers import Init, ffn_apply, ffn_init, norm_apply, norm_init
+from .moe import moe_apply, moe_init
 from .rglru import init_rglru_state, rglru_apply, rglru_init
 from .rwkv6 import init_rwkv_state, rwkv_apply, rwkv_init
 
 __all__ = ["init_block", "init_block_state", "apply_block", "BLOCK_KINDS"]
 
-BLOCK_KINDS = ("attn", "rwkv", "rglru")
+BLOCK_KINDS = ("attn", "cross", "rwkv", "rglru")
 
 
-def _unported(kind: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"block kind {kind!r} waits for a later slice of the port (cross-attention / "
-        "encoder-decoder and VLM models)"
-    )
+def _ffn_params(ini: Init, cfg: ModelConfig) -> dict:
+    if cfg.ffn == "moe":
+        return moe_init(ini, cfg)
+    return ffn_init(ini, cfg.ffn, cfg.d_model, cfg.d_ff)
+
+
+def _apply_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor):
+    if cfg.ffn == "moe":
+        return moe_apply(cfg, p, x)
+    return ffn_apply(cfg.ffn, p, x), torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def init_block(ini: Init, kind: str, cfg: ModelConfig) -> dict:
@@ -42,7 +48,16 @@ def init_block(ini: Init, kind: str, cfg: ModelConfig) -> dict:
             "norm1": norm_init(ini, cfg.norm, d),
             "attn": attn_init(ini, cfg),
             "norm2": norm_init(ini, cfg.norm, d),
-            "ffn": ffn_init(ini, cfg.ffn, d, cfg.d_ff),
+            "ffn": _ffn_params(ini, cfg),
+        }
+    if kind == "cross":
+        return {
+            "norm1": norm_init(ini, cfg.norm, d),
+            "attn": attn_init(ini, cfg),
+            "normx": norm_init(ini, cfg.norm, d),
+            "xattn": attn_init(ini, cfg),
+            "norm2": norm_init(ini, cfg.norm, d),
+            "ffn": _ffn_params(ini, cfg),
         }
     if kind == "rwkv":
         return rwkv_init(ini, cfg)
@@ -53,25 +68,29 @@ def init_block(ini: Init, kind: str, cfg: ModelConfig) -> dict:
             "norm2": norm_init(ini, cfg.norm, d),
             "ffn": ffn_init(ini, cfg.ffn if cfg.ffn != "moe" else "geglu", d, cfg.d_ff),
         }
-    if kind == "cross":
-        raise _unported(kind)
     raise ValueError(f"unknown block kind {kind}")
 
 
 def init_block_state(kind: str, cfg: ModelConfig, batch: int, max_len: int, mode: str, *,
                      window: int, device) -> dict:
     """State/cache for one block instance.  Train mode: only recurrent kinds
-    carry state (zero-init); attention needs none."""
-    if kind == "attn":
+    carry state (zero-init); attention needs none.  A cross block also holds
+    the context's K/V (``xk``, ``xv``), written at prefill and read by
+    every decode step."""
+    if kind in ("attn", "cross"):
         if mode == "train":
             return {}
-        return {"kv": init_attn_cache(cfg, batch, max_len, window=window, device=device)}
+        st = {"kv": init_attn_cache(cfg, batch, max_len, window=window, device=device)}
+        if kind == "cross":
+            shape = (batch, cfg.n_kv_heads, cfg.ctx_tokens, cfg.d_head)
+            dt = getattr(torch, cfg.compute_dtype)
+            st["xk"] = torch.zeros(shape, dtype=dt, device=device)
+            st["xv"] = torch.zeros(shape, dtype=dt, device=device)
+        return st
     if kind == "rwkv":
         return init_rwkv_state(cfg, batch, device)
     if kind == "rglru":
         return init_rglru_state(cfg, batch, device)
-    if kind == "cross":
-        raise _unported(kind)
     raise ValueError(f"unknown block kind {kind}")
 
 
@@ -83,22 +102,41 @@ def apply_block(
     st: Optional[dict],
     *,
     q_pos: torch.Tensor,
+    ctx: Optional[torch.Tensor],
+    mode: str,
     causal: bool,
     exec_cfg: ExecConfig,
-) -> Tuple[torch.Tensor, dict]:
+) -> Tuple[torch.Tensor, dict, torch.Tensor]:
     st = st or {}
-    if kind == "attn":
+    if kind in ("attn", "cross"):
         h, new_kv = attn_apply(
             cfg, p["attn"], norm_apply(cfg.norm, p["norm1"], x), q_pos=q_pos,
             cache=st.get("kv"), causal=causal, window=cfg.window, exec_cfg=exec_cfg,
         )
         x = x + h
         new_st = {"kv": new_kv} if new_kv is not None else {}
-        h = ffn_apply(cfg.ffn, p["ffn"], norm_apply(cfg.norm, p["norm2"], x))
-        return x + h, new_st
+        if kind == "cross":
+            # decode reads the K/V prefill stored; prefill and train compute
+            # them, and prefill writes them into the state in place
+            xkv = (st["xk"], st["xv"]) if mode == "decode" else cross_kv(cfg, p["xattn"], ctx)
+            if mode == "prefill" and st["xk"].shape == xkv[0].shape:
+                st["xk"].copy_(xkv[0])
+                st["xv"].copy_(xkv[1])
+                xkv = (st["xk"], st["xv"])
+            h, _ = attn_apply(
+                cfg, p["xattn"], norm_apply(cfg.norm, p["normx"], x), q_pos=q_pos, kv=xkv,
+                causal=False, rope=False, exec_cfg=exec_cfg,
+            )
+            x = x + h
+            if mode != "train":
+                new_st["xk"], new_st["xv"] = xkv
+        h, aux = _apply_ffn(cfg, p["ffn"], norm_apply(cfg.norm, p["norm2"], x))
+        return x + h, new_st, aux
 
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind == "rwkv":
-        return rwkv_apply(cfg, p, x, st, exec_cfg=exec_cfg)
+        y, new_st = rwkv_apply(cfg, p, x, st, exec_cfg=exec_cfg)
+        return y, new_st, zero
 
     if kind == "rglru":
         h, new_st = rglru_apply(cfg, p["rec"], norm_apply(cfg.norm, p["norm1"], x), st,
@@ -106,8 +144,6 @@ def apply_block(
         x = x + h
         h = ffn_apply(cfg.ffn if cfg.ffn != "moe" else "geglu", p["ffn"],
                       norm_apply(cfg.norm, p["norm2"], x))
-        return x + h, new_st
+        return x + h, new_st, zero
 
-    if kind == "cross":
-        raise _unported(kind)
     raise ValueError(f"unknown block kind {kind}")

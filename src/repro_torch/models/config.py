@@ -1,9 +1,8 @@
 """Model configuration — a copy of the JAX package's ``models/config.py``.
 
 ``ModelConfig`` is the same dataclass (derived properties and analytic
-parameter counts), so a config module reads the same in both packages, less
-``capacity_factor`` and ``ctx_tokens``, which wait for the MoE and VLM
-slices.  ``param_dtype`` is the dtype of the trainable model's master
+parameter counts), so a config module reads the same in both packages.
+``param_dtype`` is the dtype of the trainable model's master
 weights; the serving model stores each weight in the dtype the JAX model
 uses it in (see ``model.py``).  A model is a stack of *blocks* arranged as
 ``group * n_groups + tail``; the port runs them as one ``nn.ModuleList`` in
@@ -14,9 +13,9 @@ pattern order.  Block kinds:
   * ``rwkv``  — RWKV-6 time-mix + channel-mix (attention-free)
   * ``rglru`` — Griffin recurrent block (conv1d + RG-LRU) + FFN
 
-FFN kinds: ``swiglu`` / ``geglu`` / ``gelu`` / ``moe``.  The port runs
-``attn``, ``rwkv`` and ``rglru`` with the dense FFNs; ``cross``, ``moe`` and
-the encoder stack wait for a later slice.
+FFN kinds: ``swiglu`` / ``geglu`` / ``gelu`` / ``moe`` (capacity-factor
+dispatch, optional dense residual — Arctic).  Encoder–decoder models add an
+encoder stack of bidirectional ``attn`` blocks (seamless).
 
 ``ExecConfig`` keeps the knobs the port reads.  The kernel option is
 ``attn_impl="cuda"`` (the JAX package's ``"pallas"``); ``interpret=True``
@@ -58,11 +57,13 @@ class ModelConfig:
     top_k: int = 0
     d_ff_expert: int = 0
     moe_dense_residual: bool = False  # Arctic: dense FFN in parallel with MoE
+    capacity_factor: float = 1.25  # PATSMA-tunable
     # --- recurrence (rglru) ---
     d_rnn: int = 0  # 0 -> d_model
     conv_width: int = 4
     # --- encoder-decoder / cross-attention context ---
     enc_layers: int = 0  # >0 -> encoder-decoder (seamless)
+    ctx_tokens: int = 0  # default context length (vlm image tokens / enc frames)
     # --- numerics ---
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"

@@ -5,7 +5,11 @@ any kind that ``numpy.asarray`` reads) and returns a state dict for
 :class:`repro_torch.models.Model`.  The JAX model stacks each repeating
 group's parameters on axis 0 (``stages[s]["pos<i>"]``, run under
 ``lax.scan``); the port has one module per layer in pattern order, so each
-stage is unstacked group by group.  Loading the result with
+stage is unstacked group by group.  The encoder of an encoder–decoder model
+(``encoder.stages[0].pos0``, ``enc_layers`` stacked ``attn`` blocks, and
+``encoder.norm``) unstacks the same way into ``encoder.<i>`` and
+``encoder_norm``; the MoE leaves (router (d, E), experts ``wi``/``wg`` (E,
+d, f) and ``wo`` (E, f, d)) are ordinary leaves of a layer.  Loading the result with
 ``Model.load_state_dict`` casts each weight to the dtype the port stores it
 in, which rounds exactly as the JAX model's cast at use does; a
 ``TrainModel`` keeps the fp32 masters as they are, with no rounding.
@@ -46,8 +50,6 @@ def _flatten(tree: dict, prefix: str, out: Dict[str, torch.Tensor], index=None) 
 
 def params_from_jax(cfg: ModelConfig, params: dict) -> Dict[str, torch.Tensor]:
     """State dict of the port's ``Model(cfg)`` holding the JAX parameters."""
-    if cfg.is_encdec or "encoder" in params:
-        raise NotImplementedError("encoder-decoder models wait for a later slice of the port")
     sd: Dict[str, torch.Tensor] = {}
     _flatten({"table": params["embed"]["table"]}, "embedding.", sd)
     _flatten(params["final_norm"], "final_norm.", sd)
@@ -61,4 +63,9 @@ def params_from_jax(cfg: ModelConfig, params: dict) -> Dict[str, torch.Tensor]:
                 layer += 1
     if layer != cfg.n_layers:
         raise ValueError(f"{cfg.name}: unstacked {layer} layers, config has {cfg.n_layers}")
+    if cfg.is_encdec:
+        (enc,) = params["encoder"]["stages"]
+        for i in range(cfg.enc_layers):
+            _flatten(enc["pos0"], f"encoder.{i}.", sd, index=i)
+        _flatten(params["encoder"]["norm"], "encoder_norm.", sd)
     return sd

@@ -128,8 +128,6 @@ def ffn_init(ini: Init, kind: str, d: int, d_ff: int) -> dict:
             "wo": ini.nrm((d_ff, d), 1.0 / math.sqrt(d_ff)),
             "bo": ini.zeros((d,)),
         }
-    if kind == "moe":
-        raise NotImplementedError("the MoE FFN waits for the MoE slice of the port (models/moe.py)")
     raise ValueError(f"unknown ffn kind {kind}")
 
 

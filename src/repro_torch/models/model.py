@@ -1,26 +1,31 @@
 """Model: embeddings → block stack → LM head, as an ``nn.Module``.
 
-Port of the JAX package's ``models/model.py`` for decoder-only models made
-of ``attn``, ``rglru`` and ``rwkv`` blocks.  Where the JAX package stacks
-each repeating group's parameters and runs the group under ``lax.scan``,
-the port keeps one block per layer in an ``nn.ModuleList`` in pattern order
-(``cfg.pattern``); :func:`repro_torch.models.convert.params_from_jax`
-unstacks JAX parameters into that order.  The encoder and the VLM context
-wait for a later slice and raise ``NotImplementedError``.
+Port of the JAX package's ``models/model.py``: dense and MoE decoders,
+RWKV-6, the Griffin hybrid, the seamless encoder–decoder (audio frontend
+stubbed as precomputed frame embeddings, ``batch["frames"]``) and the
+llama-3.2 vision backbone (patch embeddings stubbed, ``batch["ctx_embeds"]``;
+the cross-attention layers are real).  Where the JAX package stacks each
+repeating group's parameters and runs the group under ``lax.scan``, the
+port keeps one block per layer in an ``nn.ModuleList`` in pattern order
+(``cfg.pattern``), and the encoder's ``enc_layers`` bidirectional ``attn``
+blocks in a second one; :func:`repro_torch.models.convert.params_from_jax`
+unstacks JAX parameters into that order.
 
 Weights.  The JAX model keeps fp32 parameters and casts most of them to the
 compute dtype at each use.  The port stores exactly those weights in the
 compute dtype (the rounding is the one the cast makes, so the numbers are
 the same, and a decode step does not re-read fp32 copies) and keeps the
-rest in fp32: the norms, the RG-LRU gates (``wa``, ``ba``, ``wi``, ``bi``,
-``lam``) and the RWKV decay and bonus (``w0``, ``w1``, ``w2``, ``u``).
+rest in fp32: the norms, the MoE router, the RG-LRU gates (``wa``, ``ba``,
+``wi``, ``bi``, ``lam``) and the RWKV decay and bonus (``w0``, ``w1``,
+``w2``, ``u``).
 Parameters are drawn from an explicit ``torch.Generator`` on the model's
 device, which is the card unless the caller asks for the CPU.
 
 Training.  :class:`TrainModel` is the trainable form: every weight is an
 fp32 master (``cfg.param_dtype``) that requires grad and is cast at use, as
 in the JAX model, and ``forward`` builds the autograd graph and returns
-``(hidden, aux)`` like the JAX ``Model.forward`` (aux is 0: no MoE yet).
+``(hidden, aux)`` like the JAX ``Model.forward`` (aux: the MoE layers'
+summed router loss, 0 without them).
 The same seed draws the same numbers in both forms; the serving form keeps
 the cast of them.
 """
@@ -37,8 +42,9 @@ from .layers import Init, embed_init, norm_apply, norm_init
 
 __all__ = ["Model", "TrainModel", "ParamTree", "keeps_fp32"]
 
-_NORMS = ("norm1", "norm2", "ln1", "ln2", "final_norm")
-_FP32_AT_USE = {"rec": ("wa", "ba", "wi", "bi", "lam"), "tm": ("w0", "w1", "w2", "u")}
+_NORMS = ("norm1", "norm2", "normx", "ln1", "ln2", "final_norm", "encoder_norm")
+_FP32_AT_USE = {"rec": ("wa", "ba", "wi", "bi", "lam"), "tm": ("w0", "w1", "w2", "u"),
+                "ffn": ("router",)}
 
 
 def keeps_fp32(path: Tuple[str, ...]) -> bool:
@@ -82,10 +88,6 @@ class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, exec_cfg: ExecConfig = ExecConfig(), *,
                  device="cuda", seed: int = 0):
         super().__init__()
-        if cfg.is_encdec or cfg.family == "vlm":
-            raise NotImplementedError(
-                f"{cfg.name}: encoder-decoder and VLM models wait for a later slice of the port"
-            )
         self.cfg = cfg
         self.exec_cfg = exec_cfg
         self.device = torch.device(device)
@@ -102,6 +104,12 @@ class Model(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = ParamTree({"w": ini.nrm((cfg.d_model, cfg.padded_vocab),
                                                    cfg.d_model ** -0.5)}, dt, master=m)
+        if cfg.is_encdec:  # same dims; bidirectional attn blocks
+            self.encoder = nn.ModuleList(
+                ParamTree(init_block(ini, "attn", cfg), dt, master=m) for _ in range(cfg.enc_layers)
+            )
+            self.encoder_norm = ParamTree(norm_init(ini, cfg.norm, cfg.d_model), dt,
+                                          ("encoder_norm",), m)
 
     # ------------------------------------------------------------- plumbing
     def _layer_trees(self) -> list:
@@ -111,21 +119,28 @@ class Model(nn.Module):
     def compute_dtype(self) -> torch.dtype:
         return getattr(torch, self.cfg.compute_dtype)
 
-    def _run_stack(self, x, states, *, q_pos, causal):
+    def _run_stack(self, kinds, layers, x, states, *, q_pos, ctx, mode, causal):
+        """Blocks ``kinds`` with parameters ``layers`` in turn; returns (x,
+        new states, the summed aux loss)."""
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
         new_states = []
-        for kind, p, st in zip(self.cfg.pattern, self._layer_trees(), states):
-            x, st = apply_block(kind, self.cfg, p, x, st, q_pos=q_pos, causal=causal,
-                                exec_cfg=self.exec_cfg)
+        for kind, layer, st in zip(kinds, layers, states):
+            x, st, a = apply_block(kind, self.cfg, layer.tree(), x, st, q_pos=q_pos, ctx=ctx,
+                                   mode=mode, causal=causal, exec_cfg=self.exec_cfg)
             new_states.append(st)
-        return x, new_states
+            aux = aux + a
+        return x, new_states, aux
 
-    def init_states(self, batch: int, max_len: int, mode: str) -> list:
-        """Per-layer states in pattern order ({} for stateless attention)."""
+    def _init_states_for(self, kinds, batch: int, max_len: int, mode: str) -> list:
         return [
             init_block_state(kind, self.cfg, batch, max_len, mode, window=self.cfg.window,
                              device=self.device)
-            for kind in self.cfg.pattern
+            for kind in kinds
         ]
+
+    def init_states(self, batch: int, max_len: int, mode: str) -> list:
+        """Per-layer states in pattern order ({} for stateless attention)."""
+        return self._init_states_for(self.cfg.pattern, batch, max_len, mode)
 
     # ------------------------------------------------------------ embeddings
     def embed(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -140,18 +155,45 @@ class Model(nn.Module):
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         return x @ self.head_weights().to(x.dtype)
 
+    # --------------------------------------------------------------- encoder
+    def encode(self, frames: torch.Tensor) -> torch.Tensor:
+        """frames: (B, S_enc, D) precomputed embeddings (modality stub).
+        Bidirectional attention over the whole sequence: under
+        ``attn_impl="cuda"`` every layer runs the flash kernel, non-causal."""
+        B, S = frames.shape[:2]
+        kinds = ("attn",) * self.cfg.enc_layers
+        x = frames.to(self.compute_dtype)
+        states = self._init_states_for(kinds, B, S, mode="train")
+        x, _, _ = self._run_stack(kinds, self.encoder, x, states,
+                                  q_pos=torch.arange(S, device=self.device), ctx=None,
+                                  mode="train", causal=False)
+        return norm_apply(self.cfg.norm, self.encoder_norm.tree(), x)
+
+    def _context(self, batch: dict) -> Optional[torch.Tensor]:
+        if self.cfg.is_encdec:
+            return self.encode(batch["frames"])
+        if self.cfg.family == "vlm":
+            return batch["ctx_embeds"].to(self.compute_dtype)
+        return None
+
     # ----------------------------------------------------------------- modes
-    @torch.no_grad()
-    def forward(self, batch: dict) -> torch.Tensor:
-        """Teacher-forced full-sequence pass.  batch["tokens"]: (B,S).
-        Returns the final-normed hidden states (B,S,D); logits via
-        :meth:`logits`."""
+    def _forward(self, batch: dict) -> Tuple[torch.Tensor, torch.Tensor]:
         tokens = batch["tokens"]
         B, S = tokens.shape
+        ctx = self._context(batch)
         x = self.embed(tokens)
         states = self.init_states(B, S, mode="train")
-        x, _ = self._run_stack(x, states, q_pos=torch.arange(S, device=self.device), causal=True)
-        return norm_apply(self.cfg.norm, self.final_norm.tree(), x)
+        x, _, aux = self._run_stack(self.cfg.pattern, self.layers, x, states,
+                                    q_pos=torch.arange(S, device=self.device), ctx=ctx,
+                                    mode="train", causal=True)
+        return norm_apply(self.cfg.norm, self.final_norm.tree(), x), aux
+
+    @torch.no_grad()
+    def forward(self, batch: dict) -> torch.Tensor:
+        """Teacher-forced full-sequence pass.  batch["tokens"]: (B,S), plus
+        ``frames`` (encoder–decoder) or ``ctx_embeds`` (VLM).  Returns the
+        final-normed hidden states (B,S,D); logits via :meth:`logits`."""
+        return self._forward(batch)[0]
 
     @torch.no_grad()
     def prefill(self, batch: dict) -> Tuple[torch.Tensor, list]:
@@ -159,10 +201,12 @@ class Model(nn.Module):
         tokens = batch["tokens"]
         B, S = tokens.shape
         max_len = batch.get("max_len", S)
+        ctx = self._context(batch)
         x = self.embed(tokens)
         states = self.init_states(B, max_len, mode="prefill")
-        x, states = self._run_stack(x, states, q_pos=torch.arange(S, device=self.device),
-                                    causal=True)
+        x, states, _ = self._run_stack(self.cfg.pattern, self.layers, x, states,
+                                       q_pos=torch.arange(S, device=self.device), ctx=ctx,
+                                       mode="prefill", causal=True)
         x = norm_apply(self.cfg.norm, self.final_norm.tree(), x[:, -1:])
         return x[:, 0], states
 
@@ -180,7 +224,8 @@ class Model(nn.Module):
             q_pos = pos.reshape(1)
         else:
             q_pos = torch.arange(pos, pos + 1, device=self.device)
-        x, states = self._run_stack(x, states, q_pos=q_pos, causal=True)
+        x, states, _ = self._run_stack(self.cfg.pattern, self.layers, x, states, q_pos=q_pos,
+                                       ctx=None, mode="decode", causal=True)
         x = norm_apply(self.cfg.norm, self.final_norm.tree(), x)
         return self.logits(x)[:, 0], states
 
@@ -199,12 +244,7 @@ class TrainModel(Model):
 
     def forward(self, batch: dict) -> Tuple[torch.Tensor, torch.Tensor]:
         """Teacher-forced full-sequence pass that builds the autograd graph.
-        batch["tokens"]: (B,S).  Returns (hidden (B,S,D), aux loss) like the
-        JAX ``Model.forward``; aux is a 0-d fp32 zero (no MoE block yet)."""
-        tokens = batch["tokens"]
-        B, S = tokens.shape
-        x = self.embed(tokens)
-        states = self.init_states(B, S, mode="train")
-        x, _ = self._run_stack(x, states, q_pos=torch.arange(S, device=self.device), causal=True)
-        x = norm_apply(self.cfg.norm, self.final_norm.tree(), x)
-        return x, torch.zeros((), dtype=torch.float32, device=self.device)
+        batch["tokens"]: (B,S) (plus the context inputs).  Returns (hidden
+        (B,S,D), aux loss) like the JAX ``Model.forward``: aux is the MoE
+        layers' summed router loss, a 0-d fp32 tensor (0 without them)."""
+        return self._forward(batch)

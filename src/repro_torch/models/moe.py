@@ -1,0 +1,115 @@
+"""Mixture-of-Experts FFN: top-k routing, capacity-factor scatter dispatch.
+
+Port of the JAX package's ``models/moe.py``.  Tokens are scattered into an
+(E, C, D) buffer (not the (T, E, C) one-hot einsum), the experts' SwiGLU
+runs batched over E, and the outputs are gathered back and summed with the
+renormalised gates.  Assignments beyond an expert's capacity ``C`` are
+dropped; ``capacity_factor`` is a PATSMA-tunable.  Decode and other small
+batches (T·K <= 8192) run drop-free with C = T·K.
+
+Everything is shape-static: C comes from the shapes on the host, and the
+dispatch has no ``nonzero``, boolean indexing or host read, so a decode
+step with an MoE FFN can be captured as a CUDA graph.  Dropped assignments
+all land on slot C - 1 with zero contributions, so the scatter accumulates
+(``index_add_``): adding zeros is exact in any order, and a kept token
+that shares the slot keeps its value.
+
+Arctic variant (``moe_dense_residual``): a dense SwiGLU FFN runs in parallel
+with the MoE and the outputs add.  The Switch load-balance aux loss is
+returned for training.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from .config import ModelConfig
+from .layers import Init, ffn_apply, ffn_init
+
+__all__ = ["moe_init", "moe_apply", "capacity", "route"]
+
+#: token-slot assignments up to which dispatch is drop-free (C = T·K)
+DROP_FREE_ASSIGNMENTS = 8192
+
+
+def moe_init(ini: Init, cfg: ModelConfig) -> dict:
+    d, f, e = cfg.d_model, cfg.d_ff_expert, cfg.n_experts
+    p = {
+        "router": ini.nrm((d, e), 1.0 / math.sqrt(d)),
+        "wi": ini.nrm((e, d, f), 1.0 / math.sqrt(d)),
+        "wg": ini.nrm((e, d, f), 1.0 / math.sqrt(d)),
+        "wo": ini.nrm((e, f, d), 1.0 / math.sqrt(f)),
+    }
+    if cfg.moe_dense_residual:
+        p["dense"] = ffn_init(ini, "swiglu", d, cfg.d_ff)
+    return p
+
+
+def capacity(cfg: ModelConfig, tokens: int) -> int:
+    """Slots per expert for ``tokens`` tokens: ceil(T·K/E·cf), or T·K when
+    that is at most :data:`DROP_FREE_ASSIGNMENTS`."""
+    assignments = tokens * cfg.top_k
+    if assignments <= DROP_FREE_ASSIGNMENTS:
+        return assignments
+    return int(math.ceil(assignments / cfg.n_experts * cfg.capacity_factor))
+
+
+def route(cfg: ModelConfig, p: dict, xt: torch.Tensor) -> dict:
+    """Routing of tokens xt (T, D), in fp32: the renormalised top-k gates
+    and experts (T, K), the aux loss, and each assignment's expert, slot
+    and whether it is kept (T·K, in token-major, slot-minor order)."""
+    T = xt.shape[0]
+    E, K = cfg.n_experts, cfg.top_k
+    logits = xt.float() @ p["router"].float()  # (T,E)
+    probs = torch.softmax(logits, dim=-1)
+    gate, eidx = torch.topk(probs, K, dim=-1)  # (T,K), descending
+    gate = gate / gate.sum(dim=-1, keepdim=True)
+
+    # Switch load-balance aux loss: E * mean(f_e * P_e)
+    me = probs.mean(dim=0)
+    ce = F.one_hot(eidx, E).float().sum(dim=1).mean(dim=0)
+    aux = E * (me * ce).sum()
+
+    C = capacity(cfg, T)
+    flat_e = eidx.reshape(T * K)
+    # running count per expert along the assignments, scanned expert-major
+    # (E, T·K): a scan along the inner dim, where a (T·K, E) scan along the
+    # outer dim runs one thread per expert column on the card
+    pos = torch.cumsum(F.one_hot(flat_e, E).T.contiguous(), dim=1) - 1
+    pos_in_e = pos.gather(0, flat_e[None, :])[0]
+    keep = pos_in_e < C
+    return {"gate": gate, "aux": aux, "capacity": C, "expert": flat_e, "keep": keep,
+            "slot": torch.clamp(pos_in_e, max=C - 1)}
+
+
+def moe_apply(cfg: ModelConfig, p: dict, x: torch.Tensor):
+    """x: (B, S, D) -> (y, aux_loss)."""
+    B, S, D = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    T = B * S
+    dt = x.dtype
+    xt = x.reshape(T, D)
+    r = route(cfg, p, xt)
+    C, keep = r["capacity"], r["keep"]
+    flat = r["expert"] * C + r["slot"]  # row of (E·C, D)
+
+    # dispatch: scatter tokens into (E, C, D); the JAX package marks the
+    # buffer's expert axis for expert parallelism here, the identity on one card
+    xr = xt[:, None, :].expand(T, K, D).reshape(T * K, D)
+    contrib = torch.where(keep[:, None], xr, torch.zeros((), dtype=dt, device=x.device))
+    buf = torch.zeros(E * C, D, dtype=dt, device=x.device).index_add_(0, flat, contrib)
+    buf = buf.view(E, C, D)
+
+    # expert FFN (SwiGLU), batched over E
+    h = F.silu(torch.bmm(buf, p["wg"].to(dt))) * torch.bmm(buf, p["wi"].to(dt))
+    out = torch.bmm(h, p["wo"].to(dt)).view(E * C, D)
+
+    # combine: gather back + weighted sum over K
+    yr = out[flat] * (r["gate"].reshape(T * K, 1).to(dt) * keep[:, None].to(dt))
+    y = yr.view(T, K, D).sum(dim=1)
+
+    if cfg.moe_dense_residual:
+        y = y + ffn_apply("swiglu", p["dense"], xt)
+    return y.reshape(B, S, D), r["aux"]

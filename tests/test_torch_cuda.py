@@ -691,6 +691,9 @@ def _tiny_decoder(arch, dev, B=2, P=16, extra=24):
     gen = torch.Generator(device=dev).manual_seed(1)
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, P), generator=gen, device=dev),
              "max_len": P + extra}
+    if cfg.is_encdec or cfg.family == "vlm":  # the modality-stub context
+        ctx = 0.1 * torch.randn((B, cfg.ctx_tokens, cfg.d_model), generator=gen, device=dev)
+        batch["frames" if cfg.is_encdec else "ctx_embeds"] = ctx
 
     def prefill():
         h, states = model.prefill(batch)
@@ -741,6 +744,70 @@ def test_decode_graphs_give_the_eager_loops_tokens(arch):
         got.append(toks.clone())
     assert torch.equal(torch.cat(got, dim=1), eager)
     assert graphs.captures == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["seamless_m4t_large_v2", "llama_3_2_vision_11b",
+                                  "moonshot_v1_16b_a3b", "arctic_480b"])
+def test_family_decode_graphs_give_the_eager_loops_tokens(arch):
+    """The encoder-decoder, VLM and MoE families decode as CUDA graphs: a
+    cross block's context K/V is read in place (never copied), and the MoE
+    dispatch is shape-static, so every depth emits the eager loop's tokens."""
+    from repro_torch.launch.serve import DECODE_KS, DecodeGraphs
+
+    dev = _card()
+    P, n = 16, 16
+    model, prefill = _tiny_decoder(arch, dev, P=P)
+    cfg = model.cfg
+    tok, states = prefill()
+    eager = []
+    for i in range(n):
+        logits, states = model.decode_step(tok, states, P + i)
+        tok = logits.argmax(-1)[:, None]
+        eager.append(tok)
+    eager = torch.cat(eager, dim=1)
+    for k in DECODE_KS:
+        tok, states = prefill()
+        graphs = DecodeGraphs(model, tok, states, P)
+        for st, live in zip(graphs.states, states):
+            for name in ("xk", "xv"):
+                assert name not in st or st[name] is live[name]
+        run = graphs.build(k)
+        token, states, pos = tok, states, P
+        got = []
+        for _ in range(n // k):
+            token, states, pos, toks = run(token, states, pos)
+            got.append(toks.clone())
+        assert torch.equal(torch.cat(got, dim=1), eager), k
+    assert ("cross" in cfg.pattern) == (cfg.family in ("audio", "vlm"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_encoder_runs_the_flash_kernel_non_causal(dtype):
+    """An encoder at head dim 64 (the served seamless shape's) on the flash
+    kernel against the plain path: one non-causal launch a layer, of the
+    tensor-core design in bf16."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import ExecConfig, Model
+
+    dev = _card()
+    cfg = dataclasses.replace(configs.get_tiny("seamless_m4t_large_v2"), d_model=256,
+                              d_head=64, compute_dtype=dtype)
+    assert cfg.d_head == 64
+    model = Model(cfg, ExecConfig(attn_impl="cuda"), device=dev, seed=0)
+    frames = _randn(90, (2, 512, 256), torch.float32, dev, 0.1)
+    before, by_design = tfa.launches, dict(tfa.launches_by_design)
+    got = model.encode(frames)
+    assert tfa.launches == before + cfg.enc_layers
+    if dtype == "bfloat16":
+        assert tfa.launches_by_design["wgmma"] == by_design["wgmma"] + cfg.enc_layers
+    model.exec_cfg = ExecConfig(attn_impl="xla")
+    want = model.encode(frames)
+    tol = 1e-4 if dtype == "float32" else 3e-2
+    torch.testing.assert_close(got.float().cpu(), want.float().cpu(), atol=tol, rtol=tol)
 
 
 @pytest.mark.cuda

@@ -57,7 +57,7 @@ import repro_torch.configs, repro_torch.models, repro_torch.models.convert, repr
 import repro_torch.core.strategy, repro_torch.core.grid_random, repro_torch.obs.report
 import repro_torch.tune, repro_torch.kernels.decode_attention
 import repro_torch.data, repro_torch.optim, repro_torch.train, repro_torch.checkpoint
-import repro_torch.core.tuned_jit, repro_torch.runtime.driver
+import repro_torch.core.tuned_jit, repro_torch.runtime.driver, repro_torch.models.moe
 from repro_torch.launch import serve, train
 from repro_torch.kernels import autotuned, kernel_router, routed, tune_call
 from repro_torch.tuning import TuningDB
@@ -72,6 +72,9 @@ out = routed("decode_attention", q, kv, kv, torch.ones(2, 64, dtype=torch.int32)
 assert out.shape == (2, 4, 16) and router.stats()["calls"] == 1
 served = serve.serve(["--arch", "rwkv6_7b", "--tiny", "--device", "cpu", "--prompt-len", "4",
                       "--gen", "2"])
+assert served["hidden"].shape == (8, 64)
+served = serve.serve(["--arch", "seamless_m4t_large_v2", "--tiny", "--device", "cpu",
+                      "--prompt-len", "4", "--gen", "2"])
 assert served["hidden"].shape == (8, 64)
 trained = train.train(["--arch", "qwen2_7b", "--tiny", "--device", "cpu", "--steps", "2",
                        "--global-batch", "2", "--seq-len", "8"])

@@ -314,10 +314,9 @@ def test_forward_matches_jax(arch):
 
 
 def test_unported_kinds_raise():
-    cfg = tconfigs.get_tiny("rwkv6_7b")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        TModel(dataclasses.replace(cfg, group=("cross",)), device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        TModel(dataclasses.replace(cfg, group=("attn",), ffn="moe"), device="cpu")
-    with pytest.raises(KeyError, match="not ported"):
-        tconfigs.get("arctic_480b")
+    """Every block kind, FFN and architecture of the JAX package now runs;
+    what still raises is multi-process training (the parallel slice)."""
+    from repro_torch.launch import train
+
+    with pytest.raises(NotImplementedError, match="queue 5"):
+        train.train(["--arch", "qwen2_7b", "--tiny", "--device", "cpu", "--distributed"])

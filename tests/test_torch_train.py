@@ -117,9 +117,13 @@ def test_make_batch_for_equals_jax_and_refuses_unported_families(arch):
     assert sorted(got) == sorted(want)
     for k in got:
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
-    vlm = dataclasses.replace(tconfigs.get_tiny(arch), family="vlm")
-    with pytest.raises(NotImplementedError, match="queue 4"):
-        tmake_batch(vlm, 2, 16, device="cpu")
+    # the VLM and encoder-decoder families are ported: their batches carry
+    # the modality-stub context beside the same tokens
+    vlm = dataclasses.replace(tconfigs.get_tiny(arch), family="vlm", ctx_tokens=4)
+    got = tmake_batch(vlm, 2, 16, step=3, seed=1, device="cpu")
+    assert sorted(got) == sorted([*want, "ctx_embeds"])
+    assert got["ctx_embeds"].shape == (2, 4, vlm.d_model)
+    np.testing.assert_array_equal(got["tokens"].numpy(), np.asarray(want["tokens"]))
 
 
 # -------------------------------------------------------------------- loss
