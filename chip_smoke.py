@@ -111,16 +111,43 @@ Phases, each printing its numbers on lines of its own:
 14. qwen2-7b at full width and depth, the same serve arguments, twice on
    one DB (no kernel on this path), graph decode against eager;
 15. llama-3.2-vision-11b and arctic-480b ``--tiny`` on the card (batch 8,
-   prompt 256): prefill and graph decode against eager.
+   prompt 256): prefill and graph decode against eager;
+16. the device-pinned fleet: ``local_device_pool(4, cache=exec_cache())``
+   (every slot on the one card), then a ``ShardedPortfolio`` race (two CSA
+   members, a random search and a Nelder-Mead) over the matmul kernel's
+   tiles at the qwen2-7b FFN shape in bf16, each member's measurements
+   pinned to its slot's card by ``device_bound_measure`` and checked there,
+   in the worker thread; the race's wall time, the members' bests and the
+   survivors, and the winner against its plain version (phase 2's limit);
+17. on a one-rank NCCL group and a ``("data",)`` mesh: ``int8_psum``,
+   ``topk_psum`` and ``chunked_psum`` on a qwen2-7b FFN gradient (3584,
+   18944) fp32 held to their one-rank meaning (int8 within scale/2, plus two fp32 ulps, of the
+   input; the sparse part plus the residual equal to the input; chunked
+   bit-equal to the all-reduce) and timed; ``make_compressed_dp_step``
+   4 steps with each of ``exact``, ``int8``, ``topk`` (k_ratio 0.01) and
+   ``chunked`` (64 MB) on phase 11's qwen2-7b cut (2 layers, 1 x 2048, the
+   flash kernel), ``exact`` holding ``make_train_step``'s losses to 1e-5,
+   with losses, step ms, peak memory and wire bytes per method; and
+   ``gpipe_apply`` with the one stage one card has, against its
+   sequential oracle;
+18. ``torchrun --standalone --nproc_per_node 1`` running the training
+   launcher's ``--distributed`` path (NCCL) on recurrentgemma-2b at full
+   width and depth with phase 10's arguments and tuning DB (an exact hit),
+   3 steps: 18 lru launches a step per microbatch, the first loss bit-equal
+   to phase 10's run 2; then ``pretune --launch --cost
+   analytic --smoke`` twice on one DB (3 searched, then 3 exact hits),
+   host arithmetic on the H100 data sheet that launches no kernel.
 
-Phases 10-11 and 12-15 run after phase 7, before serving, in two child
-processes (``--train-phases``, ``--family-phases``), one after the other,
-each with the card to itself: this process keeps what its caching
-allocator holds until it exits.  Each child reports its launch counts on
-its last line.
+Phases 10-11, 12-15 and 16-17 run after phase 7, before serving, in three
+child processes (``--train-phases``, ``--family-phases``,
+``--parallel-phases``), one after the other, each with the card to itself:
+this process keeps what its caching allocator holds until it exits.  Each
+child reports its launch counts on its last line; phase 18's torchrun rank
+(``--distributed-train``) does the same.
 
 Phases 3-5 (the tuning loop), phase 6 (the route), phases 8-9 and 12-15
-(serving) and phases 10-11 (training) are the main paths:
+(serving), phases 10-11 (training) and phases 16-18 (the parallel layer)
+are the main paths:
 the kernels' launch counters are set to 0 just before each path and read
 just after, and every kernel must have launched on one of them.
 The line before the last two is a JSON object with one entry per kernel;
@@ -200,6 +227,15 @@ FAMILY_TINY = ("llama_3_2_vision_11b", "arctic_480b")  # served --tiny on the ca
 TINY_SERVE_ARGS = ["--tiny", "--batch", "8", "--prompt-len", "256", "--gen", "64", "--epsilon", "0.5"]
 FAMILY_TIMEOUT_S = 700
 FAMILY_RESULT = "family launches: "  # the child's last line: its launch counts as JSON
+# phases 16-18: the parallel layer, in a child process of its own (16-17)
+# and under torchrun (18)
+FLEET_SLOTS = 4  # local_device_pool slots, round-robin over the cards
+DP_STEPS = 4  # make_compressed_dp_step steps per method (phase 11's qwen2-7b cut)
+DP_CHUNK_BYTES = 64 << 20  # chunked_psum's chunk
+PARALLEL_TIMEOUT_S = 600
+PARALLEL_RESULT = "parallel launches: "  # the child's last line: its launch counts as JSON
+DIST_STEPS, DIST_TIMEOUT_S = 3, 400  # launch.train --distributed on recurrentgemma-2b
+DIST_RESULT = "distributed launches: "  # the torchrun rank's last line
 KERNELS = ["matmul", "flash_attention", "decode_attention", "lru_scan", "rwkv_scan"]
 
 
@@ -662,6 +698,9 @@ def live_cuda_report(phase: str, dev) -> None:
 
     gc.collect()
     torch.cuda.empty_cache()
+    import warnings
+
+    warnings.filterwarnings("ignore", message=".*reduce_op.*")  # scanning gc touches the old alias
     objs = gc.get_objects()
     alive: dict = {}
     for o_ in objs:
@@ -942,6 +981,278 @@ def train_phases(out: Path, smi: str) -> dict:
 
 
 
+def parallel_phases(out: Path, smi: str) -> dict:
+    """Phases 16-17, the parallel layer on the card (``main`` runs this in a
+    child process: ``--parallel-phases``): the device-pinned fleet race on
+    the matmul kernel, then the collectives, the compressed data-parallel
+    step and the pipeline on a one-rank NCCL group.  Returns the kernels'
+    launch counts over those main paths."""
+    import dataclasses
+    import functools
+    import gc
+    import socket
+    import threading
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs as tconfigs
+    from repro_torch.core import CSA, NelderMead, RandomSearch
+    from repro_torch.data import make_batch_for
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.autotuned import exec_cache, get_spec
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import ExecConfig, TrainModel
+    from repro_torch.optim import AdamW, cosine_schedule
+    from repro_torch.parallel.collectives import (chunked_psum, int8_psum, make_compressed_dp_step,
+                                                  topk_psum, wire_bytes)
+    from repro_torch.parallel.devices import local_device_pool
+    from repro_torch.parallel.pipeline import gpipe_apply
+    from repro_torch.train import make_loss_fn, make_train_step
+    from repro_torch.tuning.fleet import ShardedPortfolio, device_bound_measure
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out.mkdir(parents=True, exist_ok=True)
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    launched = {n: 0 for n in KERNELS}
+    report: dict = {}
+
+    def add(counts_):
+        for n_, c_ in counts_.items():
+            launched[n_] += c_
+
+    def events_ms(fn, reps: int) -> float:
+        fn()
+        torch.cuda.synchronize()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(reps):
+            fn()
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1) / reps
+
+    # 16. the device-pinned fleet: a ShardedPortfolio race over the matmul
+    # tiles, each member measuring on its slot's card, in its worker thread
+    slots = local_device_pool(FLEET_SLOTS, cache=exec_cache())
+    print(f"[16] local_device_pool({FLEET_SLOTS}): {', '.join(map(str, slots))} "
+          f"({torch.cuda.device_count()} card(s); {smi})")
+    check(all(s_.device == dev for s_ in slots), f"slots not all on {dev}: {slots}")
+    M, K, N = MM_SHAPE
+    a = (torch.randn((M, K), generator=gen, device=dev)).to(torch.bfloat16)
+    b = (torch.randn((K, N), generator=gen, device=dev) / math.sqrt(K)).to(torch.bfloat16)
+    spec = get_spec("matmul")
+    space = spec.space(a, b)
+    dim = len(space.dims)
+    members = [CSA(dim, num_opt=3, max_iter=6, seed=0), CSA(dim, num_opt=3, max_iter=6, seed=1),
+               RandomSearch(dim, max_iter=18, seed=2), NelderMead(dim, max_iter=18, seed=3)]
+    card_locks = {s_.device: threading.Lock() for s_ in slots}  # one timed region per card at a time
+    pinned = []  # (member, thread, current card, slot card, output card) per measurement
+
+    def measure(i, points):
+        slot = slots[i % len(slots)]
+        costs = []
+        for z in points:
+            knobs = space.decode(z)
+            try:
+                spec.check(a, b, interpret=False, **knobs)
+            except ValueError:
+                costs.append(float("inf"))
+                continue
+            fn = slot.cache.get_or_build(("fleet_matmul", tuple(sorted(knobs.items()))),
+                                         lambda: functools.partial(ops.matmul, **knobs))
+            with card_locks[slot.device]:
+                got = fn(a, b)
+                pinned.append((i, threading.get_ident(), torch.cuda.current_device(),
+                               slot.device.index, got.device.index))
+                costs.append(events_ms(lambda: fn(a, b), 3) * 1e-3)
+        return costs
+
+    reset_counts()
+    fleet = ShardedPortfolio(members, rung=4)
+    res = fleet.run(device_bound_measure(measure, slots))
+    fleet_launches = counts()
+    add(fleet_launches)
+    best = space.decode(res.best_x)
+    threads = {t_ for _, t_, _, _, _ in pinned}
+    on_slot = all(cur == want == outd for _, _, cur, want, outd in pinned)
+    print(f"[16] ShardedPortfolio race, matmul bf16 {M}x{K}x{N} (qwen2-7b FFN), {len(members)} members "
+          f"(CSA x2, random, Nelder-Mead) pinned by device_bound_measure: wall {res.wall_s:.2f}s, "
+          f"{res.spent} measured, member bests ms "
+          f"{[round(c_ * 1e3, 4) if math.isfinite(c_) else None for c_ in res.member_bests]}, "
+          f"survivors {res.survivors}, winner {best} at {res.best_cost * 1e3:.4f} ms; "
+          f"{len(pinned)} measurements on {len(threads)} worker threads, each on its slot's card "
+          f"(current device == slot device == output device): {on_slot}; launches {fleet_launches}; {smi}")
+    check(on_slot and pinned, "a fleet measurement ran off its slot's card")
+    check(math.isfinite(res.best_cost) and fleet_launches["matmul"] > 0,
+          f"the race found no legal tile: {res.best_cost} {fleet_launches}")
+    # the winner against its plain version (a check, after the counts were read)
+    got, want = ops.matmul(a, b, **best), mm.matmul_plain(a, b, **best)
+    tol = TOL["matmul"]["bfloat16"]
+    err = (got.float() - want.float()).abs().max().item()
+    ok = bool(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol))
+    print(f"[16] the winner {best} against matmul_plain: max_abs_err={err:.3e} "
+          f"allclose(atol={tol:g}, rtol={tol:g}) {'ok' if ok else 'FAIL'}; {smi}")
+    check(ok, "the fleet's winning matmul tile disagrees with its plain version")
+    report["fleet"] = {"wall_s": res.wall_s, "spent": res.spent, "member_bests_s": res.member_bests,
+                       "survivors": res.survivors, "best": best, "best_s": res.best_cost,
+                       "measurements": len(pinned), "threads": len(threads), "max_abs_err": err}
+    del a, b, got, want, fleet, members
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 17. a one-rank NCCL group and a ("data",) mesh
+    with socket.socket() as s_:
+        s_.bind(("localhost", 0))
+        port = s_.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1,), ("data",))
+        group = mesh.get_group("data")
+        print(f"[17] process group: {dist.get_backend()} world {dist.get_world_size()}, mesh {mesh}")
+        g = torch.randn((MM_SHAPE[1], MM_SHAPE[2]), generator=gen, device=dev) * 1e-3
+        whole = g.clone()
+        dist.all_reduce(whole, group=group)
+        r8 = int8_psum(g, group)
+        amax = g.abs().max()
+        scale = (torch.clamp(amax, min=1e-12) / 127.0).item()  # the fp32 scale int8_psum uses
+        # within scale/2, up to the fp32 rounding of the divide and the
+        # dequantizing multiply (two ulps of the largest |g|)
+        limit8 = scale / 2 + 2 * amax.item() * 2.0 ** -23
+        err8 = (r8 - g).abs().max().item()
+        rk, ek = topk_psum(g, group, 0.01, torch.zeros_like(g))
+        kept = int((rk != 0).sum().item())
+        rc = chunked_psum(g, group, DP_CHUNK_BYTES)
+        t = {"all_reduce": events_ms(lambda: dist.all_reduce(g.clone(), group=group), 5),
+             "int8": events_ms(lambda: int8_psum(g, group), 5),
+             "topk": events_ms(lambda: topk_psum(g, group, 0.01, torch.zeros_like(g)), 5),
+             "chunked": events_ms(lambda: chunked_psum(g, group, DP_CHUNK_BYTES), 5)}
+        ok8 = err8 <= limit8
+        okk = torch.equal(rk + ek, g) and kept >= int(g.numel() * 0.01)
+        okc = torch.equal(rc, whole)
+        print(f"[17] collectives on a qwen2-7b FFN gradient {tuple(g.shape)} fp32, one rank: "
+              f"int8_psum max|r-g| {err8:.6e} <= scale/2 + 2 ulp(max|g|) {limit8:.6e} (scale/2 "
+              f"{scale / 2:.6e}) {'ok' if ok8 else 'FAIL'}; "
+              f"topk_psum (k_ratio 0.01) kept {kept} of {g.numel()}, sparse + residual == g "
+              f"{'ok' if okk else 'FAIL'}; chunked_psum ({DP_CHUNK_BYTES >> 20} MB chunks) bit-equal to "
+              f"all_reduce {'ok' if okc else 'FAIL'}; ms (CUDA events, 5 reps): "
+              f"{ {k_: round(v_, 4) for k_, v_ in t.items()} }; {smi}")
+        check(ok8 and okk and okc, "a collective disagrees with its one-rank meaning")
+        report["collectives"] = {"ms": t, "int8_max_err": err8, "int8_limit": limit8,
+                                 "topk_kept": kept}
+        del g, whole, r8, rk, ek, rc
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # make_compressed_dp_step on qwen2-7b at full width, 2 layers, 1 x 2048
+        q_cfg = dataclasses.replace(tconfigs.get("qwen2_7b"), n_layers=QWEN_LAYERS, n_groups=0)
+        batches = [make_batch_for(q_cfg, 1, QWEN_SEQ, step=i, seed=0, device=dev)
+                   for i in range(DP_STEPS)]
+        dp = {}
+        for method in ("train_step", "exact", "int8", "topk", "chunked"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            model = TrainModel(q_cfg, ExecConfig(attn_impl="cuda"), device=dev, seed=0)
+            params = model.params()
+            opt = AdamW(lr=cosine_schedule(1e-3, 10, 50))
+            opt_state = opt.init(params)
+            if method == "train_step":
+                step_fn = make_train_step(model, opt)
+            else:
+                step_fn, init_err = make_compressed_dp_step(
+                    make_loss_fn(model), opt, mesh, method=method, k_ratio=0.01,
+                    chunk_bytes=DP_CHUNK_BYTES)
+                err_state = init_err(params)
+            reset_counts()
+            losses, walls = [], []
+            for batch in batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if method == "train_step":
+                    params, opt_state, met = step_fn(params, opt_state, batch)
+                else:
+                    params, opt_state, err_state, met = step_fn(params, opt_state, err_state, batch)
+                losses.append(met["loss"].item())
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            c_ = counts()
+            add(c_)
+            peak = torch.cuda.max_memory_allocated(dev) / 1e9
+            wire = wire_bytes(params, {"exact": "fp32", "chunked": "fp32", "train_step": "fp32"}
+                              .get(method, method), 0.01)
+            dp[method] = {"loss": losses, "step_ms": walls, "peak_gb": peak, "wire_bytes": wire,
+                          "flash_launches": c_["flash_attention"]}
+            print(f"[17] qwen2-7b {QWEN_LAYERS} layers, batch 1 x {QWEN_SEQ}, "
+                  f"{'make_train_step' if method == 'train_step' else 'make_compressed_dp_step ' + method}: "
+                  f"loss per step {[round(x_, 6) for x_ in losses]}, step ms {[round(w_, 1) for w_ in walls]}, "
+                  f"peak {peak:.2f} GB, wire bytes per all-reduce {wire / 1e9:.3f} GB; launches {c_}; {smi}")
+            check(all(math.isfinite(x_) for x_ in losses), f"{method}: a loss is not finite")
+            check(c_["flash_attention"] == QWEN_LAYERS * DP_STEPS,
+                  f"{method}: {c_['flash_attention']} flash launches, expected {QWEN_LAYERS * DP_STEPS}")
+            check(peak < 80.0, f"{method}: peak memory {peak:.2f} GB")
+            del model, params, opt, opt_state, step_fn
+            if method != "train_step":
+                del err_state
+        same = all(abs(x_ - y_) <= 1e-5 * max(1.0, abs(y_))
+                   for x_, y_ in zip(dp["exact"]["loss"], dp["train_step"]["loss"]))
+        print(f"[17] exact against make_train_step, {DP_STEPS} steps: losses "
+              f"{dp['exact']['loss']} / {dp['train_step']['loss']} within 1e-5 {'ok' if same else 'FAIL'}; {smi}")
+        check(same, "make_compressed_dp_step exact does not give make_train_step's losses")
+        report["compressed_dp"] = dp
+
+        # gpipe_apply with the one stage one card has, against its oracle
+        x = torch.randn((4, 512, MM_SHAPE[1]), generator=gen, device=dev)
+        w = (torch.randn((1, MM_SHAPE[1], MM_SHAPE[1]), generator=gen, device=dev)
+             / math.sqrt(MM_SHAPE[1])).requires_grad_(True)
+        stage_fn = lambda wp, xmb: torch.tanh(xmb @ wp)  # noqa: E731
+        y = gpipe_apply(mesh, "data", stage_fn, w, x)
+        (y ** 2).sum().backward()
+        gw = w.grad.clone()
+        w.grad = None
+        y_ref = torch.tanh(x @ w[0])
+        (y_ref ** 2).sum().backward()
+        ey = (y - y_ref).abs().max().item()
+        eg = ((gw - w.grad).abs().max() / w.grad.abs().max()).item()
+        okp = ey <= 1e-5 and eg <= 1e-4
+        print(f"[17] gpipe_apply, 1 stage, 4 microbatches of (512, {MM_SHAPE[1]}) fp32: max|y - oracle| "
+              f"{ey:.3e} (limit 1e-5), gradient max rel {eg:.3e} (limit 1e-4) {'ok' if okp else 'FAIL'}; {smi}")
+        check(okp, "gpipe_apply disagrees with its sequential oracle")
+        report["gpipe"] = {"y_err": ey, "grad_rel_err": eg}
+    finally:
+        dist.destroy_process_group()
+    (out / "parallel_report.json").write_text(json.dumps(report, indent=1, default=str))
+    return launched
+
+
+def distributed_train(argv) -> int:
+    """One rank of ``torchrun``: the training launcher's ``--distributed``
+    path (``repro_torch.launch.train.train``); prints its summary, then the
+    rank's kernel launches and each step's loss on the last line."""
+    import torch  # noqa: F401
+
+    from repro_torch.launch import train
+    from repro_torch.runtime import TrainJob
+
+    losses = []
+    run = TrainJob.run
+
+    def recording_run(job, *a, **kw):  # the per-step losses, which the summary does not print
+        hist = run(job, *a, **kw)
+        losses.extend(hist["loss"])
+        return hist
+
+    TrainJob.run = recording_run
+    reset_counts()
+    train.train(argv)
+    print(DIST_RESULT + json.dumps({"launches": counts(), "loss": losses}))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" / "chip_smoke"),
@@ -950,6 +1261,12 @@ def main(argv=None) -> int:
                     help="run phases 10-11 only (the child process the full run starts)")
     ap.add_argument("--family-phases", action="store_true",
                     help="run phases 12-15 only (the child process the full run starts)")
+    ap.add_argument("--parallel-phases", action="store_true",
+                    help="run phases 16-17 only (the child process the full run starts)")
+    ap.add_argument("--distributed-train", nargs=argparse.REMAINDER, default=None,
+                    metavar="LAUNCHER_ARGS",
+                    help="one torchrun rank of phase 18: repro_torch.launch.train with these "
+                         "arguments, then the rank's launch counts")
     args = ap.parse_args(argv)
 
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -970,6 +1287,12 @@ def main(argv=None) -> int:
         launched = family_phases(Path(args.out), nvidia_smi())
         print(FAMILY_RESULT + json.dumps(launched))
         return 0
+    if args.parallel_phases:
+        launched = parallel_phases(Path(args.out), nvidia_smi())
+        print(PARALLEL_RESULT + json.dumps(launched))
+        return 0
+    if args.distributed_train is not None:
+        return distributed_train(args.distributed_train)
 
     import dataclasses
     import gc
@@ -999,7 +1322,8 @@ def main(argv=None) -> int:
                  "train.json", "train_report.json", "tune_encoder.json", "family_report.json",
                  *(f"serve_{arch}.json" for arch, _, _ in SERVE),
                  *(f"serve_{arch}.json" for arch in (SEAMLESS, MOONSHOT, QWEN)),
-                 *(f"serve_{arch}_tiny.json" for arch in FAMILY_TINY)):
+                 *(f"serve_{arch}_tiny.json" for arch in FAMILY_TINY),
+                 "parallel_report.json", "pretune_launch.json", "pretune_launch.json.journal"):
         (out / name).unlink(missing_ok=True)
 
     # ---------------------------------------------------------- 1. device
@@ -1642,6 +1966,77 @@ def main(argv=None) -> int:
     # a child process too: moonshot-v1-16b-a3b's weights alone are 56 GB
     family_launches = child("--family-phases", FAMILY_RESULT, FAMILY_TIMEOUT_S, "family phases")
 
+    # ----------------------------- main path 6: the parallel layer, 16-18
+    # 16-17 in a child process (the fleet race, the collectives, the
+    # compressed data-parallel step, the pipeline on a one-rank NCCL group)
+    parallel_launches = child("--parallel-phases", PARALLEL_RESULT, PARALLEL_TIMEOUT_S,
+                              "parallel phases")
+    # 18. the training launcher's --distributed path under torchrun, started
+    # from this process once the child has exited: recurrentgemma-2b at full
+    # width needs most of the card (phase 10 peaks at 68 GB)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[18] before torchrun: this process holds torch.cuda.memory_reserved "
+          f"{torch.cuda.memory_reserved(dev) / 1e9:.3f} GB; {smi}")
+    # phase 10's arguments and tuning DB: an exact hit, so the steps run the
+    # microbatch count phase 10's run 2 ran, and the first loss is its first
+    dist_args = ["--distributed", "--arch", TRAIN_ARCH, "--steps", str(DIST_STEPS),
+                 "--global-batch", str(TRAIN_BATCH), "--seq-len", str(TRAIN_SEQ),
+                 "--tune", "--db", str(out / "train.json")]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                           "--nproc_per_node", "1", str(ROOT / "chip_smoke.py"), "--out", str(out),
+                           "--distributed-train", *dist_args],
+                          capture_output=True, text=True, cwd=str(ROOT), timeout=DIST_TIMEOUT_S,
+                          env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    dist_wall = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    tail = [i_ for i_, ln in enumerate(lines) if ln.startswith(DIST_RESULT)]
+    if proc.returncode != 0 or not tail:
+        print(proc.stdout[-4000:])
+        print(proc.stderr[-6000:], file=sys.stderr)
+    check(proc.returncode == 0 and bool(tail),
+          f"torchrun launch.train --distributed failed (exit {proc.returncode})")
+    rank_out = json.loads(lines[tail[0]][len(DIST_RESULT):])
+    dist_launches = rank_out["launches"]
+    first = next(i_ for i_, ln in enumerate(lines) if ln.startswith("{"))
+    summary = dict(json.loads("\n".join(lines[first:tail[0]])), loss=rank_out["loss"])
+    rg10 = json.loads((out / "train_report.json").read_text())[TRAIN_ARCH]["2"]
+    ref_loss, ref_mb = rg10["loss"][0], rg10["final_knobs"]["microbatches"]
+    hit = "tuning db hit: train_step/" in proc.stdout
+    print(f"[18] torchrun --standalone --nproc_per_node 1 repro_torch.launch.train {' '.join(dist_args)} "
+          f"(NCCL, cuda:LOCAL_RANK): {summary['steps']} steps in {dist_wall:.1f}s wall (process start "
+          f"and model build included), tuning db hit {hit} {summary['final_knobs']}, loss per step "
+          f"{summary['loss']}, mean step {summary['mean_step_s'] * 1e3:.1f} ms; first loss against "
+          f"phase 10's run 2 (the same DB hit, {ref_mb} microbatch(es)): {ref_loss}, bit-equal "
+          f"{summary['loss'][0] == ref_loss}; launches {dist_launches}; {smi}")
+    check(hit and summary["final_knobs"] == rg10["final_knobs"],
+          f"launch.train --distributed did not adopt phase 10's tuning record: {summary['final_knobs']}")
+    check(summary["loss"][0] == ref_loss, f"launch.train --distributed's first loss {summary['loss'][0]} "
+          f"is not phase 10's {ref_loss}")
+    check(dist_launches["lru_scan"] == RG_LRU_LAYERS * ref_mb * DIST_STEPS
+          and all(n_ == 0 for k_, n_ in dist_launches.items() if k_ != "lru_scan"),
+          f"launch.train --distributed launched {dist_launches}, expected lru_scan "
+          f"{RG_LRU_LAYERS} x {ref_mb} microbatches x {DIST_STEPS} steps and nothing else")
+    for name in names:
+        parallel_launches[name] += dist_launches[name]
+    # pretune --launch: host arithmetic on the H100 data sheet, no kernel
+    for run in (1, 2):
+        reset_counts()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = pretune.main(["--launch", "--cost", "analytic", "--smoke", "--devices", "8",
+                               "--db", str(out / "pretune_launch.json")])
+        for line in buf.getvalue().splitlines():
+            print(f"[18] pretune --launch run {run}: {line}")
+        want = "(0 exact hits, 3 searched)" if run == 1 else "(3 exact hits, 0 searched)"
+        check(rc == 0 and f"3 launch contexts tuned {want}" in buf.getvalue(),
+              f"pretune --launch run {run} did not report {want}")
+        check(not any(counts().values()), f"pretune --launch launched a kernel: {counts()}")
+    print("[18] pretune --launch --cost analytic: the launch cost model on the h100-sxm data sheet, "
+          f"host arithmetic: no kernel launched (its costs are modelled seconds, not times on {smi})")
+    print(f"[18] parallel launches: {parallel_launches}; {smi}")
+
     # ------------------------------------------ main path 3: serving, 8-9
     decode_profiles = {}
     serve_launches = {}
@@ -1775,8 +2170,9 @@ def main(argv=None) -> int:
     # what serving leaves allocated (PERF.md §7)
     live_cuda_report("9", dev)
     main_launches = {n: tuning_launches[n] + route_launches[n] + serve_launches.get(n, 0)
-                     + train_launches[n] + family_launches[n] for n in names}
+                     + train_launches[n] + family_launches[n] + parallel_launches[n] for n in names}
     print(f"[11] training launches: {train_launches}; families' serving launches: {family_launches}; "
+          f"parallel launches: {parallel_launches}; "
           f"all main paths: {main_launches}; launches by "
           f"design since the start: matmul {mm.launches_by_design}, flash_attention {fa.launches_by_design}, "
           f"decode_attention {da.launches_by_design}, rwkv_scan {ls.launches_by_design}")
@@ -1806,7 +2202,8 @@ def main(argv=None) -> int:
                                  "route": route_launches[name],
                                  "serving": serve_launches.get(name, 0),
                                  "train": train_launches[name],
-                                 "serving_families": family_launches[name]},
+                                 "serving_families": family_launches[name],
+                                 "parallel": parallel_launches[name]},
             "ms": row["tuned"], "ms_default": row["default"], "plain_ms": row["plain"],
             "bound_ms": terms.bound_s * 1e3, "bound_by": terms.dominant,
             "library_ms": row["library"],

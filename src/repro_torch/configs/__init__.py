@@ -3,15 +3,19 @@
 Each module is a copy of the JAX package's ``repro.configs.<id>``: ``CONFIG``
 (the published config) and ``tiny()`` (a reduced same-family config for CPU
 tests).  Select with ``--arch <id>`` (or the dashed name); ``get(name)`` /
-``get_tiny(name)`` here.
+``get_tiny(name)`` here.  ``SHAPES`` are the JAX package's workload
+shapes (sequence length x global batch), which the launch layer
+(:mod:`repro_torch.launch.spaces`, :mod:`repro_torch.launch.input_specs`)
+reads.
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib
 
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["ARCH_IDS", "ALIASES", "get", "get_tiny"]
+__all__ = ["ARCH_IDS", "ALIASES", "get", "get_tiny", "ShapeSpec", "SHAPES"]
 
 ARCH_IDS = [
     "llama_3_2_vision_11b",
@@ -46,3 +50,20 @@ def get(name: str) -> ModelConfig:
 
 def get_tiny(name: str) -> ModelConfig:
     return _module(name).tiny()
+
+
+# ----------------------------------------------------------------- shapes
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    kind: str  # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeSpec("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeSpec("long_500k", "decode", 524_288, 1),
+}

@@ -41,12 +41,22 @@ __all__ = [
 
 @dataclasses.dataclass(frozen=True)
 class HardwareSpec:
-    """Per-card peak numbers for the roofline (data sheet, not measured)."""
+    """Per-card peak numbers (data sheet, not measured): the kernel roofline
+    reads the peaks and the memory rate, the launch space
+    (:mod:`repro_torch.launch.spaces`) also the links and the capacity.
+
+    ``link_bw`` is the rate of one link in one direction, and ``links`` the
+    card's count of them: a ring collective sends and receives at once, so
+    ``link_bw * links`` is what each card can send while it receives as
+    much."""
 
     name: str
     peak_flops: float  # FLOP/s, bf16 / fp16 dense on the tensor cores
     peak_flops_fp32: float  # FLOP/s, fp32 outside the tensor cores
     hbm_bw: float  # bytes/s
+    link_bw: float = 25e9  # bytes/s per link, one direction
+    links: int = 18  # links per card
+    hbm_bytes: float = 80e9  # device memory per card
 
     def peak_for(self, dtype: str) -> float:
         """Peak FLOP/s for arithmetic on inputs of ``dtype`` (numpy name)."""
@@ -57,8 +67,11 @@ class HardwareSpec:
 
 
 #: NVIDIA H100 SXM data sheet: 989 TFLOP/s bf16 dense, 67 TFLOP/s fp32
-#: non-tensor, 3.35 TB/s HBM3 — peaks that assume the 700 W power limit.
-H100_SXM = HardwareSpec("h100-sxm", 989e12, 67e12, 3.35e12)
+#: non-tensor, 3.35 TB/s HBM3 — peaks that assume the 700 W power limit —
+#: 80 GB of HBM3, and 18 NVLink-4 links of 25 GB/s each way (50 GB/s both
+#: ways; 900 GB/s a card in total, 450 GB/s each way).
+H100_SXM = HardwareSpec("h100-sxm", 989e12, 67e12, 3.35e12, link_bw=25e9, links=18,
+                        hbm_bytes=80e9)
 
 
 class RuntimeCost:

@@ -1,4 +1,4 @@
-"""Training launcher: the fault-tolerant driver end to end, on one device.
+"""Training launcher: the fault-tolerant driver end to end.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2_7b --tiny --steps 50
 
@@ -9,6 +9,17 @@ Single-Iteration mode on the training loop (microbatch count), ``--db``
 keeps the result across runs: a second run on the same DB adopts it with no
 search and says so (``tuning db hit: ...``).  Then it prints the same JSON
 summary as the JAX launcher.
+
+Cluster mode is the same program started once per process by ``torchrun``,
+with ``--distributed``:
+
+    PYTHONPATH=src python -m torch.distributed.run --standalone --nproc_per_node 1 \
+        -m repro_torch.launch.train --distributed --arch recurrentgemma_2b
+
+It joins ``torch.distributed`` from the environment ``torchrun`` sets (as
+the JAX launcher's ``jax.distributed.initialize()`` does): NCCL on card
+``LOCAL_RANK``, or gloo with ``--device cpu``.  Each process then runs the
+same ``TrainJob`` and leaves the group at exit.
 """
 from __future__ import annotations
 
@@ -40,7 +51,8 @@ def _parser() -> argparse.ArgumentParser:
                     help="tuning DB path; warm-starts step knobs across runs")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--distributed", action="store_true",
-                    help="multi-process training (not ported yet)")
+                    help="join torch.distributed from the torchrun environment "
+                         "(NCCL on card LOCAL_RANK; gloo with --device cpu)")
     ap.add_argument("--obs-dir", type=str, default=None,
                     help="write observability artifacts (events.jsonl, "
                          "trace.json, metrics.json) into this directory "
@@ -54,18 +66,38 @@ def _parser() -> argparse.ArgumentParser:
 def train(argv=None) -> dict:
     """Run the launcher; returns the JSON summary it prints."""
     args = _parser().parse_args(argv)
-    if args.distributed:
-        raise NotImplementedError(
-            "--distributed: multi-process training waits for the parallel slice of the port "
-            "(ROADMAP queue 5)"
-        )
     device = torch.device(args.device)
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"--device must be cuda or cpu, got {args.device!r}")
     if device.type == "cuda" and not torch.cuda.is_available():
         raise NoCudaDevice("no CUDA device: training runs the CUDA kernels on the card "
                            "(pass --device cpu for the plain versions on the CPU)")
+    if not args.distributed:
+        return _train(args, args.device)
 
+    import os
+
+    import torch.distributed as dist
+
+    missing = [v for v in ("RANK", "LOCAL_RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+               if v not in os.environ]
+    if missing:
+        raise NoTorchrun(f"--distributed: no torchrun environment ({', '.join(missing)} unset); "
+                         "start the launcher with python -m torch.distributed.run")
+
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+        torch.cuda.set_device(device)
+        dist.init_process_group("nccl")
+    else:
+        dist.init_process_group("gloo")
+    try:
+        return _train(args, str(device))
+    finally:
+        dist.destroy_process_group()
+
+
+def _train(args, device: str) -> dict:
     from repro_torch import obs
 
     if args.obs_dir:
@@ -89,7 +121,7 @@ def train(argv=None) -> dict:
         tune_db=args.db,
         runtime=args.runtime,
         tune_epsilon=args.epsilon,
-        device=args.device,
+        device=device,
     )
     try:
         with obs.span("train", steps=args.steps):
@@ -114,10 +146,14 @@ class NoCudaDevice(RuntimeError):
     """The launcher was asked for the card and there is none."""
 
 
+class NoTorchrun(RuntimeError):
+    """``--distributed`` outside ``torchrun``'s environment."""
+
+
 def main(argv=None) -> int:
     try:
         train(argv)
-    except NoCudaDevice as e:
+    except (NoCudaDevice, NoTorchrun) as e:
         print(f"train: {e}", file=sys.stderr)
         return 1
     return 0

@@ -19,10 +19,14 @@ encoder stack of bidirectional ``attn`` blocks (seamless).
 
 ``ExecConfig`` keeps the knobs the port reads.  The kernel option is
 ``attn_impl="cuda"`` (the JAX package's ``"pallas"``); ``interpret=True``
-runs the kernels' plain versions on CPU tensors.  ``"flashcost"`` (a
-dry-run cost surrogate) and the layer-scan and remat knobs wait with the
-dry-run slice; the vocab-chunked loss is an argument of
-``train.make_loss_fn`` / ``train.make_train_step``, as in the JAX package.
+runs the kernels' plain versions on CPU tensors.  ``remat`` and
+``logits_chunk`` (the launch space's remat choice is scored by its cost
+model, :mod:`repro_torch.launch.spaces`) and ``"flashcost"`` (a dry-run
+cost surrogate) come with the dry-run slice; ``scan_layers``,
+``scan_unroll`` and ``rec_unroll`` steer XLA's ``lax.scan`` and have no
+PyTorch form (the port runs its layers and chunks in Python loops).  The
+vocab-chunked loss is an argument of ``train.make_loss_fn`` /
+``train.make_train_step``, as in the JAX package.
 """
 from __future__ import annotations
 

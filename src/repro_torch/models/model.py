@@ -19,7 +19,11 @@ rest in fp32: the norms, the MoE router, the RG-LRU gates (``wa``, ``ba``,
 ``wi``, ``bi``, ``lam``) and the RWKV decay and bonus (``w0``, ``w1``,
 ``w2``, ``u``).
 Parameters are drawn from an explicit ``torch.Generator`` on the model's
-device, which is the card unless the caller asks for the CPU.
+device, which is the card unless the caller asks for the CPU.  On the meta
+device (``device="meta"``) they are shapes and dtypes only, with no
+generator and no storage: the launch layer's stand-ins
+(:mod:`repro_torch.launch.input_specs`) and the sharding of the largest
+configs read them.
 
 Training.  :class:`TrainModel` is the trainable form: every weight is an
 fp32 master (``cfg.param_dtype``) that requires grad and is cast at use, as
@@ -35,6 +39,8 @@ from typing import Optional, Tuple, Union
 
 import torch
 from torch import nn
+
+from repro_torch.parallel.api import constrain
 
 from .blocks import apply_block, init_block, init_block_state
 from .config import ExecConfig, ModelConfig
@@ -92,7 +98,8 @@ class Model(nn.Module):
         self.exec_cfg = exec_cfg
         self.device = torch.device(device)
         dt = getattr(torch, cfg.compute_dtype)
-        gen = torch.Generator(device=self.device).manual_seed(seed)
+        gen = (None if self.device.type == "meta"
+               else torch.Generator(device=self.device).manual_seed(seed))
         ini = Init(gen, self.device)
         m = getattr(torch, cfg.param_dtype) if self.trainable else None
         self.embedding = ParamTree({"table": embed_init(ini, cfg.padded_vocab, cfg.d_model)["table"]},
@@ -125,6 +132,7 @@ class Model(nn.Module):
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         new_states = []
         for kind, layer, st in zip(kinds, layers, states):
+            x = constrain(x, ("dp", "sp", None))  # a no-op outside a sharding context
             x, st, a = apply_block(kind, self.cfg, layer.tree(), x, st, q_pos=q_pos, ctx=ctx,
                                    mode=mode, causal=causal, exec_cfg=self.exec_cfg)
             new_states.append(st)

@@ -16,7 +16,9 @@ that shares the slot keeps its value.
 
 Arctic variant (``moe_dense_residual``): a dense SwiGLU FFN runs in parallel
 with the MoE and the outputs add.  The Switch load-balance aux loss is
-returned for training.
+returned for training.  The dispatch buffer carries the JAX package's
+expert-parallel constraint (``("ep", "dp", None)``), a no-op outside a
+sharding context (:mod:`repro_torch.parallel.api`).
 """
 from __future__ import annotations
 
@@ -24,6 +26,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.parallel.api import constrain
 
 from .config import ModelConfig
 from .layers import Init, ffn_apply, ffn_init
@@ -95,12 +99,11 @@ def moe_apply(cfg: ModelConfig, p: dict, x: torch.Tensor):
     C, keep = r["capacity"], r["keep"]
     flat = r["expert"] * C + r["slot"]  # row of (E·C, D)
 
-    # dispatch: scatter tokens into (E, C, D); the JAX package marks the
-    # buffer's expert axis for expert parallelism here, the identity on one card
+    # dispatch: scatter tokens into (E, C, D)
     xr = xt[:, None, :].expand(T, K, D).reshape(T * K, D)
     contrib = torch.where(keep[:, None], xr, torch.zeros((), dtype=dt, device=x.device))
     buf = torch.zeros(E * C, D, dtype=dt, device=x.device).index_add_(0, flat, contrib)
-    buf = buf.view(E, C, D)
+    buf = constrain(buf.view(E, C, D), ("ep", "dp", None))  # EP: experts over model axis
 
     # expert FFN (SwiGLU), batched over E
     h = F.silu(torch.bmm(buf, p["wg"].to(dt))) * torch.bmm(buf, p["wi"].to(dt))

@@ -29,6 +29,7 @@ from .fleet import (
     MergeStats,
     ShardedPortfolio,
     better_record,
+    device_bound_measure,
     merge_dbs,
     merge_records,
     parse_shard,
@@ -64,6 +65,7 @@ __all__ = [
     "MergeStats",
     "ShardedPortfolio",
     "better_record",
+    "device_bound_measure",
     "merge_dbs",
     "merge_records",
     "parse_shard",
@@ -74,6 +76,7 @@ __all__ = [
     "autotuned",
     "make_strategy",
     "MeasurePolicy",
+    "local_device_pool",
 ]
 
 #: facade name -> defining module (resolved on first attribute access —
@@ -85,6 +88,7 @@ _FACADE = {
     "MeasurePolicy": "repro_torch.core",
     "tune_call": "repro_torch.kernels.autotuned",
     "autotuned": "repro_torch.kernels.autotuned",
+    "local_device_pool": "repro_torch.parallel.devices",
 }
 
 

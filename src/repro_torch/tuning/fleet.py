@@ -26,9 +26,10 @@ ask-batches are measured concurrently, costs are gathered at a rung
 barrier, and the cull decision is the *same pure function*
 (:func:`repro_torch.core.strategy.cull_laggards`) the serial Portfolio
 applies — so with deterministic costs the surviving members and their
-bests match the serial race.  Pinning each member to its own card
-(``device_bound_measure``, ``local_device_pool``) waits for the parallel
-slice.
+bests match the serial race.  :func:`device_bound_measure` pins each
+member's measurements to a card of a
+:func:`~repro_torch.parallel.devices.local_device_pool`, so a host with
+several cards measures the whole field at once, one member per card.
 """
 from __future__ import annotations
 
@@ -58,6 +59,7 @@ __all__ = [
     "journal_to_db",
     "FleetResult",
     "ShardedPortfolio",
+    "device_bound_measure",
 ]
 
 #: relative noise prior applied to records with *unknown* measurement
@@ -461,3 +463,29 @@ class ShardedPortfolio:
             member_spent=list(self._member_spent),
             wall_s=time.perf_counter() - t0,
         )
+
+
+def device_bound_measure(measure: Callable, slots: Sequence) -> Callable:
+    """Pin each member's evaluations to its device slot: member ``i`` runs
+    ``measure`` under ``torch.cuda.device(slots[i % len(slots)].device)``,
+    so a host with several cards measures the whole field concurrently —
+    one member per card — instead of queueing on card 0.  The current card
+    is per host thread, so the context is entered in the thread that calls
+    the wrapper: :class:`ShardedPortfolio` calls it on the member's worker
+    thread.  Slots with no device (hosts without a card) pass through
+    unchanged."""
+    slots = list(slots)
+    if not slots:
+        return measure
+
+    def wrapped(i: int, points):
+        slot = slots[i % len(slots)]
+        device = getattr(slot, "device", None)
+        if device is None:
+            return measure(i, points)
+        import torch
+
+        with torch.cuda.device(device):
+            return measure(i, points)
+
+    return wrapped

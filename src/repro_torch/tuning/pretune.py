@@ -44,8 +44,20 @@ bytes over the H100's peaks).  It does not depend on the knobs, so every
 legal candidate of a context ties and the search trajectory alone decides
 the committed point — deterministically, which together with
 ``--no-warm-start`` makes a sharded sweep reproduce the unsharded one.
-Illegal tiles still cost ``inf`` (their build fails first).  ``--launch``
-(launch-level tuning) waits for the parallel slice.
+Illegal tiles still cost ``inf`` (their build fails first).
+
+``--launch`` tunes the launch-level grid instead of kernel tiles
+(:mod:`repro_torch.launch.spaces`: the dp x tp factorization of
+``--devices`` cards, default 8 — one HGX H100 node — microbatches, remat,
+collective chunking and the XLA preset's cost terms) with the same journal,
+``--shard``, ``--list``, ``--resume`` and ``--only`` handling.  ``--cost
+analytic`` scores each candidate with the deterministic launch cost model
+on the H100 data sheet: host arithmetic that launches no kernel and needs
+no card.  ``--cost runtime`` (compile each candidate and charge its
+roofline bound) waits for the dry-run slice and exits 1.
+
+    PYTHONPATH=src python -m repro_torch.tuning.pretune --launch --cost analytic \
+        --smoke --db /tmp/launch.json
 
 ``python -m repro_torch.tune pretune`` is the same command behind the
 umbrella CLI, which also provides ``db merge`` / ``db list`` / ``db diff`` and
@@ -241,6 +253,141 @@ def _list_grid(cases, db, interpret: bool, device: tuple) -> int:
     return 0
 
 
+def _launch_main(args, db, *, max_iter: int) -> int:
+    """The ``--launch`` family: sweep launch-level (arch, shape) contexts
+    through :func:`repro_torch.launch.spaces.tune_launch` with the same
+    journal / shard / list / resume machinery as the kernel grid."""
+    from repro_torch import configs, obs
+    from repro_torch.launch.spaces import (
+        launch_cases,
+        launch_key,
+        launch_space,
+        tune_launch,
+    )
+    from repro_torch.tuning import RunJournal
+
+    n_devices = args.devices
+    mode = "model"
+    cases = launch_cases(smoke=args.smoke)
+    if args.only:
+        cases = [
+            (a, s) for a, s in cases
+            if any(fnmatch.fnmatch(f"launch/{a}/{s}", pat)
+                   or fnmatch.fnmatch(a, pat) for pat in args.only)
+        ]
+    if not cases:
+        print("pretune: no launch cases match the given filters", file=sys.stderr)
+        return 2
+
+    def case_key(arch, shape_name):
+        cfg = configs.get(arch)
+        shape = configs.SHAPES[shape_name]
+        space = launch_space(cfg, shape, n_devices)
+        return launch_key(arch, shape, n_devices, space, mode=mode), space
+
+    if args.shard is not None:
+        from repro_torch.tuning.fleet import in_shard, parse_shard
+
+        index, num = parse_shard(args.shard)
+        total = len(cases)
+        cases = [
+            (a, s) for a, s in cases if in_shard(case_key(a, s)[0], index, num)
+        ]
+        print(f"pretune: shard {index}/{num}: {len(cases)}/{total} launch cases")
+        if not cases:
+            db.save()
+            return 0
+
+    if args.list_grid:
+        for arch, shape_name in cases:
+            key, space = case_key(arch, shape_name)
+            rec, exact = db.lookup(key)
+            case_id = f"launch/{arch}/{shape_name}"
+            case_id = f"{case_id:<40} {_space_size_str(space):<16}"
+            if exact:
+                print(f"  {case_id} HIT   best={rec.point} cost={rec.cost:.4g}s "
+                      f"source={rec.source}")
+            else:
+                print(f"  {case_id} cold  devices={n_devices} mode={mode}")
+        return 0
+
+    jpath = RunJournal.path_for(args.db)
+    done_keys: set = set()
+    if args.resume:
+        journal = RunJournal(jpath)
+        s = journal.summary()
+        done_keys = set(s["committed"]) | set(s["failed"])
+        if s["committed"]:
+            db.merge(journal.to_db())
+        journal.resume()
+        print(f"pretune: resume from {jpath}: skipping {len(done_keys)} "
+              f"completed launch cases")
+    else:
+        if os.path.exists(jpath):
+            os.remove(jpath)
+        journal = RunJournal(jpath)
+
+    n_done = n_hits = 0
+    t_all = time.perf_counter()
+    totals = {"measured": 0, "pruned": 0}
+    sweep_span = obs.span("pretune", cases=len(cases), family="launch")
+    sweep_span.__enter__()
+    try:
+        for arch, shape_name in cases:
+            key, space = case_key(arch, shape_name)
+            if key.encode() in done_keys:
+                continue
+            t0 = time.perf_counter()
+            stats: dict = {}
+            journal.start(key)
+            rec = tune_launch(
+                arch,
+                shape_name,
+                n_devices,
+                db=db,
+                mode=mode,
+                num_opt=args.num_opt,
+                max_iter=max_iter,
+                seed=args.seed,
+                search=args.strategy,
+                warm_start=not args.no_warm_start,
+                source="pretune",
+                stats=stats,
+            )
+            dt = time.perf_counter() - t0
+            totals["measured"] += int(stats.get("measured", 0))
+            totals["pruned"] += int(stats.get("pruned", 0))
+            if rec is None:
+                journal.failed(key, "every candidate failed")
+                print(f"  launch/{arch}/{shape_name}: every candidate failed; "
+                      f"nothing stored ({dt:.1f}s)", file=sys.stderr)
+                continue
+            journal.commit(key, rec)
+            n_hits += bool(stats.get("replayed"))
+            sz = _space_size_str(space)
+            replay = " (replayed)" if stats.get("replayed") else ""
+            print(
+                f"  launch/{arch}/{shape_name}: best={rec.point} "
+                f"cost={rec.cost:.4g}s default={stats.get('default_point')} "
+                f"default_cost={stats.get('default_cost'):.4g}s {sz} "
+                f"measured={stats.get('measured', 0)} "
+                f"pruned={stats.get('pruned', 0)}{replay} ({dt:.1f}s)"
+            )
+            n_done += 1
+        db.save()
+        print(
+            f"pretune: {n_done} launch contexts tuned ({n_hits} exact hits, "
+            f"{n_done - n_hits} searched), {len(db)} records in "
+            f"{args.db} ({time.perf_counter() - t_all:.1f}s); "
+            f"{totals['measured']} candidates scored ({mode}), "
+            f"{totals['pruned']} constraint-pruned at zero cost"
+        )
+        return 0
+    finally:
+        sweep_span.__exit__(None, None, None)
+        obs.shutdown()
+
+
 def main(argv=None, prog: str = "repro_torch.tuning.pretune") -> int:
     ap = argparse.ArgumentParser(
         prog=prog, description="offline tuning sweep -> JSON DB"
@@ -312,7 +459,41 @@ def main(argv=None, prog: str = "repro_torch.tuning.pretune") -> int:
         help="resume a killed sweep from its run journal (<db>.journal): "
              "cases already committed or failed are skipped",
     )
+    ap.add_argument(
+        "--launch", action="store_true",
+        help="tune the launch-level grid (launch.spaces: mesh dp x tp "
+             "factorization, microbatches, remat, collective chunking, XLA "
+             "preset) instead of kernel tiles; '--cost analytic' scores "
+             "candidates with the deterministic launch cost model (host "
+             "arithmetic, no card); '--cost runtime' waits for the dry-run slice",
+    )
+    ap.add_argument(
+        "--devices", type=int, default=8,
+        help="card count the launch grid factorizes (with --launch; default 8, "
+             "one HGX H100 node)",
+    )
     args = ap.parse_args(argv)
+
+    if args.launch:
+        from repro_torch import obs
+        from repro_torch.core.costs import H100_SXM
+        from repro_torch.tuning import TuningDB
+
+        if args.cost != "analytic":
+            from repro_torch.launch.spaces import _DRYRUN
+
+            print(f"pretune: --launch --cost {args.cost}: NotImplementedError: {_DRYRUN}; "
+                  "use --cost analytic", file=sys.stderr)
+            return 1
+        if args.obs_dir:
+            obs.configure(args.obs_dir)
+        else:
+            obs.configure_from_env()
+        db = TuningDB(args.db)
+        print(f"pretune: db={args.db} ({len(db)} records) launch model on {H100_SXM.name}, "
+              f"{args.devices} cards")
+        max_iter = args.max_iter if args.max_iter is not None else (2 if args.smoke else 4)
+        return _launch_main(args, db, max_iter=max_iter)
 
     from repro_torch import obs
     from repro_torch.kernels.autotuned import exec_cache, registered, tune_call

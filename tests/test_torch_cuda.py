@@ -904,3 +904,157 @@ def test_save_async_then_an_optimizer_step_restores_the_snapshot(tmp_path):
     leaves = tree_leaves(loaded)
     assert all(a.is_cuda and torch.equal(a, b) for a, b in zip(leaves, snapshot))
     assert not all(torch.equal(a, b) for a, b in zip(tree_leaves((params, state)), snapshot))
+
+
+# ------------------------------------------------------------ parallel layer
+@pytest.mark.cuda
+def test_device_pool_pins_each_members_measurements_to_its_card():
+    """``local_device_pool`` slots sit on the cards; ``device_bound_measure``
+    makes each slot's card current in the worker thread that measures, and
+    the race's winner is a legal tile whose output matches the plain
+    version."""
+    import threading
+
+    from repro_torch.core import CSA, RandomSearch
+    from repro_torch.core.costs import ExecutableCache
+    from repro_torch.parallel.devices import local_device_pool
+    from repro_torch.tuning.fleet import ShardedPortfolio, device_bound_measure
+
+    _card()
+    n = torch.cuda.device_count()
+    slots = local_device_pool(4, cache=ExecutableCache(maxsize=16))
+    assert [s.device for s in slots] == [torch.device("cuda", i % n) for i in range(4)]
+    a = _randn(0, (256, 192), torch.bfloat16, "cuda")
+    b = _randn(1, (192, 128), torch.bfloat16, "cuda", 1 / math.sqrt(192))
+    spec = get_spec("matmul")
+    space = spec.space(a, b)
+    seen = []
+
+    def measure(i, points):
+        slot = slots[i % 4]
+        out = []
+        for z in points:
+            knobs = space.decode(z)
+            try:
+                spec.check(a, b, interpret=False, **knobs)
+            except ValueError:
+                out.append(float("inf"))
+                continue
+            aa, bb = a.to(slot.device), b.to(slot.device)
+            got = ops.matmul(aa, bb, **knobs)
+            seen.append((torch.cuda.current_device(), slot.device.index, got.device.index,
+                         threading.get_ident()))
+            out.append(float(sum(knobs.values())))  # a deterministic cost
+        return out
+
+    members = [CSA(3, num_opt=2, max_iter=3, seed=s) for s in range(2)] + [RandomSearch(3, max_iter=6, seed=2)]
+    res = ShardedPortfolio(members, rung=2).run(device_bound_measure(measure, slots))
+    assert seen and all(cur == want == dev for cur, want, dev, _ in seen)
+    best = space.decode(res.best_x)
+    _close(ops.matmul(a, b, **best), tmm.matmul_plain(a, b, **best))
+
+
+def _nccl_group():
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0, world_size=1)
+
+
+@pytest.mark.cuda
+def test_collectives_pipeline_and_compressed_dp_on_a_one_rank_nccl_group():
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.data import make_batch_for
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import ExecConfig, TrainModel
+    from repro_torch.optim import AdamW
+    from repro_torch.parallel.collectives import (chunked_psum, int8_psum, make_compressed_dp_step,
+                                                  topk_psum)
+    from repro_torch.parallel.pipeline import gpipe_apply
+    from repro_torch.train import make_loss_fn, make_train_step
+
+    _card()
+    _nccl_group()
+    try:
+        mesh = make_mesh((1,), ("data",))
+        assert mesh.device_type == "cuda"
+        group = mesh.get_group("data")
+        g = _randn(2, (384, 640), torch.float32, "cuda", 1e-2)
+        r = int8_psum(g, group)
+        amax = g.abs().max()
+        # scale/2, plus the fp32 rounding of the divide and the multiply
+        limit = (amax / 127.0).item() / 2 + 2 * amax.item() * 2.0 ** -23
+        assert (r - g).abs().max().item() <= limit
+        s, e = topk_psum(g, group, 0.05, torch.zeros_like(g))
+        assert torch.equal(s + e, g) and int((s != 0).sum()) >= int(g.numel() * 0.05)
+        whole = g.clone()
+        dist.all_reduce(whole, group=group)
+        for cb in (4096, 1 << 20, 1 << 30):
+            assert torch.equal(chunked_psum(g, group, cb), whole)
+
+        x = _randn(3, (3, 8, 64), torch.float32, "cuda")
+        w = _randn(4, (1, 64, 64), torch.float32, "cuda", 0.125).requires_grad_(True)
+        y = gpipe_apply(mesh, "data", lambda wp, xm: torch.tanh(xm @ wp), w, x)
+        (y ** 2).sum().backward()
+        gw, w.grad = w.grad.clone(), None
+        y_ref = torch.tanh(x @ w[0])
+        (y_ref ** 2).sum().backward()
+        _close(y.detach(), y_ref.detach())
+        torch.testing.assert_close(gw, w.grad, atol=1e-4, rtol=1e-4)
+
+        cfg = dataclasses.replace(configs.get_tiny("qwen2_7b"), compute_dtype="float32")
+        batches = [make_batch_for(cfg, 2, 16, step=i, seed=0, device="cuda") for i in range(2)]
+        losses = {}
+        for method in ("train_step", "exact"):
+            model = TrainModel(cfg, ExecConfig(attn_impl="cuda"), device="cuda", seed=0)
+            params = model.params()
+            opt = AdamW(lr=1e-3)
+            st = opt.init(params)
+            if method == "train_step":
+                step = make_train_step(model, opt)
+            else:
+                step, init_err = make_compressed_dp_step(make_loss_fn(model), opt, mesh, method="exact")
+                err = init_err(params)
+            out = []
+            for batch in batches:
+                if method == "train_step":
+                    params, st, m = step(params, st, batch)
+                else:
+                    params, st, err, m = step(params, st, err, batch)
+                out.append(m["loss"].item())
+            losses[method] = out
+        assert losses["exact"] == losses["train_step"]
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_train_distributed_under_torchrun_on_the_card():
+    """``launch.train --distributed`` under torchrun takes NCCL and
+    ``cuda:LOCAL_RANK`` and trains the steps the plain launcher trains."""
+    import os
+    import subprocess
+    import sys
+
+    from repro_torch.launch import train
+
+    _card()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    args = ["--arch", "qwen2_7b", "--tiny", "--steps", "3", "--global-batch", "2", "--seq-len", "16"]
+    plain = train.train(args)
+    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                           "--nproc_per_node", "1", "-m", "repro_torch.launch.train",
+                           "--distributed", *args], capture_output=True, text=True, cwd=root,
+                          env=dict(os.environ, PYTHONPATH=os.path.join(root, "src")), timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    got = json.loads(proc.stdout[proc.stdout.index("{"):])
+    assert got["steps"] == 3 and got["final_loss"] == plain["final_loss"]

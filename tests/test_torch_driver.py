@@ -328,5 +328,9 @@ def test_train_launcher_needs_a_card_or_cpu(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert train_launcher.main(["--tiny", "--steps", "1"]) == 1
     assert "no CUDA device" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="queue 5"):
-        train_launcher.train(["--tiny", "--device", "cpu", "--distributed"])
+    # --distributed joins the group torchrun describes; without torchrun's
+    # environment the launcher says so and exits 1
+    for var in ("RANK", "LOCAL_RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
+    assert train_launcher.main(["--tiny", "--device", "cpu", "--distributed"]) == 1
+    assert "no torchrun environment" in capsys.readouterr().err

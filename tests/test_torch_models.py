@@ -313,10 +313,16 @@ def test_forward_matches_jax(arch):
     _close(ht, hj, 1e-5)
 
 
-def test_unported_kinds_raise():
-    """Every block kind, FFN and architecture of the JAX package now runs;
-    what still raises is multi-process training (the parallel slice)."""
-    from repro_torch.launch import train
+def test_unported_kinds_raise(tmp_path, capsys):
+    """Every block kind, FFN and architecture of the JAX package now runs,
+    and so does multi-process training; what still raises is the launch
+    dry run (the dry-run slice): ``tune_launch(mode="dryrun")`` and
+    ``pretune --launch --cost runtime``."""
+    from repro_torch.launch.spaces import tune_launch
+    from repro_torch.tuning import pretune
 
-    with pytest.raises(NotImplementedError, match="queue 5"):
-        train.train(["--arch", "qwen2_7b", "--tiny", "--device", "cpu", "--distributed"])
+    with pytest.raises(NotImplementedError, match="dry-run slice"):
+        tune_launch("qwen2_7b", "train_4k", 8, mode="dryrun")
+    assert pretune.main(["--launch", "--cost", "runtime", "--smoke",
+                         "--db", str(tmp_path / "l.json")]) == 1
+    assert "dry-run slice" in capsys.readouterr().err

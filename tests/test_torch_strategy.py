@@ -228,7 +228,11 @@ def test_tuning_facade_exports():
     assert ttuning.make_strategy is make_strategy
     assert ttuning.tune_call is tune_call and ttuning.autotuned is autotuned
     assert {"ShardedPortfolio", "FleetResult", "tune_call", "make_strategy"} <= set(ttuning.__all__)
-    missing = set(jtuning.__all__) - set(ttuning.__all__)
-    assert missing == {"device_bound_measure", "local_device_pool"}  # the parallel slice's
+    assert set(jtuning.__all__) <= set(ttuning.__all__)  # the fleet's device entry points too
+    from repro_torch.parallel.devices import local_device_pool
+    from repro_torch.tuning.fleet import device_bound_measure
+
+    assert ttuning.local_device_pool is local_device_pool
+    assert ttuning.device_bound_measure is device_bound_measure
     with pytest.raises(AttributeError):
         ttuning.no_such_name
