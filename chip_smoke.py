@@ -136,18 +136,37 @@ Phases, each printing its numbers on lines of its own:
    3 steps: 18 lru launches a step per microbatch, the first loss bit-equal
    to phase 10's run 2; then ``pretune --launch --cost
    analytic --smoke`` twice on one DB (3 searched, then 3 exact hits),
-   host arithmetic on the H100 data sheet that launches no kernel.
+   host arithmetic on the H100 data sheet that launches no kernel;
+19. the launch dry run (``repro_torch.launch.dryrun``: DTensors on the
+   meta device over fake process groups, host work that launches no
+   kernel, in subprocesses started with phase 16).  Its calibration: phase
+   17's ``make_train_step`` cell (qwen2-7b, 2 layers, 1 x 2048, the flash
+   kernel) and the same cell measured here under ``remat="full"`` (4 steps:
+   the flash kernel runs in the forward pass and again in the recompute),
+   each against the dry run's model of it at world 1 on the kernel's cost
+   surrogate (``attn_impl="flashcost"``, its FLOPs added back): the
+   modelled compute, memory and bound ms on the H100 data sheet, measured
+   ms / bound, the argument bytes modelled against the card's parameters +
+   AdamW state + batch (equal to the byte), modelled peak / measured peak.
+   Then the dry run's ``--all`` on the (16, 16) fake mesh (40 cells: 32
+   ok, 8 skipped; among them ``launch_cases(smoke=True)``, qwen2-7b
+   ``decode_32k`` and rwkv6-7b ``long_500k``) and qwen2-7b ``decode_32k``
+   on the (2, 16, 16) ``--multi-pod`` mesh, each line with its
+   ``elapsed_s``;
+   ``pretune --launch --cost runtime --smoke --devices 8`` twice (3
+   searched, then 3 exact hits; each committed best no worse than its
+   default); ``hillclimb --arch qwen2_7b --shape train_4k --budget 6``.
 
-Phases 10-11, 12-15 and 16-17 run after phase 7, before serving, in three
-child processes (``--train-phases``, ``--family-phases``,
+Phases 10-11, 12-15 and 16-17 with 19 run after phase 7, before serving, in
+three child processes (``--train-phases``, ``--family-phases``,
 ``--parallel-phases``), one after the other, each with the card to itself:
 this process keeps what its caching allocator holds until it exits.  Each
 child reports its launch counts on its last line; phase 18's torchrun rank
 (``--distributed-train``) does the same.
 
 Phases 3-5 (the tuning loop), phase 6 (the route), phases 8-9 and 12-15
-(serving), phases 10-11 (training) and phases 16-18 (the parallel layer)
-are the main paths:
+(serving), phases 10-11 (training) and phases 16-19 (the parallel layer
+and the launch dry run's calibration) are the main paths:
 the kernels' launch counters are set to 0 just before each path and read
 just after, and every kernel must have launched on one of them.
 The line before the last two is a JSON object with one entry per kernel;
@@ -232,10 +251,16 @@ FAMILY_RESULT = "family launches: "  # the child's last line: its launch counts 
 FLEET_SLOTS = 4  # local_device_pool slots, round-robin over the cards
 DP_STEPS = 4  # make_compressed_dp_step steps per method (phase 11's qwen2-7b cut)
 DP_CHUNK_BYTES = 64 << 20  # chunked_psum's chunk
-PARALLEL_TIMEOUT_S = 600
+PARALLEL_TIMEOUT_S = 900
 PARALLEL_RESULT = "parallel launches: "  # the child's last line: its launch counts as JSON
 DIST_STEPS, DIST_TIMEOUT_S = 3, 400  # launch.train --distributed on recurrentgemma-2b
 DIST_RESULT = "distributed launches: "  # the torchrun rank's last line
+# phase 19: the launch dry run.  Its counting is host work on meta tensors
+# over fake process groups, so it runs in subprocesses started with phase 16
+# (the child holds a one-rank NCCL group in phase 17); the card measures the
+# calibration cell, phase 17's qwen2-7b cut
+DRYRUN_TIMEOUT_S = 600
+DRYRUN_SHAPE = ("train_2048x1", "train", QWEN_SEQ, 1)  # ShapeSpec of phase 17's cut
 KERNELS = ["matmul", "flash_attention", "decode_attention", "lru_scan", "rwkv_scan"]
 
 
@@ -981,16 +1006,220 @@ def train_phases(out: Path, smi: str) -> dict:
 
 
 
+#: phase 19's subprocesses (host work, no card): the calibration cell
+#: counted at world 1 under remat none and full, on the flash kernel's cost
+#: surrogate with the kernel's FLOPs added back; the production cells on
+#: the (16, 16) and (2, 16, 16) fake meshes; pretune --launch --cost
+#: runtime twice; the hill climb
+_DRYRUN_CALIB = """
+import dataclasses, json
+from repro_torch import configs
+from repro_torch.configs import ShapeSpec
+from repro_torch.launch import costing, dryrun
+shape = ShapeSpec(*{shape!r})
+cut = dict(n_layers={layers}, n_groups=0)
+out = {{}}
+for remat in ("none", "full"):
+    out[remat] = dryrun.run_cell("qwen2_7b", shape, cfg_overrides=cut, probes=False,
+                                 mesh_spec=((1, 1), ("data", "model")), verbose=True,
+                                 exec_overrides=dict(attn_impl="flashcost", remat=remat))
+    out[remat]["flash_flops"] = costing.attention_traffic(
+        dataclasses.replace(configs.get("qwen2_7b"), **cut), shape, 1, 1)["flash_flops"]
+print("CALIB " + json.dumps(out))
+"""
+_DRYRUN_CELLS = """
+from repro_torch.launch import dryrun
+assert dryrun.main(["--all", "--out", {out!r}]) == 0
+assert dryrun.main(["--arch", "qwen2_7b", "--shape", "decode_32k", "--multi-pod",
+                    "--out", {out!r}]) == 0
+"""
+#: phase 19's production cells, which must count (``--all`` counts them
+#: with the other 30 runnable cells; the last on the (2, 16, 16) mesh)
+DRYRUN_NAMED = [("qwen2_7b", "train_4k", False), ("recurrentgemma_2b", "train_4k", False),
+                ("moonshot_v1_16b_a3b", "train_4k", False), ("qwen2_7b", "decode_32k", False),
+                ("rwkv6_7b", "long_500k", False), ("qwen2_7b", "decode_32k", True)]
+_DRYRUN_PRETUNE = """
+from repro_torch.tuning import pretune
+for run in (1, 2):
+    print("PRETUNE RUN", run, flush=True)
+    rc = pretune.main(["--launch", "--cost", "runtime", "--smoke", "--devices", "8",
+                       "--db", {db!r}])
+    assert rc == 0, rc
+"""
+
+
+def start_dryruns(out: Path) -> dict:
+    """Phase 19's subprocesses, started together (host work, no card):
+    name -> (Popen, the file its output goes to)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    for name in ("dryrun_cells.jsonl", "pretune_dryrun.json", "pretune_dryrun.json.journal",
+                 "hillclimb.jsonl"):
+        (out / name).unlink(missing_ok=True)
+    programs = {
+        "calib": ["-c", _DRYRUN_CALIB.format(shape=DRYRUN_SHAPE, layers=QWEN_LAYERS)],
+        "cells": ["-c", _DRYRUN_CELLS.format(out=str(out / "dryrun_cells.jsonl"))],
+        "pretune": ["-c", _DRYRUN_PRETUNE.format(db=str(out / "pretune_dryrun.json"))],
+        "hillclimb": ["-m", "repro_torch.launch.hillclimb", "--arch", "qwen2_7b", "--shape",
+                      "train_4k", "--budget", "6", "--out", str(out / "hillclimb.jsonl")],
+    }
+    procs = {}
+    for name, argv in programs.items():
+        log = open(out / f"dryrun_{name}.log", "w")
+        procs[name] = (subprocess.Popen([sys.executable, *argv], stdout=log,
+                                        stderr=subprocess.STDOUT, cwd=str(ROOT), env=env),
+                       out / f"dryrun_{name}.log", log)
+    return procs
+
+
+def finish_dryrun(procs: dict, name: str, deadline: float) -> str:
+    """Wait for one of phase 19's subprocesses (killed at ``deadline``);
+    its output, which must end in exit 0."""
+    proc, path, log = procs[name]
+    try:
+        proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    log.close()
+    text = path.read_text()
+    if proc.returncode != 0:
+        print(text[-6000:], file=sys.stderr)
+    check(proc.returncode == 0, f"[19] the dry run's {name} process failed (exit {proc.returncode})")
+    return text
+
+
+def stop_dryruns(procs: dict) -> None:
+    for proc, _, log in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+
+
+def dryrun_phase(out: Path, smi: str, procs: dict, deadline: float, q_cfg, measured: dict,
+                 real_args: int) -> dict:
+    """Phase 19's checks of the dry run's subprocesses (``start_dryruns``):
+    the calibration cell's model against ``measured`` (remat -> (ms a step,
+    peak bytes) on the card) and the card's argument bytes, the production
+    cells, pretune twice and the hill climb.  Returns the report."""
+    from repro_torch.core.costs import H100_SXM
+
+    text = finish_dryrun(procs, "calib", deadline)
+    calib = json.loads(next(ln for ln in text.splitlines() if ln.startswith("CALIB "))[6:])
+    cal_report = {}
+    for remat, (ms, peak) in measured.items():
+        r = calib[remat]
+        rf, mem = r["roofline"], r["memory"]
+        flops = rf["flops"] + r["flash_flops"]
+        compute = flops / H100_SXM.peak_for(q_cfg.compute_dtype)
+        bound = max(compute, rf["memory_s"], rf["collective_s"])
+        ratio = ms / (bound * 1e3)
+        eq = mem["argument_bytes"] == real_args
+        print(f"[19] calibration, qwen2-7b {QWEN_LAYERS} layers, 1 x {QWEN_SEQ}, remat {remat}, the "
+              f"flash kernel on the card, its cost surrogate in the dry run (world 1, meta): modelled "
+              f"(H100_SXM data sheet) compute {compute * 1e3:.3f} ms ({flops / 1e12:.4f} TFLOP = "
+              f"{rf['flops'] / 1e12:.4f} counted + {r['flash_flops'] / 1e12:.4f} flash added back), "
+              f"memory {rf['memory_s'] * 1e3:.3f} ms ({rf['bytes_accessed'] / 1e9:.2f} GB, eager "
+              f"unfused), bound {bound * 1e3:.3f} ms; measured {ms:.2f} ms a step (median of steps 2-"
+              f"{DP_STEPS}) = {ratio:.3f} x the bound; argument bytes modelled {mem['argument_bytes']} "
+              f"vs the card's params + AdamW state + batch {real_args}: equal {eq} (both hold the "
+              f"batch as int64; the JAX package's int32 batch would be {2 * QWEN_SEQ * 4} bytes less); "
+              f"peak modelled {mem['peak_bytes'] / 1e9:.3f} GB / measured {peak / 1e9:.3f} GB = "
+              f"{mem['peak_bytes'] / peak:.3f}; counted in {r['elapsed_s']}s; {smi}")
+        check(eq, f"remat {remat}: modelled argument bytes {mem['argument_bytes']} != the card's "
+                  f"{real_args}")
+        cal_report[remat] = {"measured_ms": ms, "measured_peak": peak, "modelled_compute_s": compute,
+                             "modelled_memory_s": rf["memory_s"], "modelled_bound_s": bound,
+                             "ratio": ratio, "modelled_args": mem["argument_bytes"],
+                             "real_args": real_args, "modelled_peak": mem["peak_bytes"],
+                             "counted_flops": rf["flops"], "flash_flops": r["flash_flops"],
+                             "bytes": rf["bytes_accessed"]}
+    print(f"[19] remat full against none: measured {measured['full'][0] / measured['none'][0]:.3f}x "
+          f"the step time at {measured['full'][1] / measured['none'][1]:.3f}x the peak; modelled "
+          f"{cal_report['full']['modelled_bound_s'] / cal_report['none']['modelled_bound_s']:.3f}x "
+          f"the bound at {cal_report['full']['modelled_peak'] / cal_report['none']['modelled_peak']:.3f}x "
+          f"the peak; {smi}")
+    report = {"dryrun_calibration": cal_report}
+
+    # the 40 cells (--all) and the multi-pod cell, each counted from 2- and
+    # 4-group variants
+    finish_dryrun(procs, "cells", deadline)
+    cells = [json.loads(ln) for ln in (out / "dryrun_cells.jsonl").read_text().splitlines()]
+    for r in cells:
+        if r["status"] == "skipped":
+            continue
+        rf = r.get("roofline") or {}
+        print(f"[19] dryrun {r['arch']} x {r['shape']} {r.get('mesh')}: status {r['status']}, "
+              f"elapsed_s {r.get('elapsed_s')}, modelled (H100_SXM) compute {rf.get('compute_s', 0) * 1e3:.1f} "
+              f"ms | memory {rf.get('memory_s', 0) * 1e3:.1f} ms | collective "
+              f"{rf.get('collective_s', 0) * 1e3:.1f} ms -> {rf.get('dominant')}, args "
+              f"{r.get('memory', {}).get('argument_bytes', 0) / 1e9:.2f} GB, peak "
+              f"{r.get('memory', {}).get('peak_bytes', 0) / 1e9:.2f} GB a rank, useful-flops ratio "
+              f"{r.get('useful_flops_ratio', 0):.3f}")
+    status = [r["status"] for r in cells[:40]]
+    print(f"[19] dryrun --all: {len(status)} cells, {status.count('ok')} ok, "
+          f"{status.count('skipped')} skipped, {status.count('error')} errors, in "
+          f"{sum(r.get('elapsed_s', 0) for r in cells[:40]):.1f}s of counting")
+    check((len(status), status.count("ok"), status.count("skipped")) == (40, 32, 8),
+          "the dry run's 40 cells did not end 32 ok, 8 skipped")
+    got = {(r["arch"], r["shape"], r["multi_pod"]): r["status"] for r in cells}
+    check(len(cells) == 41 and all(got.get(c) == "ok" for c in DRYRUN_NAMED),
+          f"the dry run's production cells: {[(c, got.get(c)) for c in DRYRUN_NAMED]}")
+    report["dryrun_cells"] = cells
+
+    # pretune --launch --cost runtime twice: 3 searched, then 3 exact hits
+    text = finish_dryrun(procs, "pretune", deadline)
+    runs = text.split("PRETUNE RUN 2")
+    check(len(runs) == 2, "pretune --launch --cost runtime did not run twice")
+    for run, (part, want) in enumerate(zip(runs, ("(0 exact hits, 3 searched)",
+                                                   "(3 exact hits, 0 searched)")), 1):
+        for line in part.splitlines():
+            if line.startswith("pretune") or line.strip().startswith("launch/"):
+                print(f"[19] pretune --launch --cost runtime run {run}: {line.strip()}")
+        check(f"3 launch contexts tuned {want}" in part,
+              f"pretune --launch --cost runtime run {run} did not report {want}")
+        for line in part.splitlines():
+            m_ = re.search(r"cost=([0-9.eE+-]+)s default=.* default_cost=([0-9.eE+-]+)s", line)
+            if m_:
+                check(float(m_.group(1)) <= float(m_.group(2)),
+                      f"a committed launch point is worse than its default: {line.strip()}")
+
+    # the hill climb over the execution knobs of qwen2-7b train_4k
+    text = finish_dryrun(procs, "hillclimb", deadline)
+    hc = [ln for ln in text.splitlines() if ln.startswith("[hc]")]
+    for line in hc:
+        print(f"[19] hillclimb --arch qwen2_7b --shape train_4k --budget 6: {line}")
+    check(any(ln.startswith("[hc] best:") for ln in hc), "the hill climb found no best point")
+    return report
+
+
 def parallel_phases(out: Path, smi: str) -> dict:
-    """Phases 16-17, the parallel layer on the card (``main`` runs this in a
-    child process: ``--parallel-phases``): the device-pinned fleet race on
-    the matmul kernel, then the collectives, the compressed data-parallel
-    step and the pipeline on a one-rank NCCL group.  Returns the kernels'
-    launch counts over those main paths."""
+    """Phases 16-17 and 19 (``main`` runs this in a child process:
+    ``--parallel-phases``): the device-pinned fleet race on the matmul
+    kernel, then the collectives, the compressed data-parallel step and the
+    pipeline on a one-rank NCCL group; then the launch dry run, whose host
+    work runs in subprocesses from the start, and its calibration on the
+    card.  Returns the kernels' launch counts over those main paths."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out.mkdir(parents=True, exist_ok=True)
+    # phase 19's host work starts now, beside the card's phases 16-17
+    dry_deadline = time.monotonic() + DRYRUN_TIMEOUT_S
+    procs = start_dryruns(out)
+    try:
+        return _parallel_phases(out, smi, procs, dry_deadline)
+    finally:
+        stop_dryruns(procs)
+
+
+def _parallel_phases(out: Path, smi: str, procs: dict, dry_deadline: float) -> dict:
     import dataclasses
     import functools
     import gc
     import socket
+    import statistics
     import threading
 
     import numpy as np
@@ -999,13 +1228,14 @@ def parallel_phases(out: Path, smi: str) -> dict:
 
     from repro_torch import configs as tconfigs
     from repro_torch.core import CSA, NelderMead, RandomSearch
+    from repro_torch.core.costs import H100_SXM
     from repro_torch.data import make_batch_for
     from repro_torch.kernels import matmul as mm
     from repro_torch.kernels import ops
     from repro_torch.kernels.autotuned import exec_cache, get_spec
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import ExecConfig, TrainModel
-    from repro_torch.optim import AdamW, cosine_schedule
+    from repro_torch.optim import AdamW, cosine_schedule, tree_leaves
     from repro_torch.parallel.collectives import (chunked_psum, int8_psum, make_compressed_dp_step,
                                                   topk_psum, wire_bytes)
     from repro_torch.parallel.devices import local_device_pool
@@ -1013,9 +1243,6 @@ def parallel_phases(out: Path, smi: str) -> dict:
     from repro_torch.train import make_loss_fn, make_train_step
     from repro_torch.tuning.fleet import ShardedPortfolio, device_bound_measure
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    out.mkdir(parents=True, exist_ok=True)
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
     launched = {n: 0 for n in KERNELS}
@@ -1225,6 +1452,49 @@ def parallel_phases(out: Path, smi: str) -> dict:
         report["gpipe"] = {"y_err": ey, "grad_rel_err": eg}
     finally:
         dist.destroy_process_group()
+
+    # 19. the launch dry run.  The calibration: phase 17's make_train_step
+    # cell (remat none) and the same cell under remat="full", measured here,
+    # against the dry run's model of each (H100_SXM data sheet, modelled)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = TrainModel(q_cfg, ExecConfig(attn_impl="cuda", remat="full"), device=dev, seed=0)
+    params = model.params()
+    opt = AdamW(lr=cosine_schedule(1e-3, 10, 50))
+    opt_state = opt.init(params)
+    real_args = sum(t.numel() * t.element_size() for t in tree_leaves((params, opt_state, batches[0])))
+    step_fn = make_train_step(model, opt)
+    reset_counts()
+    losses, walls = [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, met = step_fn(params, opt_state, batch)
+        losses.append(met["loss"].item())
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    c_ = counts()
+    add(c_)
+    peak_full = torch.cuda.max_memory_allocated(dev)
+    del model, params, opt, opt_state, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    same = all(abs(x_ - y_) <= 1e-5 * max(1.0, abs(y_))
+               for x_, y_ in zip(losses, dp["train_step"]["loss"]))
+    print(f"[19] qwen2-7b {QWEN_LAYERS} layers, batch 1 x {QWEN_SEQ}, make_train_step under "
+          f"remat=\"full\": loss per step {[round(x_, 6) for x_ in losses]} (remat none, phase 17: "
+          f"{[round(x_, 6) for x_ in dp['train_step']['loss']]}, within 1e-5 {'ok' if same else 'FAIL'}), "
+          f"step ms {[round(w_, 1) for w_ in walls]}, peak {peak_full / 1e9:.2f} GB; launches {c_} "
+          f"(each step: {QWEN_LAYERS} forward flash launches and {QWEN_LAYERS} in the recompute); {smi}")
+    check(same, "remat=full does not give remat none's losses")
+    check(c_["flash_attention"] == 2 * QWEN_LAYERS * DP_STEPS,
+          f"remat=full: {c_['flash_attention']} flash launches, expected {2 * QWEN_LAYERS * DP_STEPS}")
+    check(peak_full < 80e9, f"remat=full: peak memory {peak_full / 1e9:.2f} GB")
+    measured = {"none": (statistics.median(dp["train_step"]["step_ms"][1:]),
+                         dp["train_step"]["peak_gb"] * 1e9),
+                "full": (statistics.median(walls[1:]), peak_full)}
+    report.update(dryrun_phase(out, smi, procs, dry_deadline, q_cfg, measured, real_args))
     (out / "parallel_report.json").write_text(json.dumps(report, indent=1, default=str))
     return launched
 
@@ -1262,7 +1532,7 @@ def main(argv=None) -> int:
     ap.add_argument("--family-phases", action="store_true",
                     help="run phases 12-15 only (the child process the full run starts)")
     ap.add_argument("--parallel-phases", action="store_true",
-                    help="run phases 16-17 only (the child process the full run starts)")
+                    help="run phases 16-17 and 19 only (the child process the full run starts)")
     ap.add_argument("--distributed-train", nargs=argparse.REMAINDER, default=None,
                     metavar="LAUNCHER_ARGS",
                     help="one torchrun rank of phase 18: repro_torch.launch.train with these "

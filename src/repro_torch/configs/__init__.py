@@ -5,8 +5,9 @@ Each module is a copy of the JAX package's ``repro.configs.<id>``: ``CONFIG``
 tests).  Select with ``--arch <id>`` (or the dashed name); ``get(name)`` /
 ``get_tiny(name)`` here.  ``SHAPES`` are the JAX package's workload
 shapes (sequence length x global batch), which the launch layer
-(:mod:`repro_torch.launch.spaces`, :mod:`repro_torch.launch.input_specs`)
-reads.
+(:mod:`repro_torch.launch.spaces`, :mod:`repro_torch.launch.input_specs`,
+:mod:`repro_torch.launch.dryrun`) reads; :func:`cells` is the dry run's
+grid of (architecture, shape) cells.
 """
 from __future__ import annotations
 
@@ -15,7 +16,8 @@ import importlib
 
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["ARCH_IDS", "ALIASES", "get", "get_tiny", "ShapeSpec", "SHAPES"]
+__all__ = ["ARCH_IDS", "ALIASES", "get", "get_tiny", "all_configs", "ShapeSpec", "SHAPES",
+           "cells"]
 
 ARCH_IDS = [
     "llama_3_2_vision_11b",
@@ -52,6 +54,10 @@ def get_tiny(name: str) -> ModelConfig:
     return _module(name).tiny()
 
 
+def all_configs():
+    return {a: get(a) for a in ARCH_IDS}
+
+
 # ----------------------------------------------------------------- shapes
 @dataclasses.dataclass(frozen=True)
 class ShapeSpec:
@@ -67,3 +73,16 @@ SHAPES = {
     "decode_32k": ShapeSpec("decode_32k", "decode", 32_768, 128),
     "long_500k": ShapeSpec("long_500k", "decode", 524_288, 1),
 }
+
+
+def cells(include_skips: bool = False):
+    """All (arch, shape) cells.  long_500k runs only for sub-quadratic archs
+    (rwkv6, recurrentgemma): the 8 full-attention archs skip it."""
+    out = []
+    for a in ARCH_IDS:
+        cfg = get(a)
+        for s in SHAPES.values():
+            runnable = s.name != "long_500k" or cfg.subquadratic
+            if runnable or include_skips:
+                out.append((a, s.name, runnable))
+    return out

@@ -13,16 +13,26 @@
 * :class:`HardwareSpec` + :func:`roofline_terms` — the analytic lower bound
   of a kernel call from the FLOP and byte counts its shapes imply, over the
   card's data-sheet peaks (:data:`H100_SXM`).
+* :class:`StepCounter` — the torch form of the JAX package's
+  ``hlo_flops_bytes`` and ``collective_bytes``: a dispatch mode that counts
+  what one rank of a step does (FLOPs, bytes, collective bytes by type, the
+  peak of live bytes), on any device, the ``meta`` device of the dry run
+  (:mod:`repro_torch.launch.dryrun`) included.  The JAX package's
+  ``aot_compile`` has no torch form: eager PyTorch has no compiler to ask.
 """
 from __future__ import annotations
 
 import dataclasses
 import threading
 import time
+import weakref
 from collections import OrderedDict
 from concurrent.futures import FIRST_COMPLETED, Future, ThreadPoolExecutor
 from concurrent.futures import wait as futures_wait
 from typing import Any, Callable, Hashable, List, Optional, Sequence, Tuple
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.obs import metrics as _metrics
 from repro_torch.obs.trace import tracer as _tracer
@@ -36,6 +46,8 @@ __all__ = [
     "CachePartition",
     "compile_fanout",
     "roofline_terms",
+    "StepCounter",
+    "COLLECTIVES",
 ]
 
 
@@ -472,22 +484,44 @@ def compile_fanout(
 # ----------------------------------------------------------------- roofline
 @dataclasses.dataclass
 class RooflineTerms:
-    """The two single-card roofline terms of one kernel call, in seconds."""
+    """The roofline terms of one kernel call or one rank's step, in seconds:
+    a kernel call has the two single-card terms; the launch layer's dry run
+    also sets the collective term, its bytes and the rank count (the JAX
+    package's three-term ``RooflineTerms``)."""
 
     compute_s: float
     memory_s: float
     flops: float
     bytes_accessed: float
     hw: HardwareSpec
+    collective_s: float = 0.0
+    coll_bytes: float = 0.0
+    chips: int = 1
 
     @property
     def dominant(self) -> str:
-        """``"operations"`` or ``"bytes"``: the side that sets the bound."""
+        """``"operations"``, ``"bytes"`` or ``"collective"``: the side that
+        sets the bound."""
+        if self.collective_s > max(self.compute_s, self.memory_s):
+            return "collective"
         return "operations" if self.compute_s >= self.memory_s else "bytes"
 
     @property
     def bound_s(self) -> float:
-        return max(self.compute_s, self.memory_s)
+        return max(self.compute_s, self.memory_s, self.collective_s)
+
+    def as_dict(self) -> dict:
+        """The JAX package's keys (``dominant`` in the port's words)."""
+        return {
+            "compute_s": self.compute_s,
+            "memory_s": self.memory_s,
+            "collective_s": self.collective_s,
+            "dominant": self.dominant,
+            "flops": self.flops,
+            "bytes_accessed": self.bytes_accessed,
+            "coll_bytes": self.coll_bytes,
+            "chips": self.chips,
+        }
 
 
 def roofline_terms(
@@ -503,3 +537,140 @@ def roofline_terms(
         bytes_accessed=float(nbytes),
         hw=hw,
     )
+
+
+# ------------------------------------------------------------ step counter
+#: the JAX package's collective kinds (``collective_bytes``), by the
+#: functional-collective op that does each on one rank
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all", "collective-permute")
+_COLLECTIVE_OPS = {
+    "_c10d_functional.all_gather_into_tensor": "all-gather",
+    "_c10d_functional.all_gather_into_tensor_coalesced": "all-gather",
+    "_c10d_functional.all_reduce": "all-reduce",
+    "_c10d_functional.all_reduce_coalesced": "all-reduce",
+    "_c10d_functional.reduce_scatter_tensor": "reduce-scatter",
+    "_c10d_functional.reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "_c10d_functional.all_to_all_single": "all-to-all",
+    "_dtensor.shard_dim_alltoall": "all-to-all",
+}
+#: ops that move no bytes (besides views): allocation without a write,
+#: aliases, and the collectives' bookkeeping
+_NO_TRAFFIC = {"aten.empty", "aten.empty_strided", "aten.empty_like", "aten.detach",
+               "aten.alias", "aten.lift_fresh", "aten._local_scalar_dense",
+               "_c10d_functional.wait_tensor", "_c10d_functional._wrap_tensor_autograd"}
+
+
+def _tensor_bytes(t) -> int:
+    return t.numel() * t.element_size()
+
+
+def _tensors(*values) -> list:
+    """The tensors among ``values`` and in the lists, tuples and dicts
+    among them, one level deep: the shapes an op's arguments and results
+    take."""
+    out = []
+    for v in values:
+        if isinstance(v, torch.Tensor):
+            out.append(v)
+        elif isinstance(v, (list, tuple)):
+            out.extend(x for x in v if isinstance(x, torch.Tensor))
+        elif isinstance(v, dict):
+            out.extend(x for x in v.values() if isinstance(x, torch.Tensor))
+    return out
+
+
+class StepCounter(TorchDispatchMode):
+    """Counts what one rank does while the mode is active: the torch
+    counterpart of the JAX package's ``hlo_flops_bytes`` and
+    ``collective_bytes`` (XLA's per-partition ``cost_analysis`` and the
+    collectives of the partitioned HLO).
+
+    It sees each rank's local ops only.  An op on DTensors reaches a
+    dispatch mode first at the DTensor level, with global shapes; the
+    counter hands it back (``NotImplemented``) so that DTensor runs it, and
+    counts the local ops that DTensor then issues (``FlopCounterMode``
+    counts both and so counts a sharded product twice).  The ops that
+    DTensor's sharding propagation runs on fake tensors are not counted.
+
+    * ``flops``: ``torch.utils.flop_counter``'s formulas (mm, addmm, bmm,
+      baddbmm, convolutions, SDPA); elementwise ops count none.
+    * ``bytes_accessed``: each op's input and output bytes, views and
+      allocations excepted.  That is eager PyTorch's unfused traffic: XLA
+      counts after fusion, so these bytes run higher than the JAX package's.
+    * ``coll``: result bytes of each functional collective by kind, the
+      ``collective_bytes`` convention (a reduce-scatter's result is the
+      shard).
+    * ``peak_bytes``: the peak of the live storages: those :meth:`hold`
+      registered (the arguments) plus every storage an op made, until its
+      last tensor dies.
+
+    ``device`` (a device type, e.g. ``"meta"``) counts only the ops whose
+    tensors lie there: DTensor plans its redistributions with small CPU
+    tensors of its own, which are not the step's work.
+    """
+
+    def __init__(self, device: Optional[str] = None) -> None:
+        super().__init__()
+        self.device = device
+        self.flops = 0.0
+        self.bytes_accessed = 0.0
+        self.coll = {k: 0.0 for k in COLLECTIVES}
+        self.live_bytes = 0
+        self.peak_bytes = 0
+        self._storages: dict = {}
+
+    @property
+    def coll_bytes(self) -> float:
+        return float(sum(self.coll.values()))
+
+    def hold(self, tensors) -> None:
+        """Count these tensors' storages as live (a DTensor by its local
+        shard): the arguments of the step."""
+        for t in tensors:
+            self._track(getattr(t, "_local_tensor", t))
+
+    def _track(self, t, nbytes: Optional[int] = None) -> None:
+        storage = t.untyped_storage()
+        key = id(storage)
+        if key in self._storages:
+            return
+        n = storage.nbytes() if nbytes is None else nbytes
+        self._storages[key] = n
+        self.live_bytes += n
+        self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+        weakref.finalize(storage, self._release, key)
+
+    def _release(self, key) -> None:
+        self.live_bytes -= self._storages.pop(key, 0)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch._subclasses.fake_tensor import FakeTensor
+        from torch.distributed.tensor import DTensor
+        from torch.utils.flop_counter import flop_registry
+
+        kwargs = kwargs or {}
+        inputs = _tensors(*args, *kwargs.values())
+        if any(isinstance(a, DTensor) for a in inputs):
+            return NotImplemented  # DTensor runs it; its local ops come back here
+        out = func(*args, **kwargs)
+        outputs = _tensors(out)
+        if any(isinstance(t, FakeTensor) for t in inputs + outputs):
+            return out  # sharding propagation, not a rank's work
+        if self.device is not None and all(t.device.type != self.device
+                                           for t in inputs + outputs):
+            return out
+        name = f"{func.namespace}.{func._opname}"
+        kind = _COLLECTIVE_OPS.get(name)
+        if kind is not None:
+            self.coll[kind] += sum(_tensor_bytes(o) for o in outputs)
+        elif not func.is_view and name not in _NO_TRAFFIC:
+            formula = flop_registry.get(func.overloadpacket)
+            if formula is not None:
+                self.flops += formula(*args, **kwargs, out_val=out)
+            self.bytes_accessed += (sum(_tensor_bytes(a) for a in inputs)
+                                    + sum(_tensor_bytes(o) for o in outputs))
+        for o in outputs:
+            # a collective's result is a buffer of its own size (a fake
+            # process group's may be a view of a larger scratch tensor)
+            self._track(o, _tensor_bytes(o) if kind is not None else None)
+        return out

@@ -21,9 +21,7 @@ fingerprinted commit/replay/warm-start treatment as kernel tiles:
     ``train.make_train_step(microbatches=)``;
   * **collective chunking** — ``parallel.collectives.chunked_psum`` chunk
     size for the DP gradient reduction;
-  * **remat policy** — the JAX package's ``ExecConfig.remat`` ("none" |
-    "dots" | "full"; the port's ``ExecConfig`` gains it with the dry-run
-    slice, the cost model scores it now);
+  * **remat policy** — ``ExecConfig.remat`` ("none" | "dots" | "full");
   * **a curated XLA flag subspace** — :data:`XLA_PRESETS`.  PyTorch has no
     per-compile XLA options, so a preset is only its cost-model terms here
     (collective overlap, scheduler overhead) and
@@ -46,12 +44,12 @@ Two measurement modes:
     step-time model (6ND compute, weight/activation HBM traffic, tp/dp
     collective terms with chunking + overlap credit).  Pure arithmetic: no
     devices, no compiles — the CI mode, byte-reproducible across hosts.
-  * ``mode="dryrun"`` — compile each candidate and charge its roofline
-    bound: the JAX package lowers on a host-platform mesh and reads XLA's
-    cost analysis.  Its torch form (a fake process group, DTensor
-    parameters, ``FlopCounterMode`` and ``CommDebugMode``) is the dry-run
-    slice of the port, not yet written: ``mode="dryrun"`` and ``pretune
-    --launch --cost runtime`` raise ``NotImplementedError``.
+  * ``mode="dryrun"`` — count each candidate's step and charge its
+    roofline bound (:func:`repro_torch.launch.dryrun.run_cell`: DTensor
+    parameters on the meta device over a fake process group of
+    ``n_devices`` ranks, one rank's FLOPs, bytes and collective bytes over
+    the card's peaks), where the JAX package lowers on a host-platform mesh
+    and reads XLA's cost analysis.  Host work: no card runs a kernel.
 """
 from __future__ import annotations
 
@@ -95,11 +93,6 @@ XLA_PRESETS = {
     # overhead — the safe baseline for debugging numerical drift
     "sync-conservative": dict(overlap=0.0, overhead=0.0),
 }
-
-_DRYRUN = ("mode='dryrun' (compile each launch candidate and charge its roofline bound) "
-           "waits for the dry-run slice of the port: launch/{costing,dryrun,hillclimb}.py "
-           "(ROADMAP queue 1)")
-
 
 def compiler_options_for(preset: str, backend: Optional[str] = None) -> dict:
     """The compile options of one preset: ``{}`` on every backend (the JAX
@@ -390,8 +383,7 @@ def launch_cost_model(
 
 def apply_launch_point(point: dict, n_devices: int, backend: Optional[str] = None) -> dict:
     """Translate a decoded launch point into the keyword arguments of the
-    dry run's ``run_cell`` (the JAX package's ``launch/dryrun.py``; the
-    port's comes with the dry-run slice)."""
+    dry run's :func:`~repro_torch.launch.dryrun.run_cell`."""
     kw: dict = {
         "mesh_spec": ((int(point["dp"]), int(point["tp"])), ("data", "model")),
         "microbatches": int(point.get("microbatches", 1)),
@@ -402,10 +394,24 @@ def apply_launch_point(point: dict, n_devices: int, backend: Optional[str] = Non
     return kw
 
 
-def _dryrun_cost_fn(arch: str, shape, n_devices: int, *, tiny: bool = False):
-    """mode="dryrun": compile each candidate on a fake process group and
-    charge its roofline bound — the dry-run slice's work."""
-    raise NotImplementedError(_DRYRUN)
+def _dryrun_cost_fn(arch: str, shape, n_devices: int, *, tiny: bool = False,
+                    hw: HardwareSpec = H100_SXM):
+    """mode="dryrun": count each candidate's whole step on a fake process
+    group of ``n_devices`` ranks and charge its roofline bound (the max of
+    the compute, memory and collective time per rank on ``hw``)."""
+
+    def cost(point: dict) -> float:
+        from repro_torch.launch import dryrun
+
+        kw = apply_launch_point(point, n_devices)
+        r = dryrun.run_cell(arch, shape.name, tiny=tiny, probes=False, verbose=False, hw=hw,
+                            **kw)
+        if r.get("status") != "ok":
+            return float("inf")
+        rf = r["roofline"]
+        return float(max(rf["compute_s"], rf["memory_s"], rf["collective_s"]))
+
+    return cost
 
 
 def tune_launch(
@@ -441,8 +447,6 @@ def tune_launch(
 
     if mode not in ("model", "dryrun"):
         raise ValueError(f"mode must be 'model' or 'dryrun', got {mode!r}")
-    if mode == "dryrun":
-        raise NotImplementedError(_DRYRUN)
     cfg = configs.get(arch) if not tiny else configs.get_tiny(arch)
     shape = configs.SHAPES[shape_name]
     space = launch_space(cfg, shape, n_devices, hw=hw)
@@ -450,7 +454,7 @@ def tune_launch(
     cost_fn = (
         launch_cost_model(cfg, shape, n_devices, hw)
         if mode == "model"
-        else _dryrun_cost_fn(arch, shape, n_devices, tiny=tiny)
+        else _dryrun_cost_fn(arch, shape, n_devices, tiny=tiny, hw=hw)
     )
     default_pt = default_launch_point(cfg, shape, n_devices, space)
     if stats is None:

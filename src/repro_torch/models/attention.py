@@ -24,8 +24,10 @@ import math
 from typing import Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import ops as kops
+from repro_torch.parallel.api import einsum, merge_dims, shard_index, split_dim
 
 from .config import ExecConfig, ModelConfig
 from .layers import Init, linear_apply, linear_init, rope_apply
@@ -72,14 +74,31 @@ def _sdpa(q, k, v, mask) -> torch.Tensor:
     fp32 scores and softmax; GQA via head grouping."""
     B, Sq, H, hd = q.shape
     Kh = k.shape[1]
-    g = H // Kh
-    qh = q.reshape(B, Sq, Kh, g, hd)
-    scores = torch.einsum("bqkgh,bksh->bkgqs", qh.float(), k.float())
+    qh = split_dim(q, 2, Kh)
+    scores = einsum("bqkgh,bksh->bkgqs", qh.float(), k.float())
     scores = scores * (1.0 / math.sqrt(hd))
     scores = torch.where(mask[None, None, None], scores, torch.full((), NEG_INF, device=q.device))
     p = torch.softmax(scores, dim=-1).to(v.dtype)
-    out = torch.einsum("bkgqs,bksh->bqkgh", p, v)
+    out = einsum("bkgqs,bksh->bqkgh", p, v)
     return out.reshape(B, Sq, H, hd)
+
+
+def _sdpa_flashcost(q, k, v) -> torch.Tensor:
+    """Kernel-cost surrogate for the dry run (``attn_impl="flashcost"``).
+
+    The flash kernel cannot run on the dry run's meta tensors, so the dry
+    run counts THIS instead: it reads Q/K/V once and writes O once (the
+    kernel's HBM traffic: the S² tile never leaves shared memory), while
+    the kernel's tensor-core FLOPs are added back analytically
+    (``launch.costing.attention_traffic``).  Not a numerics path."""
+    B, Sq, H, hd = q.shape
+    Kh = k.shape[1]
+    mk = k.mean(dim=2)  # (B,Kh,hd): touches all of K
+    mv = v.mean(dim=2)
+    g = H // Kh
+    mk = mk.repeat_interleave(g, dim=1)[:, None]  # (B,1,H,hd)
+    mv = mv.repeat_interleave(g, dim=1)[:, None]
+    return q * mk + mv
 
 
 def _sdpa_flash(q, k, v, *, causal: bool, exec_cfg: ExecConfig) -> torch.Tensor:
@@ -88,11 +107,51 @@ def _sdpa_flash(q, k, v, *, causal: bool, exec_cfg: ExecConfig) -> torch.Tensor:
                                 block_kv=exec_cfg.block_kv, interpret=exec_cfg.interpret)
 
 
+def _write_ring(cache: dict, slots, kc, vc, q_pos) -> None:
+    """Write K/V (B,Kh,S,hd) and the positions into ring slots ``slots``,
+    in place."""
+    if not isinstance(cache["k"], DTensor):
+        cache["k"][:, :, slots] = kc
+        cache["v"][:, :, slots] = vc
+        cache["pos"][slots] = q_pos.to(cache["pos"].dtype)
+        return
+    _write_shards(cache["k"], 2, slots, kc)
+    _write_shards(cache["v"], 2, slots, vc)
+    _write_shards(cache["pos"], 0, slots, q_pos.to(cache["pos"].dtype))
+
+
+def _write_shards(buf, dim: int, slots, val) -> None:
+    """``buf``'s entries ``slots`` along ``dim`` = ``val``, in place, for a
+    DTensor cache (the dry run's): each rank writes into its shard the rows
+    whose slots it holds, as GSPMD writes a sharded dynamic-update-slice,
+    and no collective moves the cache.  Rows held elsewhere are aimed at
+    the first row this rank writes (with its value) or, when it writes
+    none, back at its own first slot (with the value there), so every
+    duplicate index carries one value."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = buf.device_mesh
+    on_dim = [i for i, pl in enumerate(buf.placements) if isinstance(pl, Shard) and pl.dim == dim]
+    if isinstance(val, DTensor):  # like the cache on the other dims, whole along dim
+        val = val.redistribute(mesh, [Replicate() if i in on_dim else pl
+                                      for i, pl in enumerate(buf.placements)]).to_local()
+    local = buf.to_local()
+    shard = shard_index(mesh, on_dim)
+    idx = slots - shard * local.shape[dim]
+    mine = (idx >= 0) & (idx < local.shape[dim])
+    first = torch.argmax(mine.to(torch.int32)).reshape(1)
+    anyone = mine.any()
+    idx = torch.where(mine, idx, torch.where(anyone, idx[first], torch.zeros_like(idx[first])))
+    keep = mine.reshape([-1 if d == dim else 1 for d in range(val.ndim)])
+    fill = torch.where(anyone, val.index_select(dim, first), local.narrow(dim, 0, 1))
+    local.index_copy_(dim, idx, torch.where(keep, val, fill))
+
+
 def cross_kv(cfg: ModelConfig, p: dict, ctx: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Cross-attention K/V (B, Kh, N, hd) from context embeddings (B, N, D)."""
     B, N, _ = ctx.shape
-    k = linear_apply(p["wk"], ctx).reshape(B, N, cfg.n_kv_heads, cfg.d_head)
-    v = linear_apply(p["wv"], ctx).reshape(B, N, cfg.n_kv_heads, cfg.d_head)
+    k = split_dim(linear_apply(p["wk"], ctx), -1, cfg.n_kv_heads)
+    v = split_dim(linear_apply(p["wv"], ctx), -1, cfg.n_kv_heads)
     return k.transpose(1, 2), v.transpose(1, 2)
 
 
@@ -119,16 +178,19 @@ def attn_apply(
     """
     B, Sq, D = x.shape
     H, Kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q = linear_apply(p["wq"], x).reshape(B, Sq, H, hd)
+    q = split_dim(linear_apply(p["wq"], x), -1, H)
 
     if kv is not None:  # ---------------------------------------- cross-attn
         k, v = kv
-        mask = torch.ones((Sq, k.shape[2]), dtype=torch.bool, device=x.device)
-        out = _sdpa(q, k, v, mask)
-        return linear_apply(p["wo"], out.reshape(B, Sq, H * hd)), cache
+        if exec_cfg.attn_impl == "flashcost":
+            out = _sdpa_flashcost(q, k, v)
+        else:
+            mask = torch.ones((Sq, k.shape[2]), dtype=torch.bool, device=x.device)
+            out = _sdpa(q, k, v, mask)
+        return linear_apply(p["wo"], merge_dims(out, 2)), cache
 
-    kc = linear_apply(p["wk"], x).reshape(B, Sq, Kh, hd)
-    vc = linear_apply(p["wv"], x).reshape(B, Sq, Kh, hd)
+    kc = split_dim(linear_apply(p["wk"], x), -1, Kh)
+    vc = split_dim(linear_apply(p["wv"], x), -1, Kh)
     if rope:
         q = rope_apply(q, q_pos, cfg.rope_theta)
         kc = rope_apply(kc, q_pos, cfg.rope_theta)
@@ -138,29 +200,31 @@ def attn_apply(
     if cache is None:  # ------------------------------------- train / encode
         if exec_cfg.attn_impl == "cuda" and window == 0:
             out = _sdpa_flash(q, kc, vc, causal=causal, exec_cfg=exec_cfg)
+        elif exec_cfg.attn_impl == "flashcost":
+            out = _sdpa_flashcost(q, kc, vc)
         else:
             out = _sdpa(q, kc, vc, _mask(q_pos, q_pos, causal=causal, window=window))
-        return linear_apply(p["wo"], out.reshape(B, Sq, H * hd)), None
+        return linear_apply(p["wo"], merge_dims(out, 2)), None
 
     # ------------------------------------------------- prefill / decode step
     W = cache["k"].shape[2]
     if Sq > 1:
         # prefill: attend over the in-flight full sequence (correct even when
         # Sq > W), then persist only the last W entries into the ring
-        out = _sdpa(q, kc, vc, _mask(q_pos, q_pos, causal=causal, window=window))
+        if exec_cfg.attn_impl == "flashcost":
+            out = _sdpa_flashcost(q, kc, vc)
+        else:
+            out = _sdpa(q, kc, vc, _mask(q_pos, q_pos, causal=causal, window=window))
         if Sq > W:
             kc, vc, q_pos = kc[:, :, Sq - W:], vc[:, :, Sq - W:], q_pos[Sq - W:]
-        slots = torch.remainder(q_pos, W)
-        cache["k"][:, :, slots] = kc
-        cache["v"][:, :, slots] = vc
-        cache["pos"][slots] = q_pos.to(cache["pos"].dtype)
-        return linear_apply(p["wo"], out.reshape(B, Sq, H * hd)), cache
+        _write_ring(cache, torch.remainder(q_pos, W), kc, vc, q_pos)
+        return linear_apply(p["wo"], merge_dims(out, 2)), cache
 
     # decode: write one step into slot pos mod W, attend over the cache
-    slots = torch.remainder(q_pos, W)
-    cache["k"][:, :, slots] = kc
-    cache["v"][:, :, slots] = vc
-    cache["pos"][slots] = q_pos.to(cache["pos"].dtype)
-    mask = _mask(q_pos, cache["pos"], causal=causal, window=window)
-    out = _sdpa(q, cache["k"], cache["v"], mask)
-    return linear_apply(p["wo"], out.reshape(B, Sq, H * hd)), cache
+    _write_ring(cache, torch.remainder(q_pos, W), kc, vc, q_pos)
+    if exec_cfg.attn_impl == "flashcost":
+        out = _sdpa_flashcost(q, cache["k"], cache["v"])
+    else:
+        out = _sdpa(q, cache["k"], cache["v"],
+                    _mask(q_pos, cache["pos"], causal=causal, window=window))
+    return linear_apply(p["wo"], merge_dims(out, 2)), cache

@@ -19,14 +19,16 @@ encoder stack of bidirectional ``attn`` blocks (seamless).
 
 ``ExecConfig`` keeps the knobs the port reads.  The kernel option is
 ``attn_impl="cuda"`` (the JAX package's ``"pallas"``); ``interpret=True``
-runs the kernels' plain versions on CPU tensors.  ``remat`` and
-``logits_chunk`` (the launch space's remat choice is scored by its cost
-model, :mod:`repro_torch.launch.spaces`) and ``"flashcost"`` (a dry-run
-cost surrogate) come with the dry-run slice; ``scan_layers``,
-``scan_unroll`` and ``rec_unroll`` steer XLA's ``lax.scan`` and have no
-PyTorch form (the port runs its layers and chunks in Python loops).  The
-vocab-chunked loss is an argument of ``train.make_loss_fn`` /
-``train.make_train_step``, as in the JAX package.
+runs the kernels' plain versions on CPU tensors; ``attn_impl="flashcost"``
+is the dry run's cost surrogate of the flash kernel (never a numerics
+path, see ``attention._sdpa_flashcost``).  ``remat`` checkpoints each block
+of the trainable model (``"full"``: recompute it all in the backward pass;
+``"dots"``: keep the outputs of the products without batch dims, recompute
+the rest), and ``logits_chunk`` is the vocab chunk of the loss that the
+launchers and the dry run hand to ``train.make_train_step`` (0: the full
+loss).  ``scan_layers``, ``scan_unroll`` and ``rec_unroll`` steer XLA's
+``lax.scan`` and have no PyTorch form (the port runs its layers and chunks
+in Python loops).
 """
 from __future__ import annotations
 
@@ -171,12 +173,17 @@ class ModelConfig:
 class ExecConfig:
     """Execution-time knobs (model-agnostic)."""
 
-    attn_impl: str = "xla"  # xla (plain PyTorch) | cuda (hand-written kernels)
+    attn_impl: str = "xla"  # xla (plain PyTorch) | cuda (hand-written kernels) | flashcost
+    remat: str = "none"  # none | full | dots  (activation checkpointing, training only)
+    logits_chunk: int = 0  # 0 = unchunked loss; else vocab-chunked CE
     rec_chunk: int = 128  # linear-recurrence chunk length (rwkv/rglru)
     block_q: int = 128  # flash attention tiles
     block_kv: int = 128
     interpret: bool = False  # run the kernels' plain versions on CPU tensors
 
     def __post_init__(self):
-        if self.attn_impl not in ("xla", "cuda"):
-            raise ValueError(f"attn_impl must be 'xla' or 'cuda', got {self.attn_impl!r}")
+        if self.attn_impl not in ("xla", "cuda", "flashcost"):
+            raise ValueError(f"attn_impl must be 'xla', 'cuda' or 'flashcost', "
+                             f"got {self.attn_impl!r}")
+        if self.remat not in ("none", "full", "dots"):
+            raise ValueError(f"remat must be 'none', 'full' or 'dots', got {self.remat!r}")

@@ -16,6 +16,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel.api import matmul
+
 __all__ = [
     "Init",
     "norm_init",
@@ -92,7 +94,7 @@ def linear_init(ini: Init, d_in: int, d_out: int, *, bias: bool = False) -> dict
 
 
 def linear_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
-    y = x @ p["w"].to(x.dtype)
+    y = matmul(x, p["w"].to(x.dtype))
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y
@@ -135,11 +137,11 @@ def ffn_apply(kind: str, p: dict, x: torch.Tensor) -> torch.Tensor:
     dt = x.dtype
     if kind in ("swiglu", "geglu"):
         act = F.silu if kind == "swiglu" else gelu
-        h = act(x @ p["wg"].to(dt)) * (x @ p["wi"].to(dt))
-        return h @ p["wo"].to(dt)
+        h = act(matmul(x, p["wg"].to(dt))) * matmul(x, p["wi"].to(dt))
+        return matmul(h, p["wo"].to(dt))
     if kind == "gelu":
-        h = gelu(x @ p["wi"].to(dt) + p["bi"].to(dt))
-        return h @ p["wo"].to(dt) + p["bo"].to(dt)
+        h = gelu(matmul(x, p["wi"].to(dt)) + p["bi"].to(dt))
+        return matmul(h, p["wo"].to(dt)) + p["bo"].to(dt)
     raise ValueError(f"unknown ffn kind {kind}")
 
 

@@ -29,18 +29,29 @@ Training.  :class:`TrainModel` is the trainable form: every weight is an
 fp32 master (``cfg.param_dtype``) that requires grad and is cast at use, as
 in the JAX model, and ``forward`` builds the autograd graph and returns
 ``(hidden, aux)`` like the JAX ``Model.forward`` (aux: the MoE layers'
-summed router loss, 0 without them).
+summed router loss, 0 without them).  ``ExecConfig.remat`` checkpoints each
+block of it (``torch.utils.checkpoint``, non-reentrant), where the JAX model
+checkpoints the scanned group body: ``"full"`` recomputes the whole block in
+the backward pass, ``"dots"`` keeps the Linear layers' outputs.  Serving
+(under ``no_grad``) never checkpoints.
 The same seed draws the same numbers in both forms; the serving form keeps
 the cast of them.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts, noop_context_fn)
 
-from repro_torch.parallel.api import constrain
+from repro_torch.parallel.api import (constrain, current_rules, matmul, mesh_axes,
+                                      shard_index)
+from repro_torch.parallel.sharding import state_wanted, tree_distribute
 
 from .blocks import apply_block, init_block, init_block_state
 from .config import ExecConfig, ModelConfig
@@ -52,12 +63,56 @@ _NORMS = ("norm1", "norm2", "normx", "ln1", "ln2", "final_norm", "encoder_norm")
 _FP32_AT_USE = {"rec": ("wa", "ba", "wi", "bi", "lam"), "tm": ("w0", "w1", "w2", "u"),
                 "ffn": ("router",)}
 
+#: products without batch dims: the Linear layers (``x @ w`` lowers to
+#: ``mm``); the attention einsums (``bmm``) have a batch dim
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """JAX's ``dots_with_no_batch_dims_saveable``: keep the outputs of the
+    products without batch dims, recompute everything else."""
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+#: ``ExecConfig.remat`` -> the ``context_fn`` of ``torch.utils.checkpoint``
+_REMAT_CONTEXT = {
+    "full": noop_context_fn,
+    "dots": functools.partial(create_selective_checkpoint_contexts, _dots_policy),
+}
+
 
 def keeps_fp32(path: Tuple[str, ...]) -> bool:
     """Whether the JAX model uses the parameter at ``path`` in fp32 (so the
     port stores it in fp32); every other weight is cast at use."""
     parent, leaf = (path[-2] if len(path) > 1 else ""), path[-1]
     return parent in _NORMS or leaf in _FP32_AT_USE.get(parent, ())
+
+
+def _embed_sharded(table, tokens):
+    """The rows of a DTensor table (vocab over the model axis, the model
+    dim over data) for ``tokens``, as GSPMD partitions a vocab-parallel
+    lookup: the table's model dim is gathered, each rank looks its tokens
+    up in its slice of the vocabulary (zero rows for tokens it does not
+    hold), and an all-reduce adds the slices."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = table.device_mesh
+    on_v = [i for i, pl in enumerate(table.placements) if isinstance(pl, Shard) and pl.dim == 0]
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    rows = [Replicate() if i in on_v else pl for i, pl in enumerate(tokens.placements)]
+    tok = tokens.redistribute(mesh, rows).to_local()
+    grads = [Shard(0) if i in on_v else Partial() if isinstance(rows[i], Shard) else Replicate()
+             for i in range(mesh.ndim)]
+    tab = table.redistribute(mesh, [Shard(0) if i in on_v else Replicate()
+                                    for i in range(mesh.ndim)]).to_local(grad_placements=grads)
+    shard = shard_index(mesh, on_v)
+    idx = tok - shard * tab.shape[0]
+    mine = (idx >= 0) & (idx < tab.shape[0])
+    part = F.embedding(idx.clamp(0, tab.shape[0] - 1), tab) * mine[..., None].to(tab.dtype)
+    out = DTensor.from_local(part, mesh, [Partial() if i in on_v else pl for i, pl in enumerate(rows)],
+                             run_check=False)
+    return out.redistribute(mesh, rows)
 
 
 class ParamTree(nn.Module):
@@ -131,20 +186,39 @@ class Model(nn.Module):
         new states, the summed aux loss)."""
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         new_states = []
+        remat = self.exec_cfg.remat if self.trainable and torch.is_grad_enabled() else "none"
         for kind, layer, st in zip(kinds, layers, states):
             x = constrain(x, ("dp", "sp", None))  # a no-op outside a sharding context
-            x, st, a = apply_block(kind, self.cfg, layer.tree(), x, st, q_pos=q_pos, ctx=ctx,
-                                   mode=mode, causal=causal, exec_cfg=self.exec_cfg)
+            block = functools.partial(apply_block, kind, self.cfg, layer.tree(), q_pos=q_pos,
+                                      ctx=ctx, mode=mode, causal=causal, exec_cfg=self.exec_cfg)
+            if remat == "none":
+                x, st, a = block(x, st)
+            else:
+                x, st, a = checkpoint(block, x, st, use_reentrant=False,
+                                      context_fn=_REMAT_CONTEXT[remat])
             new_states.append(st)
             aux = aux + a
         return x, new_states, aux
 
     def _init_states_for(self, kinds, batch: int, max_len: int, mode: str) -> list:
-        return [
+        states = [
             init_block_state(kind, self.cfg, batch, max_len, mode, window=self.cfg.window,
                              device=self.device)
             for kind in kinds
         ]
+        return self._place_states(states)
+
+    def _place_states(self, states: list) -> list:
+        """Inside a sharding context, on a model whose parameters are
+        DTensors (the dry run's), the states as DTensors placed by the
+        sharding rules (``state_wanted``); elsewhere unchanged."""
+        ctx = current_rules()
+        if ctx is None or not isinstance(self.embedding.table, DTensor):
+            return states
+        mesh, rules = ctx
+        tp = mesh_axes(mesh).get("model", 0)
+        return tree_distribute(mesh, rules, states,
+                               lambda path, shape: state_wanted(path, shape, tp_size=tp))
 
     def init_states(self, batch: int, max_len: int, mode: str) -> list:
         """Per-layer states in pattern order ({} for stateless attention)."""
@@ -153,7 +227,10 @@ class Model(nn.Module):
     # ------------------------------------------------------------ embeddings
     def embed(self, tokens: torch.Tensor) -> torch.Tensor:
         # the rows, then the cast: the same values as casting the table first
-        return self.embedding.table[tokens].to(self.compute_dtype)
+        table = self.embedding.table
+        if isinstance(table, DTensor):  # the dry run's
+            return _embed_sharded(table, tokens).to(self.compute_dtype)
+        return table[tokens].to(self.compute_dtype)
 
     def head_weights(self) -> torch.Tensor:
         if self.cfg.tie_embeddings:
@@ -161,7 +238,7 @@ class Model(nn.Module):
         return self.lm_head.w
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.head_weights().to(x.dtype)
+        return matmul(x, self.head_weights().to(x.dtype))
 
     # --------------------------------------------------------------- encoder
     def encode(self, frames: torch.Tensor) -> torch.Tensor:

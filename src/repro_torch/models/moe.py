@@ -23,9 +23,11 @@ sharding context (:mod:`repro_torch.parallel.api`).
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.parallel.api import constrain
 
@@ -60,10 +62,11 @@ def capacity(cfg: ModelConfig, tokens: int) -> int:
     return int(math.ceil(assignments / cfg.n_experts * cfg.capacity_factor))
 
 
-def route(cfg: ModelConfig, p: dict, xt: torch.Tensor) -> dict:
+def route(cfg: ModelConfig, p: dict, xt: torch.Tensor, C: Optional[int] = None) -> dict:
     """Routing of tokens xt (T, D), in fp32: the renormalised top-k gates
     and experts (T, K), the aux loss, and each assignment's expert, slot
-    and whether it is kept (T·K, in token-major, slot-minor order)."""
+    and whether it is kept (T·K, in token-major, slot-minor order).  ``C``
+    is the slots per expert (default ``capacity(cfg, T)``)."""
     T = xt.shape[0]
     E, K = cfg.n_experts, cfg.top_k
     logits = xt.float() @ p["router"].float()  # (T,E)
@@ -76,7 +79,7 @@ def route(cfg: ModelConfig, p: dict, xt: torch.Tensor) -> dict:
     ce = F.one_hot(eidx, E).float().sum(dim=1).mean(dim=0)
     aux = E * (me * ce).sum()
 
-    C = capacity(cfg, T)
+    C = capacity(cfg, T) if C is None else C
     flat_e = eidx.reshape(T * K)
     # running count per expert along the assignments, scanned expert-major
     # (E, T·K): a scan along the inner dim, where a (T·K, E) scan along the
@@ -90,6 +93,8 @@ def route(cfg: ModelConfig, p: dict, xt: torch.Tensor) -> dict:
 
 def moe_apply(cfg: ModelConfig, p: dict, x: torch.Tensor):
     """x: (B, S, D) -> (y, aux_loss)."""
+    if isinstance(x, DTensor):
+        return _moe_sharded(cfg, p, x)
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
     T = B * S
@@ -116,3 +121,52 @@ def moe_apply(cfg: ModelConfig, p: dict, x: torch.Tensor):
     if cfg.moe_dense_residual:
         y = y + ffn_apply("swiglu", p["dense"], xt)
     return y.reshape(B, S, D), r["aux"]
+
+
+def _moe_sharded(cfg: ModelConfig, p: dict, x):
+    """``moe_apply`` on DTensors (the dry run's), as GShard partitions it:
+    each data shard routes its own tokens (its group, with its share of
+    the whole batch's capacity, the slots of the global buffer it holds)
+    into a local (E, C, D) buffer; the buffer, replicated
+    over the model axis, is cut by experts there (no collective), the
+    experts' products run where their weights live (their FSDP dim
+    gathered), and an all-gather over the model axis brings every expert's
+    output back for the combine."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from repro_torch.parallel.api import einsum
+
+    mesh = x.device_mesh
+    B, S, D = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    dt = x.dtype
+    rows = [pl if isinstance(pl, Shard) and pl.dim == 0 else Replicate() for pl in x.placements]
+    batch_dims = [i for i, pl in enumerate(rows) if isinstance(pl, Shard)]
+    xl = x.redistribute(mesh, rows).to_local()
+    router = p["router"].redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+        grad_placements=[Partial() if i in batch_dims else Replicate() for i in range(mesh.ndim)])
+    Bl = xl.shape[0]
+    T = Bl * S
+    xt = xl.reshape(T, D)
+    r = route(cfg, {"router": router}, xt, C=max(1, capacity(cfg, B * S) * Bl // B))
+    C, keep = r["capacity"], r["keep"]
+    flat = r["expert"] * C + r["slot"]
+    xr = xt[:, None, :].expand(T, K, D).reshape(T * K, D)
+    contrib = torch.where(keep[:, None], xr, torch.zeros((), dtype=dt, device=xt.device))
+    buf = torch.zeros(E * C, D, dtype=dt, device=xt.device).index_add_(0, flat, contrib)
+    cap = [Shard(1) if i in batch_dims else Replicate() for i in range(mesh.ndim)]
+    buf = DTensor.from_local(buf.view(E, C, D), mesh, cap, run_check=False)
+    buf = constrain(buf, ("ep", "dp", None))  # EP: experts over model axis
+    h = F.silu(einsum("ecd,edf->ecf", buf, p["wg"].to(dt))) * einsum("ecd,edf->ecf", buf,
+                                                                       p["wi"].to(dt))
+    out = einsum("ecf,efd->ecd", h, p["wo"].to(dt))
+    out = out.redistribute(mesh, cap).to_local().reshape(E * C, D)
+    yr = out[flat] * (r["gate"].reshape(T * K, 1).to(dt) * keep[:, None].to(dt))
+    y = DTensor.from_local(yr.view(T, K, D).sum(dim=1).reshape(Bl, S, D), mesh, rows,
+                           run_check=False)
+    aux = DTensor.from_local(r["aux"], mesh, [Partial("avg") if i in batch_dims else Replicate()
+                                              for i in range(mesh.ndim)], run_check=False)
+    aux = aux.redistribute(mesh, [Replicate()] * mesh.ndim)
+    if cfg.moe_dense_residual:
+        y = y + ffn_apply("swiglu", p["dense"], x)
+    return y, aux

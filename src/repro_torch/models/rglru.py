@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
+from repro_torch.parallel.api import matmul
 
 from .config import ExecConfig, ModelConfig
 from .layers import Init, gelu
@@ -106,14 +107,14 @@ def rglru_apply(
     """Temporal-mix half of the Griffin block (residual handled by caller).
     x: (B,T,D) pre-normed. Returns (out (B,T,D), new_state)."""
     dt = x.dtype
-    ga = gelu(x @ p["wx_gelu"].to(dt))  # branch (a)
-    xb = x @ p["wx_rec"].to(dt)  # branch (b)
+    ga = gelu(matmul(x, p["wx_gelu"].to(dt)))  # branch (a)
+    xb = matmul(x, p["wx_rec"].to(dt))  # branch (b)
     xb, new_conv = _causal_conv1d(xb, p["conv_w"], p["conv_b"], state["conv"])
 
     # RG-LRU gates (fp32 for the recurrence)
     xf = xb.float()
-    r = torch.sigmoid(xf @ p["wa"].float() + p["ba"])
-    i = torch.sigmoid(xf @ p["wi"].float() + p["bi"])
+    r = torch.sigmoid(matmul(xf, p["wa"].float()) + p["ba"])
+    i = torch.sigmoid(matmul(xf, p["wi"].float()) + p["bi"])
     log_a_base = -F.softplus(-p["lam"].float())  # log sigmoid(Λ)  (<= 0)
     log_a = _C * r * log_a_base[None, None, :]
     a = torch.exp(log_a)
@@ -130,5 +131,5 @@ def rglru_apply(
     else:
         hs, hT = lru_scan(a, b, state["h"])
 
-    out = (hs.to(dt) * ga) @ p["wo"].to(dt)
+    out = matmul(hs.to(dt) * ga, p["wo"].to(dt))
     return out, {"h": hT, "conv": new_conv}

@@ -20,9 +20,11 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import rwkv_scan_ref
+from repro_torch.parallel.api import einsum, matmul, split_dim
 
 from .config import ExecConfig, ModelConfig
 from .layers import Init, norm_apply
@@ -108,19 +110,45 @@ def wkv_chunked(r, k, v, lw, u, s0, chunk: int = 32):
     expo = (c - lwf)[..., :, None, :] - c[..., None, :, :]  # (nc,B,H,L,L,hd)
     tri = torch.tril(torch.ones((L, L), dtype=torch.bool, device=r.device), diagonal=-1)
     ew = torch.where(tri[..., None], torch.exp(torch.clamp(expo, max=0.0)), torch.zeros((), device=r.device))
-    scores = torch.einsum("nbhtsi,nbhti,nbhsi->nbhts", ew, rf, kf)
-    diag = torch.einsum("nbhti,hi,nbhti->nbht", rf, u.float(), kf)
+    scores = einsum("nbhtsi,nbhti,nbhsi->nbhts", ew, rf, kf)
+    diag = einsum("nbhti,hi,nbhti->nbht", rf, u.float(), kf)
     ii = torch.arange(L, device=r.device)
     scores[..., ii, ii] += diag
-    y_intra = torch.einsum("nbhts,nbhsv->nbhtv", scores, vf)
+    y_intra = einsum("nbhts,nbhsv->nbhtv", scores, vf)
 
     S, ys = s0.float(), []
     for n in range(nc):
-        ys.append(y_intra[n] + torch.einsum("bhti,bhiv->bhtv", q_dec[n], S))
-        S = torch.exp(c[n, ..., -1, :])[..., None] * S + torch.einsum(
+        ys.append(y_intra[n] + einsum("bhti,bhiv->bhtv", q_dec[n], S))
+        S = torch.exp(c[n, ..., -1, :])[..., None] * S + einsum(
             "bhsi,bhsv->bhiv", k_end[n], vf[n])
     y = torch.stack(ys, dim=0).permute(1, 0, 3, 2, 4).reshape(B, T, H, hd)
     return y.to(r.dtype), S
+
+
+def _per_shard(fn, r, k, v, lw, u, s0, **kw):
+    """``fn(r, k, v, lw, u, s0)`` (a WKV recurrence).  On DTensors (the
+    dry run's) it runs on each rank's shard: the recurrence is independent
+    per sequence and head, so r/k/v/lw keep their batch and head shards
+    (the rest gathered), ``u`` and the state follow the heads, and the
+    results are the DTensors of the local ones."""
+    if not isinstance(r, DTensor):
+        return fn(r, k, v, lw, u, s0, **kw)
+    mesh = r.device_mesh
+    seq = [pl if isinstance(pl, Shard) and pl.dim in (0, 2) else Replicate() for pl in r.placements]
+    heads = [Shard(0) if isinstance(pl, Shard) and pl.dim == 2 else Replicate() for pl in seq]
+    state = [Shard(1) if isinstance(pl, Shard) and pl.dim == 2 else pl for pl in seq]
+    batch = [isinstance(pl, Shard) and pl.dim == 0 for pl in seq]
+
+    def local(t, placements, grads=None):
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+        return t.redistribute(mesh, placements).to_local(grad_placements=grads)
+
+    u_grads = [Partial() if b else pl for b, pl in zip(batch, heads)]  # summed over sequences
+    y, sT = fn(*(local(t, seq) for t in (r, k, v, lw)), local(u, heads, u_grads),
+               local(s0, state), **kw)
+    return (DTensor.from_local(y, mesh, seq, run_check=False),
+            DTensor.from_local(sT, mesh, state, run_check=False))
 
 
 # ----------------------------------------------------------------- the block
@@ -128,10 +156,10 @@ def _ddlerp(x, x_prev, tm):
     """Data-dependent token-shift interpolation (Finch §3)."""
     dx = x_prev - x
     xxx = x + dx * tm["mu_x"].to(x.dtype)
-    z = torch.tanh(xxx @ tm["mix_w1"].to(x.dtype))  # (B,T,5*R)
+    z = torch.tanh(matmul(xxx, tm["mix_w1"].to(x.dtype)))  # (B,T,5*R)
     B, T = x.shape[:2]
-    z = z.reshape(B, T, 5, _LORA_MIX)
-    deltas = torch.einsum("btfr,frd->btfd", z, tm["mix_w2"].to(x.dtype))
+    z = split_dim(z, -1, 5)  # (B,T,5,R)
+    deltas = einsum("btfr,frd->btfd", z, tm["mix_w2"].to(x.dtype))
     mixed = x[:, :, None, :] + dx[:, :, None, :] * (tm["mu_5"].to(x.dtype)[None, None] + deltas)
     return tuple(mixed[:, :, i] for i in range(5))  # xw, xk, xv, xr, xg
 
@@ -155,20 +183,22 @@ def rwkv_apply(
     xn = norm_apply("layernorm", p["ln1"], x)
     xs = torch.cat([state["shift_tm"][:, None, :], xn[:, :-1]], dim=1)
     xw, xk, xv, xr, xg = _ddlerp(xn, xs, tm)
-    r = (xr @ tm["wr"].to(dt)).reshape(B, T, H, hd)
-    k = (xk @ tm["wk"].to(dt)).reshape(B, T, H, hd)
-    v = (xv @ tm["wv"].to(dt)).reshape(B, T, H, hd)
-    g = xg @ tm["wg"].to(dt)
-    wlog = tm["w0"].float() + torch.tanh(xw.float() @ tm["w1"].float()) @ tm["w2"].float()
-    lw = -torch.exp(wlog).reshape(B, T, H, hd)  # log decay <= 0
+    r = split_dim(matmul(xr, tm["wr"].to(dt)), -1, H)
+    k = split_dim(matmul(xk, tm["wk"].to(dt)), -1, H)
+    v = split_dim(matmul(xv, tm["wv"].to(dt)), -1, H)
+    g = matmul(xg, tm["wg"].to(dt))
+    wlog = tm["w0"].float() + matmul(torch.tanh(matmul(xw.float(), tm["w1"].float())),
+                                     tm["w2"].float())
+    lw = split_dim(-torch.exp(wlog), -1, H)  # log decay <= 0
 
     if T == 1 or exec_cfg.rec_chunk <= 1 or T % min(exec_cfg.rec_chunk, T):
-        y, sT = wkv_scan_ref(r, k, v, lw, tm["u"], state["wkv"])
+        y, sT = _per_shard(wkv_scan_ref, r, k, v, lw, tm["u"], state["wkv"])
     elif exec_cfg.attn_impl == "cuda":
         y, sT = kops.rwkv_scan(r, k, v, lw, tm["u"], state["wkv"], chunk=exec_cfg.rec_chunk,
                                interpret=exec_cfg.interpret)
     else:
-        y, sT = wkv_chunked(r, k, v, lw, tm["u"], state["wkv"], chunk=exec_cfg.rec_chunk)
+        y, sT = _per_shard(wkv_chunked, r, k, v, lw, tm["u"], state["wkv"],
+                           chunk=exec_cfg.rec_chunk)
 
     # per-head groupnorm, gate, out-proj
     yf = y.reshape(B, T, H, hd)
@@ -180,7 +210,7 @@ def rwkv_apply(
     var = (y32 - mu32).square().mean(dim=-1, keepdim=True).to(dt)
     yn = ((yf - mu) * torch.rsqrt(var + 64e-5)).reshape(B, T, D)
     yn = yn * tm["ln_x"]["scale"].to(dt) + tm["ln_x"]["bias"].to(dt)
-    out_tm = (yn * F.silu(g)) @ tm["wo"].to(dt)
+    out_tm = matmul(yn * F.silu(g), tm["wo"].to(dt))
     x = x + out_tm
     new_state = {"shift_tm": xn[:, -1], "wkv": sT}
 
@@ -190,7 +220,7 @@ def rwkv_apply(
     dx2 = xs2 - xn2
     xk2 = xn2 + dx2 * cm["mu_k"].to(dt)
     xr2 = xn2 + dx2 * cm["mu_r"].to(dt)
-    kk = torch.square(torch.relu(xk2 @ cm["wk"].to(dt)))
-    out_cm = torch.sigmoid(xr2 @ cm["wr"].to(dt)) * (kk @ cm["wv"].to(dt))
+    kk = torch.square(torch.relu(matmul(xk2, cm["wk"].to(dt))))
+    out_cm = torch.sigmoid(matmul(xr2, cm["wr"].to(dt))) * matmul(kk, cm["wv"].to(dt))
     new_state["shift_cm"] = xn2[:, -1]
     return x + out_cm, new_state

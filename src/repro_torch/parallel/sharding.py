@@ -28,7 +28,7 @@ from typing import Tuple
 from .api import ShardingRules, logical_spec, to_placements
 
 __all__ = ["param_wanted", "batch_wanted", "state_wanted", "tree_shardings", "path_str",
-           "replicated"]
+           "replicated", "tree_distribute"]
 
 #: the port's top-level module names that the JAX package spells otherwise
 _JAX_NAMES = {"embedding": "embed", "encoder_norm": "encoder/norm"}
@@ -171,6 +171,19 @@ def tree_shardings(mesh, rules: ShardingRules, tree, wanted_fn) -> object:
         path = path_str(keys)
         wanted = wanted_fn(path, tuple(x.shape))
         return to_placements(mesh, logical_spec(mesh, rules, x.shape, wanted))
+
+    return _map_leaves(tree, leaf)
+
+
+def tree_distribute(mesh, rules: ShardingRules, tree, wanted_fn) -> object:
+    """``tree`` with each tensor distributed (``distribute_tensor``) to the
+    placements :func:`tree_shardings` gives it."""
+    from torch.distributed.tensor import distribute_tensor
+
+    def leaf(keys, x):
+        wanted = wanted_fn(path_str(keys), tuple(x.shape))
+        return distribute_tensor(x, mesh, to_placements(mesh, logical_spec(mesh, rules, x.shape,
+                                                                           wanted)))
 
     return _map_leaves(tree, leaf)
 

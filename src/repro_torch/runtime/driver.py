@@ -135,7 +135,8 @@ class TrainJob:
             start_step = step_loaded + 1
 
         def factory(microbatches=1):
-            return make_train_step(model, opt, microbatches=microbatches)
+            return make_train_step(model, opt, microbatches=microbatches,
+                                   logits_chunk=model.exec_cfg.logits_chunk)
 
         ran = {"knobs": {}}
         tuned: Optional[TunedStep] = None

@@ -48,16 +48,21 @@ Illegal tiles still cost ``inf`` (their build fails first).
 
 ``--launch`` tunes the launch-level grid instead of kernel tiles
 (:mod:`repro_torch.launch.spaces`: the dp x tp factorization of
-``--devices`` cards, default 8 — one HGX H100 node — microbatches, remat,
-collective chunking and the XLA preset's cost terms) with the same journal,
-``--shard``, ``--list``, ``--resume`` and ``--only`` handling.  ``--cost
-analytic`` scores each candidate with the deterministic launch cost model
-on the H100 data sheet: host arithmetic that launches no kernel and needs
-no card.  ``--cost runtime`` (compile each candidate and charge its
-roofline bound) waits for the dry-run slice and exits 1.
+``--devices`` cards, else ``REPRO_DRYRUN_DEVICES``, else 8 — one HGX H100
+node — microbatches, remat, collective chunking and the XLA preset's cost
+terms) with the same journal, ``--shard``, ``--list``, ``--resume`` and
+``--only`` handling.  ``--cost analytic`` scores each candidate with the
+deterministic launch cost model on the H100 data sheet; ``--cost runtime``
+counts each candidate's step with the dry run
+(:mod:`repro_torch.launch.dryrun`: a fake process group of that many
+ranks, DTensors on the meta device) and charges its roofline bound on the
+same data sheet.  Both are host work: no kernel runs and no card is
+needed.  ``--tiny`` tunes the reduced configs (the CPU tests).
 
     PYTHONPATH=src python -m repro_torch.tuning.pretune --launch --cost analytic \
         --smoke --db /tmp/launch.json
+    PYTHONPATH=src python -m repro_torch.tuning.pretune --launch --cost runtime \
+        --smoke --devices 8 --db /tmp/launch_dryrun.json
 
 ``python -m repro_torch.tune pretune`` is the same command behind the
 umbrella CLI, which also provides ``db merge`` / ``db list`` / ``db diff`` and
@@ -267,7 +272,8 @@ def _launch_main(args, db, *, max_iter: int) -> int:
     from repro_torch.tuning import RunJournal
 
     n_devices = args.devices
-    mode = "model"
+    mode = "model" if args.cost == "analytic" else "dryrun"
+    get_cfg = configs.get_tiny if args.tiny else configs.get
     cases = launch_cases(smoke=args.smoke)
     if args.only:
         cases = [
@@ -280,7 +286,7 @@ def _launch_main(args, db, *, max_iter: int) -> int:
         return 2
 
     def case_key(arch, shape_name):
-        cfg = configs.get(arch)
+        cfg = get_cfg(arch)
         shape = configs.SHAPES[shape_name]
         space = launch_space(cfg, shape, n_devices)
         return launch_key(arch, shape, n_devices, space, mode=mode), space
@@ -352,6 +358,7 @@ def _launch_main(args, db, *, max_iter: int) -> int:
                 search=args.strategy,
                 warm_start=not args.no_warm_start,
                 source="pretune",
+                tiny=args.tiny,
                 stats=stats,
             )
             dt = time.perf_counter() - t0
@@ -464,13 +471,17 @@ def main(argv=None, prog: str = "repro_torch.tuning.pretune") -> int:
         help="tune the launch-level grid (launch.spaces: mesh dp x tp "
              "factorization, microbatches, remat, collective chunking, XLA "
              "preset) instead of kernel tiles; '--cost analytic' scores "
-             "candidates with the deterministic launch cost model (host "
-             "arithmetic, no card); '--cost runtime' waits for the dry-run slice",
+             "candidates with the deterministic launch cost model, '--cost "
+             "runtime' with the dry run's roofline bound (both host work, no card)",
     )
     ap.add_argument(
-        "--devices", type=int, default=8,
-        help="card count the launch grid factorizes (with --launch; default 8, "
-             "one HGX H100 node)",
+        "--devices", type=int, default=None,
+        help="card count the launch grid factorizes (with --launch; default "
+             "REPRO_DRYRUN_DEVICES, else 8, one HGX H100 node)",
+    )
+    ap.add_argument(
+        "--tiny", action="store_true",
+        help="with --launch: tune the reduced configs (the CPU tests)",
     )
     args = ap.parse_args(argv)
 
@@ -479,18 +490,14 @@ def main(argv=None, prog: str = "repro_torch.tuning.pretune") -> int:
         from repro_torch.core.costs import H100_SXM
         from repro_torch.tuning import TuningDB
 
-        if args.cost != "analytic":
-            from repro_torch.launch.spaces import _DRYRUN
-
-            print(f"pretune: --launch --cost {args.cost}: NotImplementedError: {_DRYRUN}; "
-                  "use --cost analytic", file=sys.stderr)
-            return 1
         if args.obs_dir:
             obs.configure(args.obs_dir)
         else:
             obs.configure_from_env()
         db = TuningDB(args.db)
-        print(f"pretune: db={args.db} ({len(db)} records) launch model on {H100_SXM.name}, "
+        args.devices = args.devices or int(os.environ.get("REPRO_DRYRUN_DEVICES") or 8)
+        how = "launch model" if args.cost == "analytic" else "dry run"
+        print(f"pretune: db={args.db} ({len(db)} records) {how} on {H100_SXM.name}, "
               f"{args.devices} cards")
         max_iter = args.max_iter if args.max_iter is not None else (2 if args.smoke else 4)
         return _launch_main(args, db, max_iter=max_iter)

@@ -1058,3 +1058,27 @@ def test_train_distributed_under_torchrun_on_the_card():
     assert proc.returncode == 0, proc.stderr[-3000:]
     got = json.loads(proc.stdout[proc.stdout.index("{"):])
     assert got["steps"] == 3 and got["final_loss"] == plain["final_loss"]
+
+
+@pytest.mark.cuda
+def test_step_counter_counts_the_same_on_the_card():
+    """``core.costs.StepCounter`` on CUDA tensors: a product's FLOPs are
+    2·M·N·K and a copy's bytes its input and output exactly, as on the dry
+    run's meta tensors, and the peak counts the live storages."""
+    from repro_torch.core.costs import StepCounter
+
+    dev = _card()
+    M, K, N = 256, 384, 512
+    a = torch.randn(M, K, device=dev, dtype=torch.bfloat16)
+    b = torch.randn(K, N, device=dev, dtype=torch.bfloat16)
+    for device in ("cuda", "meta"):
+        x, y = (a, b) if device == "cuda" else (a.to("meta"), b.to("meta"))
+        counter = StepCounter(device=device)
+        counter.hold([x, y])
+        with counter:
+            c = x @ y
+            d = c.clone()
+        assert counter.flops == 2 * M * N * K
+        assert counter.bytes_accessed == 2 * (M * K + K * N + M * N) + 2 * (2 * M * N)
+        assert counter.peak_bytes == 2 * (M * K + K * N + 2 * M * N)
+        assert counter.coll_bytes == 0 and d.shape == (M, N)

@@ -61,10 +61,14 @@ import repro_torch.core.tuned_jit, repro_torch.runtime.driver, repro_torch.model
 import repro_torch.parallel, repro_torch.parallel.api, repro_torch.parallel.sharding
 import repro_torch.parallel.collectives, repro_torch.parallel.pipeline, repro_torch.parallel.devices
 import repro_torch.launch.mesh, repro_torch.launch.input_specs, repro_torch.launch.spaces
-from repro_torch.launch import serve, train
+import repro_torch.launch.costing, repro_torch.launch.dryrun, repro_torch.launch.hillclimb
+from repro_torch.launch import dryrun, serve, train
 from repro_torch.launch.spaces import tune_launch
 launch_rec = tune_launch("qwen2_7b", "train_4k", 8, max_iter=2, warm_start=False)
 assert launch_rec is not None and launch_rec.key.backend == "model"
+cell = dryrun.run_cell("rwkv6_7b", "train_4k", tiny=True, mesh_spec=((2, 2), ("data", "model")),
+                       verbose=False)
+assert cell["status"] == "ok" and cell["roofline"]["flops"] > 0
 from repro_torch.kernels import autotuned, kernel_router, routed, tune_call
 from repro_torch.tuning import TuningDB
 a = torch.from_numpy(np.random.RandomState(0).standard_normal((64, 64)).astype(np.float32))

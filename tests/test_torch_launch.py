@@ -154,11 +154,30 @@ def test_h100_is_the_default_target():
     assert cost(pt) < slow(pt)
 
 
-def test_dryrun_mode_waits_for_its_slice():
-    with pytest.raises(NotImplementedError, match="dry-run slice"):
-        tspaces.tune_launch("qwen2_7b", "train_4k", 8, mode="dryrun")
-    with pytest.raises(NotImplementedError, match="dry-run slice"):
-        tspaces._dryrun_cost_fn("qwen2_7b", tconfigs.SHAPES["train_4k"], 8)
+def test_dryrun_mode_waits_for_its_slice(tmp_path):
+    """(The name dates from before the dry-run slice, when this mode
+    raised.)  ``mode="dryrun"`` on a tiny arch over 8 fake ranks: each candidate's
+    step is counted by the dry run and charged its roofline bound; the
+    committed best is no worse than the default launch, and a second call
+    on the same DB replays with nothing measured."""
+    from repro_torch.tuning import TuningDB
+
+    db = TuningDB(str(tmp_path / "d.json"))
+    stats: dict = {}
+    rec = tspaces.tune_launch("qwen2_7b", "train_4k", 8, mode="dryrun", tiny=True, db=db,
+                              max_iter=1, warm_start=False, stats=stats)
+    assert rec is not None and stats["measured"] > 0 and not stats["replayed"]
+    assert 0 < stats["best_cost"] <= stats["default_cost"] < float("inf")
+    cost = tspaces._dryrun_cost_fn("qwen2_7b", tconfigs.SHAPES["train_4k"], 8, tiny=True)
+    assert cost(rec.point) == rec.cost  # the dry run's counts are deterministic
+    again: dict = {}
+    rec2 = tspaces.tune_launch("qwen2_7b", "train_4k", 8, mode="dryrun", tiny=True, db=db,
+                               max_iter=1, stats=again)
+    assert again["replayed"] and again["measured"] == 0 and rec2.point == rec.point
+    key = tspaces.launch_key("qwen2_7b", tconfigs.SHAPES["train_4k"], 8,
+                             tspaces.launch_space(tconfigs.get_tiny("qwen2_7b"),
+                                                  tconfigs.SHAPES["train_4k"], 8), mode="dryrun")
+    assert db.get(key) is not None and json.loads(key.extra)["mode"] == "dryrun"
     with pytest.raises(ValueError):
         tspaces.tune_launch("qwen2_7b", "train_4k", 8, mode="measured")
 
@@ -234,11 +253,21 @@ def test_pretune_launch_shards_partition_the_grid(tmp_path, capsys):
     assert len(set().union(*keys)) == len(CASES)
 
 
-def test_pretune_launch_runtime_cost_exits_nonzero(tmp_path, capsys):
-    assert _pretune("--cost", "runtime", "--smoke", "--db", str(tmp_path / "l.json")) == 1
-    assert _pretune("--smoke", "--db", str(tmp_path / "l.json")) == 1  # runtime is the default
-    err = capsys.readouterr().err
-    assert err.count("NotImplementedError") == 2 and "dry-run slice" in err
+def test_pretune_launch_runtime_cost_exits_nonzero(tmp_path, capsys, monkeypatch):
+    """(The name dates from before the dry-run slice, when this exited 1.)
+    ``--cost runtime`` (the default) scores launch candidates with the dry
+    run; ``--devices`` falls back to REPRO_DRYRUN_DEVICES.  Twice on one DB:
+    the second run is 3 exact hits."""
+    db = str(tmp_path / "l.json")
+    monkeypatch.setenv("REPRO_DRYRUN_DEVICES", "2")
+    assert _pretune("--cost", "runtime", "--smoke", "--tiny", "--max-iter", "1", "--db", db) == 0
+    out = capsys.readouterr().out
+    assert "dry run on h100-sxm, 2 cards" in out
+    assert "3 launch contexts tuned (0 exact hits, 3 searched)" in out and "(dryrun)" in out
+    assert _pretune("--smoke", "--tiny", "--max-iter", "1", "--db", db) == 0
+    out = capsys.readouterr().out
+    assert "3 launch contexts tuned (3 exact hits, 0 searched)" in out
+    assert out.count("(replayed)") == 3
 
 
 def test_umbrella_cli_passes_launch_through(tmp_path):

@@ -315,14 +315,20 @@ def test_forward_matches_jax(arch):
 
 def test_unported_kinds_raise(tmp_path, capsys):
     """Every block kind, FFN and architecture of the JAX package now runs,
-    and so does multi-process training; what still raises is the launch
-    dry run (the dry-run slice): ``tune_launch(mode="dryrun")`` and
-    ``pretune --launch --cost runtime``."""
-    from repro_torch.launch.spaces import tune_launch
-    from repro_torch.tuning import pretune
+    and so do multi-process training and the launch dry run: no module of
+    the port names a slice still to come; what still raises is a name no
+    package knows."""
+    from pathlib import Path
 
-    with pytest.raises(NotImplementedError, match="dry-run slice"):
-        tune_launch("qwen2_7b", "train_4k", 8, mode="dryrun")
-    assert pretune.main(["--launch", "--cost", "runtime", "--smoke",
-                         "--db", str(tmp_path / "l.json")]) == 1
-    assert "dry-run slice" in capsys.readouterr().err
+    from repro_torch.launch.spaces import tune_launch
+
+    port = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+    stubs = [str(p) for p in port.rglob("*.py") if "slice of the port" in p.read_text()
+             or "dry-run slice" in p.read_text()]
+    assert not stubs, stubs
+    with pytest.raises(ValueError):
+        tune_launch("qwen2_7b", "train_4k", 8, mode="measured")
+    with pytest.raises(KeyError):
+        tconfigs.get("no_such_arch")
+    with pytest.raises(ValueError):
+        TExec(attn_impl="pallas")
