@@ -109,9 +109,16 @@ Phases, each printing its numbers on lines of its own:
    the drops counted per layer), a decode step is drop-free (C = T·K =
    48), graph tokens equal eager tokens;
 14. qwen2-7b at full width and depth, the same serve arguments, twice on
-   one DB (no kernel on this path), graph decode against eager;
-15. llama-3.2-vision-11b and arctic-480b ``--tiny`` on the card (batch 8,
-   prompt 256): prefill and graph decode against eager;
+   one DB (no kernel on this path), graph decode against eager; then one
+   eager decode step under ``torch.profiler`` with shapes recorded: the
+   scores come from ``aten::bmm`` in its fp32-output overload, one per
+   attention layer, and nothing copies or converts a tensor of the K
+   cache's shape;
+15. llama-3.2-vision-11b at full width and depth (40 layers, 8 with cross
+   attention over ``ctx_embeds`` (8, 6400, 4096)), the same serve arguments,
+   twice on one DB, graph decode against eager, the peak memory; then
+   arctic-480b ``--tiny`` (batch 8, prompt 256; it fits no card): prefill
+   and graph decode against eager;
 16. the device-pinned fleet: ``local_device_pool(4, cache=exec_cache())``
    (every slot on the one card), then a ``ShardedPortfolio`` race (two CSA
    members, a random search and a Nelder-Mead) over the matmul kernel's
@@ -155,18 +162,40 @@ Phases, each printing its numbers on lines of its own:
    ``elapsed_s``;
    ``pretune --launch --cost runtime --smoke --devices 8`` twice (3
    searched, then 3 exact hits; each committed best no worse than its
-   default); ``hillclimb --arch qwen2_7b --shape train_4k --budget 6``.
+   default); ``hillclimb --arch qwen2_7b --shape train_4k --budget 6``;
+20. starcoder2-15b at full width and depth (LayerNorm, the GELU MLP and
+   the q/k/v biases, checked on the served weights), the same serve
+   arguments, twice on one DB, graph decode against eager, the peak;
+21. the plain attention (``_sdpa``) in the reference's product form (bf16
+   q and k multiplied with fp32 output) against an inline copy of the
+   upcast form it replaced, on the same tensors at qwen2-7b's prefill and
+   decode step, seamless's cross attention and moonshot's prefill: CUDA-event
+   ms of each (in turns), the peak bytes each allocates, outputs within
+   ``SDPA_TOL``;
+22. training seamless-m4t-large-v2 at full width and depth through
+   ``TrainJob`` (frames (3, 4096, 1024), batch 3 x 512 decoder tokens, the
+   largest batch under 80 GB, lr 1e-3 with no warmup, 6 steps): the loss per
+   step (finite, the last below the first), step ms, tokens/s, the peak, and
+   the flash launches per step (the 24 encoder layers non-causal and the 24
+   decoder self-attentions causal, all of the ``wgmma`` design, the count
+   taken from the config); then the kernel path against the plain path on
+   one sequence, no update (loss 1e-3, gradient norm 1e-2 relative);
+23. moonshot-v1-16b-a3b at full width with 2 of its 48 layers through
+   ``make_train_step``, batch 1 x 2048, 4 steps: the same checks and prints,
+   the flash kernel causal, and the MoE dispatch's capacity branch with its
+   drops per layer.
 
-Phases 10-11, 12-15 and 16-17 with 19 run after phase 7, before serving, in
-three child processes (``--train-phases``, ``--family-phases``,
-``--parallel-phases``), one after the other, each with the card to itself:
+Phases 10-11 with 22-23, 12-15 with 20-21, and 16-17 with 19 run after
+phase 7, before serving, in three child processes (``--train-phases``,
+``--family-phases``, ``--parallel-phases``), one after the other, each with
+the card to itself:
 this process keeps what its caching allocator holds until it exits.  Each
 child reports its launch counts on its last line; phase 18's torchrun rank
 (``--distributed-train``) does the same.
 
-Phases 3-5 (the tuning loop), phase 6 (the route), phases 8-9 and 12-15
-(serving), phases 10-11 (training) and phases 16-19 (the parallel layer
-and the launch dry run's calibration) are the main paths:
+Phases 3-5 (the tuning loop), phase 6 (the route), phases 8-9, 12-15 and
+20 (serving), phases 10-11 and 22-23 (training) and phases 16-19 (the
+parallel layer and the launch dry run's calibration) are the main paths:
 the kernels' launch counters are set to 0 just before each path and read
 just after, and every kernel must have launched on one of them.
 The line before the last two is a JSON object with one entry per kernel;
@@ -229,22 +258,39 @@ LRU_SHAPE = (8, 2048, 2560)  # recurrentgemma-2b prefill: batch, prompt, RG-LRU 
 RWKV_SHAPE = (8, 2048, 64, 64)  # rwkv6-7b prefill: batch, prompt, heads, head dim
 SERVE = (("recurrentgemma_2b", "lru_scan", 18), ("rwkv6_7b", "rwkv_scan", 32))
 SERVE_ARGS = ["--batch", "8", "--prompt-len", "2048", "--gen", "64", "--epsilon", "0.5"]
+SEAMLESS, MOONSHOT, QWEN = "seamless_m4t_large_v2", "moonshot_v1_16b_a3b", "qwen2_7b"
+LLAMA_V, STARCODER = "llama_3_2_vision_11b", "starcoder2_15b"
 # training (phase 10): recurrentgemma-2b at full width and depth; the batch is
 # what one card holds beside its fp32 weights, gradients and AdamW state
 TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_CAP = "recurrentgemma_2b", 4, 256, 40
 RG_LRU_LAYERS = 18  # lru_scan launches per forward pass
 # phase 11: qwen2-7b at full width, 2 layers, one sequence of 2048 tokens
 QWEN_LAYERS, QWEN_SEQ = 2, 2048
-TRAIN_TIMEOUT_S = 600  # the training child process
+# phase 22: seamless-m4t-large-v2 trained at full width and depth through
+# TrainJob, frames of 4096: the largest (batch, decoder tokens) under 80 GB
+SEAMLESS_TRAIN, SEAMLESS_TRAIN_STEPS = (3, 512), 6
+# phase 23: moonshot-v1-16b-a3b at full width with 2 of its 48 layers
+MOONSHOT_TRAIN_LAYERS, MOONSHOT_TRAIN_STEPS = 2, 4
+TRAIN_TIMEOUT_S = 900  # the training child process
 TRAIN_RESULT = "train launches: "  # the child's last line: its launch counts as JSON
 # phases 12-15: the encoder-decoder, VLM and MoE families served, in a child
 # process of their own (moonshot-v1-16b-a3b needs most of the card)
-SEAMLESS, MOONSHOT, QWEN = "seamless_m4t_large_v2", "moonshot_v1_16b_a3b", "qwen2_7b"
 SEAMLESS_ENC_LAYERS = 24  # non-causal flash launches per seamless prefill
 ENC_FA_SHAPE = (8, 4096, 16, 16, 64)  # seamless encoder: batch, frames, heads, KV heads, head dim
-FAMILY_TINY = ("llama_3_2_vision_11b", "arctic_480b")  # served --tiny on the card
+FAMILY_TINY = ("arctic_480b",)  # served --tiny on the card: it fits no card
+# phase 21: the plain attention (``_sdpa``) in the reference's product form
+# against the upcast form: (label, q (B, Sq, H, hd), KV heads, KV length, causal)
+SDPA_FORMS = (("qwen2-7b prefill", (8, 2048, 28, 128), 4, 2048, True),
+              ("qwen2-7b decode step", (8, 1, 28, 128), 4, 2048 + 64, False),
+              ("seamless cross", (8, 2048, 16, 64), 16, 4096, False),
+              ("moonshot prefill", (8, 2048, 16, 128), 16, 2048, True))
+SDPA_REPS = 3  # timed calls of each form: (a, b, b, a) x SDPA_REPS
+#: the two forms' bf16 outputs against each other: the fp32 scores of the
+#: two products sum in other orders, so a probability can round to the
+#: neighbouring bf16 value, and so can the output
+SDPA_TOL = 1e-2
 TINY_SERVE_ARGS = ["--tiny", "--batch", "8", "--prompt-len", "256", "--gen", "64", "--epsilon", "0.5"]
-FAMILY_TIMEOUT_S = 700
+FAMILY_TIMEOUT_S = 1000
 FAMILY_RESULT = "family launches: "  # the child's last line: its launch counts as JSON
 # phases 16-18: the parallel layer, in a child process of its own (16-17)
 # and under torchrun (18)
@@ -436,8 +482,118 @@ def decode_profile(out: Path, phase, arch, model, batch) -> dict:
     return prof
 
 
+def sdpa_forms(phase, smi: str) -> dict:
+    """The plain attention's scores in the reference's form (the package's
+    ``_sdpa``: bf16 q and k multiplied with fp32 output) against an inline
+    copy of the form it replaced (q and k upcast to fp32 first), on the
+    same tensors in one process at the ``SDPA_FORMS`` shapes: CUDA-event
+    ms of each (the two in turns, median), the peak bytes each allocates
+    above what was live, and the two outputs against each other."""
+    import gc
+
+    import torch
+
+    from repro_torch.models.attention import NEG_INF, _sdpa
+
+    def upcast(q, k, v, mask):
+        B, Sq, H, hd = q.shape
+        Kh = k.shape[1]
+        qh = q.reshape(B, Sq, Kh, H // Kh, hd)
+        scores = torch.einsum("bqkgh,bksh->bkgqs", qh.float(), k.float())
+        scores = scores * (1.0 / math.sqrt(hd))
+        scores = torch.where(mask[None, None, None], scores, torch.full((), NEG_INF, device=q.device))
+        p = torch.softmax(scores, dim=-1).to(v.dtype)
+        return torch.einsum("bkgqs,bksh->bqkgh", p, v).reshape(B, Sq, H, hd)
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    forms = {"bf16 product": _sdpa, "upcast": upcast}
+    rows = {}
+    for label, (B, Sq, H, hd), Kh, Skv, causal in SDPA_FORMS:
+        q = torch.randn((B, Sq, H, hd), generator=gen, device=dev).bfloat16()
+        k, v = (torch.randn((B, Kh, Skv, hd), generator=gen, device=dev).bfloat16() for _ in range(2))
+        q_pos = torch.arange(Skv - Sq, Skv, device=dev)
+        mask = (torch.arange(Skv, device=dev)[None] <= q_pos[:, None]) if causal else \
+            torch.ones((Sq, Skv), dtype=torch.bool, device=dev)
+        got, peak = {}, {}
+        for name, fn in forms.items():
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            got[name] = fn(q, k, v, mask)
+            torch.cuda.synchronize()
+            peak[name] = torch.cuda.max_memory_allocated(dev) - base
+        ms = {name: [] for name in forms}
+        for name in [*forms, *reversed(forms)] * SDPA_REPS:
+            t0_, t1_ = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0_.record()
+            forms[name](q, k, v, mask)
+            t1_.record()
+            torch.cuda.synchronize()
+            ms[name].append(t0_.elapsed_time(t1_))
+        new, old = got["bf16 product"], got["upcast"]
+        diff = (new.float() - old.float()).abs()
+        ok = new.dtype == old.dtype == torch.bfloat16 and bool(
+            (diff <= SDPA_TOL + SDPA_TOL * old.float().abs()).all())
+        med = {name: sorted(t_)[len(t_) // 2] for name, t_ in ms.items()}
+        rows[label] = {"q": [B, Sq, H, hd], "kv": [B, Kh, Skv, hd], "causal": causal, "ms": med,
+                       "ms_all": ms, "peak_bytes": peak, "max_abs_diff": diff.max().item()}
+        print(f"[{phase}] _sdpa {label}: q {(B, Sq, H, hd)}, k/v {(B, Kh, Skv, hd)} bf16, causal={causal}: "
+              f"bf16 product with fp32 output {med['bf16 product']:.3f} ms, peak "
+              f"{peak['bf16 product'] / 1e9:.3f} GB; upcast form {med['upcast']:.3f} ms, peak "
+              f"{peak['upcast'] / 1e9:.3f} GB ({med['upcast'] / med['bf16 product']:.2f}x the time, "
+              f"{peak['upcast'] / max(peak['bf16 product'], 1):.2f}x the peak; {SDPA_REPS * 2} calls "
+              f"each in turns); outputs max |d| {diff.max().item():.3e} (max |o| "
+              f"{old.float().abs().max().item():.3f}, allclose(atol={SDPA_TOL:g}, rtol={SDPA_TOL:g}) "
+              f"{'ok' if ok else 'FAIL'}); {smi}")
+        check(ok, f"_sdpa {label}: the two forms disagree")
+        del q, k, v, mask, got, new, old, diff
+    return rows
+
+
+def decode_scores_trace(phase, arch, model, batch) -> dict:
+    """One eager decode step of a served model under ``torch.profiler``
+    with shapes recorded: the scores come from ``aten::bmm`` in its
+    fp32-output overload (three inputs: q, the cache's K, the dtype), one
+    per attention layer, and no copy or conversion takes a tensor of the K
+    cache's shape."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    h, st = model.prefill(batch)
+    tok = model.logits(h[:, None])[:, 0].argmax(-1)[:, None]
+    P = batch["tokens"].shape[1]
+    model.decode_step(tok, st, P)  # warm
+    cache = next(s_["kv"]["k"] for s_ in st if "kv" in s_)
+    n_attn = sum(1 for s_ in st if "kv" in s_)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
+        model.decode_step(tok, st, P + 1)
+        torch.cuda.synchronize()
+    events = prof.events()
+    bmm = [e_ for e_ in events if e_.name == "aten::bmm"]
+    fp32_out = [e_ for e_ in bmm if len(e_.input_shapes) == 3]
+    copies = [e_ for e_ in events if e_.name in ("aten::to", "aten::_to_copy", "aten::copy_", "aten::clone",
+                                                 "aten::contiguous")
+              and any(list(sh_) == list(cache.shape) for sh_ in e_.input_shapes)]
+    res = {"cache_shape": list(cache.shape), "attention_layers": n_attn, "bmm": len(bmm),
+           "bmm_fp32_output": len(fp32_out), "cache_sized_copies": len(copies),
+           "bmm_inputs": [list(map(list, e_.input_shapes)) for e_ in fp32_out[:1]]}
+    ok = len(fp32_out) == n_attn and not copies
+    print(f"[{phase}] {arch} one decode step under torch.profiler: {len(bmm)} aten::bmm, "
+          f"{len(fp32_out)} of them with an output dtype (inputs {res['bmm_inputs']}) for "
+          f"{n_attn} attention layers; {len(copies)} copies or conversions of a tensor of the K "
+          f"cache's shape {tuple(cache.shape)} {'ok' if ok else 'FAIL'}")
+    check(ok, f"{arch}: a decode step upcasts the cache or misses the fp32-output product: {res}")
+    del h, st, tok, cache, prof, events
+    return res
+
+
 def family_phases(out: Path, smi: str) -> dict:
-    """Phases 12-15, serving the encoder-decoder, VLM and MoE families on a
+    """Phases 12-15 and 20-21, serving the encoder-decoder, VLM and MoE
+    families, starcoder2-15b and the attention's two forms on a
     card nothing else holds memory on (``main`` runs this in a child
     process: ``--family-phases``), one model at a time.  Returns the
     kernels' launch counts over the serve runs (the main path)."""
@@ -684,14 +840,37 @@ def family_phases(out: Path, smi: str) -> dict:
     free()
     n_params = weights(14, QWEN, model)
     prof = decode_profile(out, 14, QWEN, model, batch)
+    scores_trace = decode_scores_trace(14, QWEN, model, batch)
     print(f"[14] {QWEN} summary: prefill ms {[round(r['prefill_ms'], 1) for r in runs]}, decode "
           f"tok/s {[round(r['decode_tok_s'], 1) for r in runs]} (batch 8, prompt 2048, 64 new tokens; "
           f"{smi})")
-    report[QWEN] = {"runs": runs, "params": n_params, "decode_profile": prof}
+    report[QWEN] = {"runs": runs, "params": n_params, "decode_profile": prof,
+                    "decode_scores_trace": scores_trace}
     del model, batch
     free()
 
-    # 15. llama-3.2-vision-11b and arctic-480b, --tiny on the card
+    # 15. llama-3.2-vision-11b at full width and depth: 40 layers, 8 of them
+    # with cross attention over the 6400 context tokens of ctx_embeds
+    model, batch, runs = served_twice(15, LLAMA_V)
+    free()
+    cfg = model.cfg
+    n_params = weights(15, LLAMA_V, model)
+    n_cross = sum(1 for kind in cfg.pattern if kind == "cross")
+    ctx = batch["ctx_embeds"]
+    print(f"[15] {LLAMA_V}: {cfg.n_layers} layers, {n_cross} with cross attention; ctx_embeds "
+          f"{tuple(ctx.shape)} {str(ctx.dtype)[6:]} on {ctx.device}")
+    check(cfg.n_layers == 40 and n_cross == 8 and tuple(ctx.shape) == (8, cfg.ctx_tokens, cfg.d_model)
+          and cfg.ctx_tokens == 6400, f"{LLAMA_V}: not served at full width and depth")
+    prof = decode_profile(out, 15, LLAMA_V, model, batch)
+    print(f"[15] {LLAMA_V} summary: prefill ms {[round(r['prefill_ms'], 1) for r in runs]}, decode "
+          f"tok/s {[round(r['decode_tok_s'], 1) for r in runs]}, peak GB "
+          f"{[round(r['peak_gb'], 2) for r in runs]} (batch 8, ctx 6400, prompt 2048, 64 new tokens; "
+          f"{smi})")
+    report[LLAMA_V] = {"runs": runs, "params": n_params, "decode_profile": prof}
+    del model, batch, ctx
+    free()
+
+    # 15. arctic-480b, --tiny on the card
     for arch in FAMILY_TINY:
         res, launched, _, _, peak = served(15, arch, [*TINY_SERVE_ARGS, "--db",
                                                       str(out / f"serve_{arch}_tiny.json")], 1)
@@ -703,6 +882,34 @@ def family_phases(out: Path, smi: str) -> dict:
         report[f"{arch}_tiny"] = {"runs": runs, "decode_profile": prof}
         del model, batch
         free()
+    # 20. starcoder2-15b at full width and depth: LayerNorm, the GELU MLP
+    # and the q/k/v biases (no kernel, as in the JAX model)
+    model, batch, runs = served_twice(20, STARCODER)
+    free()
+    cfg = model.cfg
+    n_params = weights(20, STARCODER, model)
+    tree = model.layers[0].tree()
+    parts = {"norm": cfg.norm, "ffn": cfg.ffn, "norm1 bias": tuple(tree["norm1"]["bias"].shape),
+             "ffn biases": (tuple(tree["ffn"]["bi"].shape), tuple(tree["ffn"]["bo"].shape)),
+             "q/k/v biases": tuple(tuple(tree["attn"][w]["b"].shape) for w in ("wq", "wk", "wv"))}
+    print(f"[20] {STARCODER}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
+          f"heads of {cfg.d_head}, d_ff {cfg.d_ff}; the parts its config adds: {parts}")
+    check(cfg.norm == "layernorm" and cfg.ffn == "gelu" and cfg.qkv_bias
+          and parts["q/k/v biases"] == ((cfg.n_heads * cfg.d_head,), (cfg.n_kv_heads * cfg.d_head,),
+                                        (cfg.n_kv_heads * cfg.d_head,)),
+          f"{STARCODER}: the served model lacks its LayerNorm, GELU MLP or q/k/v biases: {parts}")
+    prof = decode_profile(out, 20, STARCODER, model, batch)
+    print(f"[20] {STARCODER} summary: prefill ms {[round(r['prefill_ms'], 1) for r in runs]}, decode "
+          f"tok/s {[round(r['decode_tok_s'], 1) for r in runs]}, peak GB "
+          f"{[round(r['peak_gb'], 2) for r in runs]} (batch 8, prompt 2048, 64 new tokens; {smi})")
+    report[STARCODER] = {"runs": runs, "params": n_params, "decode_profile": prof}
+    del model, batch, tree
+    free()
+
+    # 21. the plain attention's two forms, timed on the same tensors
+    report["sdpa_forms"] = sdpa_forms(21, smi)
+    free()
+
     (out / "family_report.json").write_text(json.dumps(report, indent=1))
     return launched_total
 
@@ -766,7 +973,7 @@ def live_cuda_report(phase: str, dev) -> None:
 
 
 def train_phases(out: Path, smi: str) -> dict:
-    """Phases 10-11, the training main path, on a card nothing else holds
+    """Phases 10-11 and 22-23, the training main path, on a card nothing else holds
     memory on (``main`` runs this in a child process: ``--train-phases``).
     Returns the kernels' launch counts over the training runs."""
     import dataclasses
@@ -1001,8 +1208,230 @@ def train_phases(out: Path, smi: str) -> dict:
           f"qwen2-7b: flash launches {qk['flash_launches']} ({qk['wgmma']} wgmma) over two steps, "
           f"expected {2 * QWEN_LAYERS} of the wgmma design; plain path {qp['flash_launches']}")
     train_report["qwen2_7b_2_layers"] = q_paths
+    del q_batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 22-23. the encoder-decoder and MoE families trained on the flash kernel
+    fam_launches, train_report["families"] = family_train_phases(out, smi)
+    add_train_launches(fam_launches)
     (out / "train_report.json").write_text(json.dumps(train_report, indent=1))
     return train_launches
+
+
+def flash_per_forward(cfg) -> tuple:
+    """(causal, non-causal) flash launches a training forward pass makes on
+    the kernel path: each self-attention layer without a window, causal
+    (``attn`` and ``cross`` blocks), and each encoder layer, non-causal."""
+    causal = sum(1 for kind in cfg.pattern if kind in ("attn", "cross")) if cfg.window == 0 else 0
+    return causal, cfg.enc_layers
+
+
+def family_train_phases(out: Path, smi: str) -> tuple:
+    """Phases 22-23: seamless-m4t-large-v2 at full width and depth through
+    ``TrainJob`` and moonshot-v1-16b-a3b at full width with 2 of 48 layers
+    through ``make_train_step``, both on the flash kernel (the seamless
+    encoder non-causal at head dim 64, every decoder self-attention causal;
+    the backward recomputes through ``ref.flash_attention_ref``), and the
+    cross attention's scores under autograd in the bf16 product form.
+    Returns (the kernels' launch counts over the training runs, a report)."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch import configs as tconfigs
+    from repro_torch.data import make_batch_for
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import ExecConfig, TrainModel, blocks, moe
+    from repro_torch.optim import AdamW, cosine_schedule, global_norm
+    from repro_torch.runtime import TrainJob
+    from repro_torch.train import make_loss_fn, make_train_step
+
+    dev = torch.device("cuda", 0)
+    launched_total = {n: 0 for n in KERNELS}
+    report = {}
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def flash_spy():
+        """Wrap ``ops.flash_attention`` to record each call's ``causal``;
+        returns (the flags, a function that restores the wrapper)."""
+        flags, real = [], ops.flash_attention
+
+        def spy(*args_, **kw_):
+            flags.append(kw_["causal"])
+            return real(*args_, **kw_)
+
+        ops.flash_attention = spy
+        return flags, lambda: setattr(ops, "flash_attention", real)
+
+    def paths_agree(phase, arch, model, batch):
+        """Loss and global gradient norm of one forward/backward on the
+        kernel path and on the plain path (``attn_impl="xla"``), no update."""
+        got = {}
+        for impl in ("cuda", "xla"):
+            model.exec_cfg = dataclasses.replace(model.exec_cfg, attn_impl=impl)
+            model.zero_grad(set_to_none=True)
+            loss_, _ = make_loss_fn(model)(model.params(), batch)
+            loss_.backward()
+            got[impl] = (loss_.item(), global_norm([p_.grad for p_ in model.params().values()]).item())
+            model.zero_grad(set_to_none=True)
+            del loss_
+            free()
+        model.exec_cfg = dataclasses.replace(model.exec_cfg, attn_impl="cuda")
+        (lk, gk), (lp, gp) = got["cuda"], got["xla"]
+        ok = abs(lk - lp) <= 1e-3 * abs(lp) and abs(gk - gp) <= 1e-2 * abs(gp)
+        print(f"[{phase}] {arch} kernel path vs plain path, one batch, no update: loss {lk:.6f} / "
+              f"{lp:.6f} (rel {abs(lk - lp) / abs(lp):.2e}, limit 1e-3), global grad norm {gk:.6f} / "
+              f"{gp:.6f} (rel {abs(gk - gp) / abs(gp):.2e}, limit 1e-2) {'ok' if ok else 'FAIL'}")
+        check(ok, f"{arch}: the kernel path's loss or gradient norm disagrees with the plain path")
+        return {"loss": [lk, lp], "grad_norm": [gk, gp]}
+
+    # 22. seamless-m4t-large-v2 at full width and depth through TrainJob:
+    # frames of 4096 as served, the largest batch under 80 GB
+    cfg = tconfigs.get(SEAMLESS)
+    causal, noncausal = flash_per_forward(cfg)
+    free()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    wgmma0 = fa.launches_by_design["wgmma"]
+    per_step = []
+    flags, restore = flash_spy()
+
+    def on_step(step_, metrics_):
+        per_step.append(fa.launches - sum(per_step))
+
+    job = TrainJob(arch=SEAMLESS, tiny=False, steps=SEAMLESS_TRAIN_STEPS, global_batch=SEAMLESS_TRAIN[0],
+                   seq_len=SEAMLESS_TRAIN[1], warmup=0, seed=0, device="cuda")
+    try:
+        t0 = time.perf_counter()
+        hist = job.run(on_step=on_step)
+        wall = time.perf_counter() - t0
+    finally:
+        restore()
+    launched = counts()
+    for n_, c_ in launched.items():
+        launched_total[n_] += c_
+    wgmma = fa.launches_by_design["wgmma"] - wgmma0
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    del job
+    free()
+    losses, times_ = hist["loss"], hist["step_time"]
+    med = sorted(times_)[len(times_) // 2]
+    B, S = SEAMLESS_TRAIN
+    print(f"[22] {SEAMLESS} TrainJob at full width and depth ({cfg.enc_layers} encoder + {cfg.n_layers} "
+          f"decoder layers, frames ({B}, {cfg.ctx_tokens}, {cfg.d_model}), batch {B} x {S} tokens): "
+          f"{len(losses)} steps in {wall:.1f}s; loss per step {[round(x_, 4) for x_ in losses]}; step wall ms "
+          f"{[round(t_ * 1e3, 1) for t_ in times_]}, median {med * 1e3:.1f} ms, {B * S / med:.1f} tokens/s; "
+          f"torch.cuda.max_memory_allocated {peak:.2f} GB; flash launches per step {per_step} "
+          f"({wgmma} wgmma; {sum(flags)} causal, {len(flags) - sum(flags)} non-causal; the model implies "
+          f"{causal} causal + {noncausal} non-causal a step); launches {launched}; {smi}")
+    check(all(math.isfinite(x_) for x_ in losses) and losses[-1] < losses[0],
+          f"{SEAMLESS}: the loss is not finite and falling: {losses}")
+    check(per_step == [causal + noncausal] * len(losses) and wgmma == sum(per_step)
+          and sum(flags) == causal * len(losses) and len(flags) == sum(per_step),
+          f"{SEAMLESS}: flash launches per step {per_step} ({wgmma} wgmma, {sum(flags)} causal), "
+          f"expected {causal} causal + {noncausal} non-causal wgmma launches a step")
+    check(all(n_ == 0 for k_, n_ in launched.items() if k_ != "flash_attention"),
+          f"{SEAMLESS}: unexpected launches {launched}")
+    check(peak < 80.0, f"{SEAMLESS}: peak memory {peak:.2f} GB")
+    # the plain path keeps every encoder layer's (B, 16, 4096, 4096) fp32
+    # softmax for the backward: 3.2 GB a layer and sequence in all, so the
+    # paths are held on one sequence
+    model = TrainModel(cfg, ExecConfig(attn_impl="cuda"), device=dev, seed=0)
+    batch = make_batch_for(cfg, 1, S, step=0, seed=0, device=dev)
+    check(batch["frames"].shape == (1, cfg.ctx_tokens, cfg.d_model) and batch["frames"].is_cuda
+          and batch["frames"].dtype == torch.float32,
+          f"{SEAMLESS}: frames {tuple(batch['frames'].shape)} {batch['frames'].dtype} on "
+          f"{batch['frames'].device}")
+    paths = paths_agree(22, SEAMLESS, model, batch)
+    report[SEAMLESS] = {"batch": [B, S], "loss": losses, "step_ms": [t_ * 1e3 for t_ in times_],
+                        "median_step_ms": med * 1e3, "tokens_per_s": B * S / med, "peak_gb": peak,
+                        "flash_per_step": per_step, "wgmma": wgmma, "paths": paths,
+                        "params": sum(p_.numel() for p_ in model.params().values())}
+    del model, batch
+    free()
+
+    # 23. moonshot-v1-16b-a3b at full width, 2 of 48 layers, batch 1 x 2048
+    # through make_train_step: 64 experts, top-6, the capacity branch
+    cfg = dataclasses.replace(tconfigs.get(MOONSHOT), n_layers=MOONSHOT_TRAIN_LAYERS, n_groups=0)
+    causal, noncausal = flash_per_forward(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    wgmma0 = fa.launches_by_design["wgmma"]
+    model = TrainModel(cfg, ExecConfig(attn_impl="cuda"), device=dev, seed=0)
+    params = model.params()
+    n_params = sum(p_.numel() for p_ in params.values())
+    opt = AdamW(lr=cosine_schedule(1e-3, 0, 50))
+    opt_state = opt.init(params)
+    step_fn = make_train_step(model, opt)
+    stats, real_moe = [], blocks.moe_apply
+
+    def moe_spy(cfg_, p_, x_):
+        r_ = moe.route(cfg_, p_, x_.reshape(-1, x_.shape[-1]))
+        stats.append((x_.shape[0] * x_.shape[1], r_["capacity"], int((~r_["keep"]).sum())))
+        return real_moe(cfg_, p_, x_)
+
+    flags, restore = flash_spy()
+    blocks.moe_apply = moe_spy
+    walls, mets, per_step = [], [], []
+    try:
+        for i in range(MOONSHOT_TRAIN_STEPS):
+            batch = make_batch_for(cfg, 1, QWEN_SEQ, step=i, seed=0, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt_state, met = step_fn(params, opt_state, batch)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            mets.append({k_: v_.item() for k_, v_ in met.items()})
+            per_step.append(fa.launches - sum(per_step))
+    finally:
+        restore()
+        blocks.moe_apply = real_moe
+    launched = counts()
+    for n_, c_ in launched.items():
+        launched_total[n_] += c_
+    wgmma = fa.launches_by_design["wgmma"] - wgmma0
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    losses = [m_["loss"] for m_ in mets]
+    T, K = stats[0][0], cfg.top_k
+    first = stats[:cfg.n_layers]
+    print(f"[23] {MOONSHOT} {cfg.n_layers} of 48 layers at full width (d_model {cfg.d_model}, "
+          f"{cfg.n_experts} experts top-{K}, d_ff_expert {cfg.d_ff_expert}; {n_params / 1e9:.3f} B "
+          f"parameters), batch 1 x {QWEN_SEQ} through make_train_step: loss per step "
+          f"{[round(x_, 4) for x_ in losses]}, grad norm {[round(m_['grad_norm'], 4) for m_ in mets]}; "
+          f"step wall ms {[round(w_, 1) for w_ in walls]}, {QWEN_SEQ / (sorted(walls)[len(walls) // 2] / 1e3):.1f} "
+          f"tokens/s (median step); torch.cuda.max_memory_allocated {peak:.2f} GB; flash launches per "
+          f"step {per_step} ({wgmma} wgmma, causal {sorted(set(flags))}); MoE dispatch: T = {T} tokens, "
+          f"T*K = {T * K} assignments (> {moe.DROP_FREE_ASSIGNMENTS}: the capacity branch), C = "
+          f"{sorted({c_ for _, c_, _ in stats})} slots per expert, dropped per layer in step 1 "
+          f"{[d_ for _, _, d_ in first]} of {T * K}; launches {launched}; {smi}")
+    check(all(math.isfinite(v_) for m_ in mets for v_ in m_.values()) and losses[-1] < losses[0],
+          f"{MOONSHOT}: the loss is not finite and falling: {losses}")
+    check(per_step == [causal + noncausal] * len(losses) and wgmma == sum(per_step) and all(flags),
+          f"{MOONSHOT}: flash launches per step {per_step} ({wgmma} wgmma, causal {set(flags)}), "
+          f"expected {causal} causal wgmma launches a step")
+    check(T * K > moe.DROP_FREE_ASSIGNMENTS and all(c_ == moe.capacity(cfg, T) for _, c_, _ in stats),
+          f"{MOONSHOT}: training did not take the capacity branch: {stats[:2]}")
+    check(all(n_ == 0 for k_, n_ in launched.items() if k_ != "flash_attention"),
+          f"{MOONSHOT}: unexpected launches {launched}")
+    check(peak < 80.0, f"{MOONSHOT}: peak memory {peak:.2f} GB")
+    del opt_state, step_fn, opt, params
+    free()
+    batch = make_batch_for(cfg, 1, QWEN_SEQ, step=0, seed=0, device=dev)
+    model = TrainModel(cfg, ExecConfig(attn_impl="cuda"), device=dev, seed=0)
+    paths = paths_agree(23, MOONSHOT, model, batch)
+    report[MOONSHOT] = {"layers": cfg.n_layers, "params": n_params, "loss": losses, "step_ms": walls,
+                        "peak_gb": peak, "flash_per_step": per_step, "wgmma": wgmma, "paths": paths,
+                        "capacity": stats[0][1], "drops_step1": [d_ for _, _, d_ in first]}
+    del model, batch
+    free()
+    report["flash_launches"] = {SEAMLESS: report[SEAMLESS]["wgmma"], MOONSHOT: report[MOONSHOT]["wgmma"]}
+    return launched_total, report
 
 
 
@@ -1528,9 +1957,9 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" / "chip_smoke"),
                     help="directory for the tuning DBs this run writes")
     ap.add_argument("--train-phases", action="store_true",
-                    help="run phases 10-11 only (the child process the full run starts)")
+                    help="run phases 10-11 and 22-23 only (the child process the full run starts)")
     ap.add_argument("--family-phases", action="store_true",
-                    help="run phases 12-15 only (the child process the full run starts)")
+                    help="run phases 12-15 and 20-21 only (the child process the full run starts)")
     ap.add_argument("--parallel-phases", action="store_true",
                     help="run phases 16-17 and 19 only (the child process the full run starts)")
     ap.add_argument("--distributed-train", nargs=argparse.REMAINDER, default=None,
@@ -1591,7 +2020,7 @@ def main(argv=None) -> int:
                  "pretune_analytic.json", "pretune_analytic.json.journal", "route.json",
                  "train.json", "train_report.json", "tune_encoder.json", "family_report.json",
                  *(f"serve_{arch}.json" for arch, _, _ in SERVE),
-                 *(f"serve_{arch}.json" for arch in (SEAMLESS, MOONSHOT, QWEN)),
+                 *(f"serve_{arch}.json" for arch in (SEAMLESS, MOONSHOT, QWEN, LLAMA_V, STARCODER)),
                  *(f"serve_{arch}_tiny.json" for arch in FAMILY_TINY),
                  "parallel_report.json", "pretune_launch.json", "pretune_launch.json.journal"):
         (out / name).unlink(missing_ok=True)
@@ -2458,6 +2887,7 @@ def main(argv=None) -> int:
                             "src/repro/kernels/linear_scan.py:147"),
                "rwkv_scan": ("src/repro_torch/kernels/csrc/rwkv_subchunk.cu",
                              "src/repro/kernels/linear_scan.py:77")}
+    train_report = json.loads((out / "train_report.json").read_text())
     kernels = []
     for name in names:
         row = times[name]
@@ -2501,13 +2931,17 @@ def main(argv=None) -> int:
                 "plain_ms": enc["plain"], "library_ms": enc["library"],
                 "bound_ms": enc["terms"].bound_s * 1e3, "bound_by": enc["terms"].dominant,
                 "launches_serving_families": family_launches[name]}
+        if name == "flash_attention":  # the training path's launches by model
+            fam = train_report["families"]["flash_launches"]
+            entry["train_by_family"] = {"qwen2_7b_2_layers": train_report["qwen2_7b_2_layers"]["cuda"]["wgmma"],
+                                        **fam}
         if "rg_mqa" in row:  # recurrentgemma-2b's MQA decode, at its default knobs
             entry["ms_recurrentgemma_2b_mqa"] = row["rg_mqa"]["default"]
             entry["plain_ms_recurrentgemma_2b_mqa"] = row["rg_mqa"]["plain"]
             entry["library_ms_recurrentgemma_2b_mqa"] = row["rg_mqa"]["library"]
         kernels.append(entry)
-    print(f"[11] total {time.perf_counter() - t_start:.1f}s; DBs in {out}; "
-          f"exec cache {exec_cache().stats()}")
+    print(f"[11] total wall time {time.perf_counter() - t_start:.1f}s (the kernels' build included); "
+          f"DBs in {out}; exec cache {exec_cache().stats()}; {smi}")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -554,10 +554,94 @@ _COLLECTIVE_OPS = {
     "_dtensor.shard_dim_alltoall": "all-to-all",
 }
 #: ops that move no bytes (besides views): allocation without a write,
-#: aliases, and the collectives' bookkeeping
+#: aliases (``_unsafe_view`` is a view that autograd does not track as one),
+#: and the collectives' bookkeeping
 _NO_TRAFFIC = {"aten.empty", "aten.empty_strided", "aten.empty_like", "aten.detach",
-               "aten.alias", "aten.lift_fresh", "aten._local_scalar_dense",
+               "aten.alias", "aten._unsafe_view", "aten.lift_fresh", "aten._local_scalar_dense",
                "_c10d_functional.wait_tensor", "_c10d_functional._wrap_tensor_autograd"}
+
+
+#: FLOPs per output element of the pointwise ops the models issue, counted
+#: as XLA's ``cost_analysis`` counts the HLO ops of the same formula, which
+#: the JAX dry run reads: 1 for each elementwise arithmetic op, compare and
+#: select; 0 for a transcendental (exp, log, sqrt, rsqrt, sin, cos, tanh:
+#: XLA counts these under "transcendentals", not FLOPs).  A composite is
+#: the sum of its formula's ops (sigmoid 1/(1+exp(-x)) = 3, silu = 4, the
+#: tanh gelu 8, softplus 6); a backward op counts what XLA counts for the
+#: JAX VJP of the same function less its forward (sigmoid 3, silu 5, the
+#: tanh gelu 12, tanh 4, softplus 6, relu's select 1).  Read from
+#: ``jax.jit(f).lower(...).compile().cost_analysis()`` one op at a time.
+_PER_ELEMENT = {
+    **dict.fromkeys(("add", "sub", "rsub", "mul", "div", "neg", "reciprocal", "relu", "clamp",
+                     "where", "masked_fill", "eq", "lt", "le", "gt", "ge", "bitwise_not",
+                     "bitwise_and", "remainder", "threshold_backward"), 1),
+    **dict.fromkeys(("exp", "log", "sqrt", "rsqrt", "sin", "cos", "tanh"), 0),
+    "sigmoid": 3, "silu": 4, "gelu": 8, "softplus": 6,
+    "sigmoid_backward": 3, "silu_backward": 5, "gelu_backward": 12, "tanh_backward": 4,
+    "softplus_backward": 6,
+}
+
+
+#: a product with an output dtype of its own: ``flop_counter``'s bmm
+#: formula takes no ``out_dtype`` argument and raises
+_BMM_DTYPE = torch.ops.aten.bmm.dtype
+
+
+def _rows(x, dim) -> int:
+    """The number of 1-D slices of ``x`` along ``dim``."""
+    return x.numel() // max(x.shape[dim], 1) if x.ndim else 1
+
+
+def pointwise_flops(func, args, kwargs, out) -> float:
+    """FLOPs of one pointwise, reduction or scatter op, counted as XLA's
+    ``cost_analysis`` counts the same formula (:data:`_PER_ELEMENT`); 0
+    for an op that moves data only (copies, views, gathers, concatenation)
+    or that XLA does not count (top-k).  A convert counts 1 an element
+    where the dtype changes, x² and x³ 1 and 2 (any other power is a
+    transcendental).  Of N inputs in M slices: a sum or max counts N − M, a
+    mean N (with its divides), a cumulative sum N − M, an argmax 9(N − M)
+    (XLA's value-and-index reducer), softmax 4N − 2M (max, subtract, exp,
+    sum, divide) and its backward 5N + 2M (the JAX VJP's count less the
+    forward's); an index-add or scatter-add one add per source element."""
+    name = func._opname.rstrip("_")
+    out = out[0] if isinstance(out, (tuple, list)) else out
+    if not isinstance(out, torch.Tensor):
+        return 0.0
+    x = args[0] if args and isinstance(args[0], torch.Tensor) else None
+    m = out.numel()
+    per = _PER_ELEMENT.get(name)
+    if per is not None:
+        return float(per * m)
+    if name == "_to_copy":
+        return float(m) if x.dtype != out.dtype else 0.0
+    if name == "copy":
+        return float(m) if args[0].dtype != args[1].dtype else 0.0
+    if name == "pow":
+        e = args[1] if len(args) > 1 else kwargs.get("exponent")
+        squares = x is not None and not isinstance(e, torch.Tensor) and e in (2, 3)
+        return float((e - 1) * m) if squares else 0.0
+    if x is None:
+        return 0.0
+    n = x.numel()
+    if name in ("sum", "amax"):
+        return float(n - m)
+    if name == "mean":
+        return float(n)
+    if name == "cumsum":
+        return float(n - _rows(x, args[1]))
+    if name == "argmax":
+        return float(9 * (n - m))
+    if name == "_softmax":
+        return float(4 * n - 2 * _rows(x, args[1]))
+    if name == "_softmax_backward_data":
+        return float(5 * n + 2 * _rows(x, args[2]))
+    if name in ("index_add", "scatter_add"):
+        return float(args[3].numel())
+    if name == "embedding_dense_backward":
+        return float(n)
+    if name == "index_put" and (args[3] if len(args) > 3 else kwargs.get("accumulate", False)):
+        return float(args[2].numel())
+    return 0.0
 
 
 def _tensor_bytes(t) -> int:
@@ -592,8 +676,11 @@ class StepCounter(TorchDispatchMode):
     counts both and so counts a sharded product twice).  The ops that
     DTensor's sharding propagation runs on fake tensors are not counted.
 
-    * ``flops``: ``torch.utils.flop_counter``'s formulas (mm, addmm, bmm,
-      baddbmm, convolutions, SDPA); elementwise ops count none.
+    * ``flops``: the products by ``torch.utils.flop_counter``'s formulas
+      (mm, addmm, bmm, baddbmm, convolutions, SDPA) and ``aten::bmm.dtype``
+      (the attention's scores on bf16 operands) by 2·B·M·N·K;
+      every other floating-point op as XLA's ``cost_analysis`` counts it
+      (:func:`pointwise_flops`).
     * ``bytes_accessed``: each op's input and output bytes, views and
       allocations excepted.  That is eager PyTorch's unfused traffic: XLA
       counts after fusion, so these bytes run higher than the JAX package's.
@@ -664,9 +751,12 @@ class StepCounter(TorchDispatchMode):
         if kind is not None:
             self.coll[kind] += sum(_tensor_bytes(o) for o in outputs)
         elif not func.is_view and name not in _NO_TRAFFIC:
-            formula = flop_registry.get(func.overloadpacket)
-            if formula is not None:
+            if func is _BMM_DTYPE:
+                self.flops += 2.0 * args[0].numel() * args[1].shape[-1]
+            elif (formula := flop_registry.get(func.overloadpacket)) is not None:
                 self.flops += formula(*args, **kwargs, out_val=out)
+            else:
+                self.flops += pointwise_flops(func, args, kwargs, out)
             self.bytes_accessed += (sum(_tensor_bytes(a) for a in inputs)
                                     + sum(_tensor_bytes(o) for o in outputs))
         for o in outputs:

@@ -12,7 +12,12 @@ Where the JAX package returns a new cache (``at[].set``), the port writes
 the cache in place and returns the same dict.
 
 The plain path (:func:`_sdpa`) is einsum + softmax in fp32, which the JAX
-package leaves to XLA.  Under ``attn_impl="cuda"``, full-sequence attention
+package leaves to XLA.  Its scores are the reference's product form: bf16
+q and k multiplied with fp32 output (``preferred_element_type``), through
+``aten::bmm.dtype`` on the card and on the dry run's meta tensors
+(:func:`_scores`); that op has no CPU kernel, so on the CPU q and k are
+upcast first, which gives the same values (a bf16 × bf16 product is exact
+in fp32).  Under ``attn_impl="cuda"``, full-sequence attention
 without a cache and without a window runs the ported flash kernel: the
 training forward pass (causal) and the encoder of encoder–decoder models
 (``causal=False``).  Cross-attention reads K/V precomputed from the context
@@ -69,15 +74,67 @@ def _mask(q_pos, kv_pos, *, causal: bool, window: int):
     return valid
 
 
+def _bmm_fp32(a, b) -> torch.Tensor:
+    """(N, M, K) × (N, K, P) bf16 -> (N, M, P) fp32: one product with fp32
+    accumulation and output, on the tensor cores on the card."""
+    return torch.ops.aten.bmm.dtype(a, b, torch.float32)
+
+
+class _ScoresFp32(torch.autograd.Function):
+    """``_bmm_fp32`` under autograd (``aten::bmm.dtype`` has no derivative).
+    The backward forms the operands' gradients from the fp32 gradient of
+    the scores as the upcast form's autograd does: fp32 products on fp32
+    copies, rounded to the operands' dtype.  The output is not a view, so
+    the scale and the mask may run in place on it."""
+
+    @staticmethod
+    def forward(ctx, a, b, shape):
+        ctx.save_for_backward(a, b)
+        return torch.ops.aten._unsafe_view(_bmm_fp32(a, b), shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.reshape(a.shape[0], a.shape[1], b.shape[2])
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.bmm(g, b.float().transpose(1, 2)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = torch.bmm(a.float().transpose(1, 2), g).to(b.dtype)
+        return ga, gb, None
+
+
+def _scores_bmm(qh, k) -> torch.Tensor:
+    """qh (B, Sq, Kh, g, hd) · k (B, Kh, Skv, hd) -> fp32 (B, Kh, g, Sq, Skv)
+    through :class:`_ScoresFp32` on the (B·Kh, g·Sq, hd) × (B·Kh, hd, Skv)
+    views that the GQA grouping allows (a contiguous K, as the cache is,
+    is not copied)."""
+    B, Sq, Kh, g, hd = qh.shape
+    Skv = k.shape[2]
+    a = qh.permute(0, 2, 3, 1, 4).reshape(B * Kh, g * Sq, hd)
+    b = k.reshape(B * Kh, Skv, hd).transpose(1, 2)
+    return _ScoresFp32.apply(a, b, (B, Kh, g, Sq, Skv))
+
+
+def _scores(eq: str, qh, k) -> torch.Tensor:
+    """``eq`` = "bqkgh,bksh->bkgqs" with fp32 output: bf16 off the CPU by
+    :func:`_scores_bmm`, elsewhere the einsum of fp32 copies (the same
+    values)."""
+    if qh.dtype != torch.bfloat16 or k.dtype != torch.bfloat16 or qh.device.type == "cpu":
+        return torch.einsum(eq, qh.float(), k.float())
+    return _scores_bmm(qh, k)
+
+
 def _sdpa(q, k, v, mask) -> torch.Tensor:
     """q: (B,Sq,H,hd), k/v: (B,Kh,Skv,hd), mask: (Sq,Skv) -> (B,Sq,H,hd).
-    fp32 scores and softmax; GQA via head grouping."""
+    fp32 scores (:func:`_scores`), scaled and masked in place, and an fp32
+    softmax; GQA via head grouping."""
     B, Sq, H, hd = q.shape
     Kh = k.shape[1]
     qh = split_dim(q, 2, Kh)
-    scores = einsum("bqkgh,bksh->bkgqs", qh.float(), k.float())
-    scores = scores * (1.0 / math.sqrt(hd))
-    scores = torch.where(mask[None, None, None], scores, torch.full((), NEG_INF, device=q.device))
+    scores = einsum("bqkgh,bksh->bkgqs", qh, k, local=_scores)
+    scores.mul_(1.0 / math.sqrt(hd))
+    scores.masked_fill_(~mask[None, None, None], NEG_INF)
     p = torch.softmax(scores, dim=-1).to(v.dtype)
     out = einsum("bkgqs,bksh->bqkgh", p, v)
     return out.reshape(B, Sq, H, hd)

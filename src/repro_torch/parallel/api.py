@@ -250,14 +250,17 @@ class _MergeDims(torch.autograd.Function):
                          *g.shape[ctx.dim + 1:]), None
 
 
-def einsum(eq: str, *operands):
-    """``torch.einsum``.  On DTensors it runs shard by shard, with the
+def einsum(eq: str, *operands, local=torch.einsum):
+    """``local(eq, *operands)``: ``torch.einsum`` unless the caller gives
+    another form of the same contraction (the attention's scores take
+    theirs: bf16 products with fp32 output on the card).  On DTensors it
+    runs shard by shard, with the
     operands placed the way GSPMD partitions a dot: each mesh dim shards
     one index letter, the first that an operand shards there and the
     output keeps (batch, rows or columns: the others are gathered), else
     the first summed letter an operand shards there (each rank then sums
     its slice and an all-reduce adds the slices).  The local shards are
-    contracted by ``torch.einsum``, and the result is the DTensor of the
+    contracted by ``local``, and the result is the DTensor of the
     local results.  A gradient that flows into an operand lacking a mesh
     dim's letter is a partial sum on that dim (reduced on the way back).
     DTensor's own rules for the products fail on some layouts and some
@@ -265,7 +268,7 @@ def einsum(eq: str, *operands):
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     if not any(isinstance(o, DTensor) for o in operands):
-        return torch.einsum(eq, *operands)
+        return local(eq, *operands)
     ins, out = eq.replace(" ", "").split("->")
     subs = ins.split(",")
     mesh = next(o for o in operands if isinstance(o, DTensor)).device_mesh
@@ -291,14 +294,14 @@ def einsum(eq: str, *operands):
             ranks[pick] = ranks.get(pick, 1) * mesh.size(i)
         letters.append(pick)
         summed.append(pick is not None and pick not in out)
-    local = []
+    shards = []
     for sub, o in zip(subs, ops):
         want = [Shard(sub.index(ch)) if ch is not None and ch in sub else Replicate()
                 for ch in letters]
         grads = [Partial() if ch is not None and ch not in sub else pl
                  for ch, pl in zip(letters, want)]
-        local.append(o.redistribute(mesh, want).to_local(grad_placements=grads))
-    res = torch.einsum(eq, *local)
+        shards.append(o.redistribute(mesh, want).to_local(grad_placements=grads))
+    res = local(eq, *shards)
     placements = [Partial() if part else Shard(out.index(ch)) if ch is not None else Replicate()
                   for ch, part in zip(letters, summed)]
     # the shards are even (logical_spec and split_dim shard only dims the

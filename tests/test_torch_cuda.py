@@ -1082,3 +1082,126 @@ def test_step_counter_counts_the_same_on_the_card():
         assert counter.bytes_accessed == 2 * (M * K + K * N + M * N) + 2 * (2 * M * N)
         assert counter.peak_bytes == 2 * (M * K + K * N + 2 * M * N)
         assert counter.coll_bytes == 0 and d.shape == (M, N)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,H,Kh,hd,Skv", [(2, 256, 8, 2, 128, 256), (8, 1, 28, 4, 128, 2112),
+                                              (2, 128, 16, 16, 64, 512)])
+def test_sdpa_scores_take_the_bf16_product_form_on_the_card(B, Sq, H, Kh, hd, Skv):
+    """The attention's scores from bf16 q and k multiplied with fp32 output
+    (``aten::bmm.dtype``) against the upcast form's fp32 product: values at
+    1e-6 of the largest score; on integer-valued data, where every sum is
+    exact in fp32, the gradients of q and k equal the upcast form's (1e-5);
+    and ``_sdpa``'s output against the upcast form's within two bf16 steps."""
+    from repro_torch.models import attention as tattn
+
+    dev = _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = H // Kh
+    qh = _randn(0, (B, Sq, Kh, g, hd), torch.bfloat16, dev)
+    k = _randn(1, (B, Kh, Skv, hd), torch.bfloat16, dev)
+
+    def upcast(qh_, k_):
+        return torch.einsum("bqkgh,bksh->bkgqs", qh_.float(), k_.float())
+
+    got, want = tattn._scores("bqkgh,bksh->bkgqs", qh, k), upcast(qh, k)
+    assert got.dtype == torch.float32 and got.shape == want.shape and not got._is_view()
+    assert (got - want).abs().max().item() <= 1e-6 * want.abs().max().item()
+    rng = np.random.RandomState(2)
+    qi = torch.from_numpy(rng.randint(-4, 5, qh.shape)).bfloat16().to(dev)
+    ki = torch.from_numpy(rng.randint(-4, 5, k.shape)).bfloat16().to(dev)
+    w = torch.from_numpy(rng.randint(-3, 4, want.shape)).float().to(dev)
+    grads = {}
+    for name, form in (("bf16 product", lambda a, b: tattn._scores("bqkgh,bksh->bkgqs", a, b)),
+                       ("upcast", upcast)):
+        a, b = qi.clone().requires_grad_(), ki.clone().requires_grad_()
+        (form(a, b) * w).sum().backward()
+        grads[name] = (a.grad, b.grad)
+    for got_, want_ in zip(grads["bf16 product"], grads["upcast"]):
+        assert got_.dtype == torch.bfloat16
+        torch.testing.assert_close(got_.float(), want_.float(), atol=1e-5, rtol=1e-5)
+    q = qh.reshape(B, Sq, H, hd)
+    v = _randn(3, (B, Kh, Skv, hd), torch.bfloat16, dev)
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=dev)
+    out = tattn._sdpa(q, k, v, mask)
+    p = torch.softmax(upcast(qh, k) * (1.0 / math.sqrt(hd)), -1).to(v.dtype)
+    ref = torch.einsum("bkgqs,bksh->bqkgh", p, v).reshape(B, Sq, H, hd)
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama_3_2_vision_11b", "starcoder2_15b"])
+def test_tiny_vlm_and_starcoder2_prefill_and_graph_decode_on_the_card(arch, monkeypatch):
+    """Tiny llama-3.2-vision-11b (cross attention over the context) and
+    starcoder2-15b (LayerNorm, the GELU MLP, q/k/v biases) in bf16 on the
+    card: the prefill's last hidden state in the bf16 product form against
+    the same prefill with the scores upcast first (within two bf16 steps of
+    its magnitude), and every decode depth as a CUDA graph emitting the
+    eager loop's tokens."""
+    from repro_torch.launch.serve import DECODE_KS, DecodeGraphs
+    from repro_torch.models import attention as tattn
+
+    dev = _card()
+    P, n = 16, 16
+    model, prefill = _tiny_decoder(arch, dev, P=P)
+    cfg = model.cfg
+    gen = torch.Generator(device=dev).manual_seed(5)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, P), generator=gen, device=dev), "max_len": P + 24}
+    if cfg.family == "vlm":
+        batch["ctx_embeds"] = 0.1 * torch.randn((2, cfg.ctx_tokens, cfg.d_model), generator=gen, device=dev)
+    h_new, _ = model.prefill(batch)
+    with monkeypatch.context() as m:
+        m.setattr(tattn, "_scores", lambda eq, a, b: torch.einsum(eq, a.float(), b.float()))
+        h_old, _ = model.prefill(batch)
+    assert h_new.dtype == torch.bfloat16
+    scale = h_old.float().abs().max().item()
+    assert (h_new.float() - h_old.float()).abs().max().item() <= 2 ** -6 * scale
+    tok, states = prefill()
+    eager = []
+    for i in range(n):
+        logits, states = model.decode_step(tok, states, P + i)
+        tok = logits.argmax(-1)[:, None]
+        eager.append(tok)
+    eager = torch.cat(eager, dim=1)
+    for k in DECODE_KS:
+        tok, states = prefill()
+        run = DecodeGraphs(model, tok, states, P).build(k)
+        token, states_, pos, got = tok, states, P, []
+        for _ in range(n // k):
+            token, states_, pos, toks = run(token, states_, pos)
+            got.append(toks.clone())
+        assert torch.equal(torch.cat(got, dim=1), eager), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [("float32", (1e-5, 1e-5)), ("bfloat16", (1e-3, 1e-2))])
+@pytest.mark.parametrize("arch", ["seamless_m4t_large_v2", "moonshot_v1_16b_a3b"])
+def test_tiny_family_train_step_on_the_card_kernel_path_matches_plain(arch, dtype, tol):
+    """One ``make_train_step`` update (2 microbatches) of tiny seamless (the
+    encoder on flash non-causal, the decoder's self-attention causal, the
+    cross attention's scores in the bf16 product form under autograd in
+    bf16) and tiny moonshot (flash causal, the MoE dispatch) on the kernel
+    path against the plain path from the same weights: loss at tol[0] and
+    gradient norm at tol[1] relative (fp32 1e-5; bf16 1e-3 and 1e-2, as
+    ``chip_smoke.py`` holds the full-width models), and the flash launches
+    the model implies: one per self-attention layer and encoder layer, per
+    forward pass (the loss's, then one per microbatch)."""
+    from repro_torch.data import make_batch_for
+    from repro_torch.optim import AdamW
+    from repro_torch.train import make_train_step
+
+    dev = _card()
+    metrics = {}
+    for impl in ("cuda", "xla"):
+        before = tfa.launches
+        model = _tiny_train(arch, dev, impl, dtype)
+        cfg = model.cfg
+        batch = make_batch_for(cfg, 4, 32, step=0, seed=0, device=dev)
+        opt = AdamW(lr=1e-3)
+        params = model.params()
+        _, _, metrics[impl] = make_train_step(model, opt, microbatches=2)(params, opt.init(params), batch)
+        per_forward = sum(1 for kind in cfg.pattern if kind in ("attn", "cross")) + cfg.enc_layers
+        assert tfa.launches - before == (2 * per_forward if impl == "cuda" else 0)
+    for k, t in zip(("loss", "grad_norm"), tol):
+        got, want = metrics["cuda"][k].item(), metrics["xla"][k].item()
+        assert abs(got - want) <= t * abs(want), (k, got, want)

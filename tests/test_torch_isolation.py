@@ -69,6 +69,10 @@ assert launch_rec is not None and launch_rec.key.backend == "model"
 cell = dryrun.run_cell("rwkv6_7b", "train_4k", tiny=True, mesh_spec=((2, 2), ("data", "model")),
                        verbose=False)
 assert cell["status"] == "ok" and cell["roofline"]["flops"] > 0
+# the attention's bf16 product form on meta DTensors, counted pointwise too
+cell = dryrun.run_cell("qwen2_7b", "train_4k", tiny=True, mesh_spec=((2, 2), ("data", "model")),
+                       verbose=False)
+assert cell["status"] == "ok" and cell["roofline"]["flops"] > 0
 from repro_torch.kernels import autotuned, kernel_router, routed, tune_call
 from repro_torch.tuning import TuningDB
 a = torch.from_numpy(np.random.RandomState(0).standard_normal((64, 64)).astype(np.float32))
@@ -86,9 +90,10 @@ assert served["hidden"].shape == (8, 64)
 served = serve.serve(["--arch", "seamless_m4t_large_v2", "--tiny", "--device", "cpu",
                       "--prompt-len", "4", "--gen", "2"])
 assert served["hidden"].shape == (8, 64)
-trained = train.train(["--arch", "qwen2_7b", "--tiny", "--device", "cpu", "--steps", "2",
-                       "--global-batch", "2", "--seq-len", "8"])
-assert trained["steps"] == 2
+for arch in ("qwen2_7b", "seamless_m4t_large_v2", "moonshot_v1_16b_a3b"):
+    trained = train.train(["--arch", arch, "--tiny", "--device", "cpu", "--steps", "2",
+                           "--global-batch", "2", "--seq-len", "8"])
+    assert trained["steps"] == 2
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")]
 print("isolated-ok", rec.point)
 """
