@@ -29,7 +29,15 @@ Phases, each printing its numbers on lines of its own:
    sub-chunked tensor-core design ``tc``, fp32 the ``per_token`` one), and
    the per-token design once through its C entry point; the segmented lru
    scan with its segment count, against the exact scan and against its own
-   segmented arithmetic (``lru_scan_segmented_plain``);
+   segmented arithmetic (``lru_scan_segmented_plain``); then the scans'
+   backward kernels at the trained shapes (lru a, b, g (4, 256, 2560) fp32
+   at ``rec_chunk`` 8; rwkv r, k, v, gy (1, 2048, 64, 64) bf16), with the
+   final-state cotangents nonzero, against their plain versions
+   (``lru_scan_bwd_plain``, ``rwkv_scan_bwd_plain``; each output by
+   ||kernel - plain|| / ||plain||, ``BWD_REL``), a planted fault (the rwkv
+   gradient's dk or dv without its u term) that the same limit must reject,
+   and one call of each under ``torch.profiler`` at two sequence lengths:
+   the same kernel count;
 3. the PATSMA tuning loop: ``tune_call`` on the five calls with the default
    CSA budget, committing records to ``DIR/tune.json``, and once more on
    the decode call with ``strategy="csa+nm"`` into ``DIR/tune_csa_nm.json``;
@@ -59,7 +67,10 @@ Phases, each printing its numbers on lines of its own:
    and share of the bytes bound; and flash attention at the shape of
    seamless-m4t-large-v2's encoder (q (8, 4096, 16, 64), k/v (8, 16, 4096,
    64) bf16, non-causal) against its plain version, at the default tiles
-   and tuned (its own DB), with SDPA's time and the bound;
+   and tuned (its own DB), with SDPA's time and the bound; the scans'
+   backward kernels at phase 2's shapes beside their plain versions, the
+   eager per-token oracle (autograd through ``ref.*_scan_ref``) and their
+   fp32 bounds;
 8. serving recurrentgemma-2b at full width and depth through
    ``repro_torch.launch.serve`` (batch 8, prompt 2048, 64 new tokens, random
    weights from seed 0) twice on one DB: the first run tunes the decode
@@ -83,12 +94,13 @@ Phases, each printing its numbers on lines of its own:
    warmup): run 1 tunes the
    microbatch count over {1, 2, 4} (``DIR/train.json``) and goes on 2 steps
    past the tuning (cap 40), printing the loss per step (finite and
-   falling), step wall times, tokens/s, peak memory and ``lru_scan``
-   launches per step (18 per forward pass, so 18 x microbatches); run 2 on
-   the same DB must be an exact hit (4 steps).  Then, on one model and one
-   batch with no update, the kernel path's loss and global gradient norm
-   against the plain path's (1e-3 / 1e-2 relative), with the per-token
-   backward of the lru scan timed apart; then a tiny job with async
+   falling), step wall times, tokens/s, peak memory and the launches per
+   step (``lru_scan`` 2 x 18 per microbatch: the forward and the backward's
+   recompute; ``lru_scan_bwd`` 18); run 2 on the same DB must be an exact
+   hit (4 steps).  Then, on one model and one batch with no update, the
+   kernel path's loss and global gradient norm against the plain path's
+   (1e-3 / 1e-2 relative), with the lru backward timed per call beside the
+   per-token oracle backward it replaced; then a tiny job with async
    checkpoints every 2 steps, each of which must restore the parameters and
    optimizer state ``on_step`` saw at its step, bit for bit;
 11. qwen2-7b at full width with 2 layers through ``make_train_step``, batch 1
@@ -183,9 +195,27 @@ Phases, each printing its numbers on lines of its own:
 23. moonshot-v1-16b-a3b at full width with 2 of its 48 layers through
    ``make_train_step``, batch 1 x 2048, 4 steps: the same checks and prints,
    the flash kernel causal, and the MoE dispatch's capacity branch with its
-   drops per layer.
+   drops per layer;
+24. training rwkv6-7b at full width with 17 of its 32 layers (the most
+   whose peak stays under 80 GB) through ``make_train_step``, batch 1 x
+   2048, ``rec_chunk`` 8, 3 steps: loss and grad norm per step, step ms,
+   tokens/s, the peak, 17 ``rwkv_scan`` (tensor-core design) and 17
+   ``rwkv_scan_bwd`` launches a step; then on one batch, no update: each
+   layer's ``rwkv_scan`` inputs captured on the kernel path, the
+   tensor-core kernel's y on them against the exact per-token scan in fp32
+   (``RWKV_FWD_REL``) and against the sub-chunked plain version (``TOL``);
+   the kernel path against the plain path (``wkv_chunked``) in bf16 beside
+   the kernel path with the exact per-token forward, with the rwkv
+   backward's ms a call (printed: at 17 random bf16 layers two exact
+   forwards already part by tens of per cent in grad norm); the kernel
+   path's forward with its backward through the kernel against through
+   ``rwkv_scan_bwd_plain`` (the same loss, grad norm 1e-2 relative); in
+   fp32 arithmetic the kernel path against the plain path (loss 1e-3, grad
+   norm 1e-2 relative); and ``RWKV_AGREE_LAYERS`` layers trained the same
+   way, kernel path against plain path in bf16 (loss 1e-3, grad norm 1e-2
+   relative).
 
-Phases 10-11 with 22-23, 12-15 with 20-21, and 16-17 with 19 run after
+Phases 10-11 with 22-24, 12-15 with 20-21, and 16-17 with 19 run after
 phase 7, before serving, in three child processes (``--train-phases``,
 ``--family-phases``, ``--parallel-phases``), one after the other, each with
 the card to itself:
@@ -194,7 +224,7 @@ child reports its launch counts on its last line; phase 18's torchrun rank
 (``--distributed-train``) does the same.
 
 Phases 3-5 (the tuning loop), phase 6 (the route), phases 8-9, 12-15 and
-20 (serving), phases 10-11 and 22-23 (training) and phases 16-19 (the
+20 (serving), phases 10-11 and 22-24 (training) and phases 16-19 (the
 parallel layer and the launch dry run's calibration) are the main paths:
 the kernels' launch counters are set to 0 just before each path and read
 just after, and every kernel must have launched on one of them.
@@ -235,6 +265,13 @@ TOL = {"matmul": {"float32": 1e-5, "bfloat16": 2e-2},
        # the JAX package's bf16 limit for this scan
        "lru_scan": {"float32": 1e-5, "bfloat16": 3e-2},
        "rwkv_scan": {"float32": 1e-5, "bfloat16": 5e-2}}
+#: the scans' backward, each output against its plain version by
+#: ||kernel - plain|| / ||plain||, by the output's dtype.  The gradients are
+#: sums of products that cancel and are heavy-tailed, so an element-wise
+#: limit tied to the largest |plain| would pass a missing term; a bf16
+#: output rounds each element once (about 2e-3 of the norm), an fp32 one
+#: sums the same fp32 products in another order
+BWD_REL = {"float32": 1e-5, "bfloat16": 1e-2}
 #: atol = rtol for the served model's final prefill hidden state, kernel
 #: path against plain path, both run in fp32 arithmetic on the served
 #: (bf16-stored) weights.  In bf16 the two paths round the scans' outputs
@@ -307,7 +344,27 @@ DIST_RESULT = "distributed launches: "  # the torchrun rank's last line
 # calibration cell, phase 17's qwen2-7b cut
 DRYRUN_TIMEOUT_S = 600
 DRYRUN_SHAPE = ("train_2048x1", "train", QWEN_SEQ, 1)  # ShapeSpec of phase 17's cut
-KERNELS = ["matmul", "flash_attention", "decode_attention", "lru_scan", "rwkv_scan"]
+# the scans' backward kernels: phase 2's shapes are the trained ones
+LRU_BWD_SHAPE = (TRAIN_BATCH, TRAIN_SEQ, 2560)  # recurrentgemma-2b in phase 10 (fp32)
+TRAIN_REC_CHUNK = 8  # the training launcher's rec_chunk (TrainJob's ExecConfig)
+# phase 24: rwkv6-7b at full width, one sequence of 2048 tokens, depth cut
+# to the most layers whose fp32 weights, gradients and AdamW state (16 bytes
+# a parameter: 3.5 GB a layer, 8.6 GB for the embedding and head) and
+# activations stay under 80 GB
+RWKV_TRAIN, RWKV_TRAIN_LAYERS, RWKV_TRAIN_STEPS = (1, 2048), 17, 3
+#: the tensor-core forward's y on each trained layer's inputs against the
+#: exact scan in fp32, ||y - exact|| / ||exact||: y rounds once to bf16
+#: (1.66e-3 of the norm for the exact values rounded) after TF32 operands
+#: (under 2.2e-4 before the rounding)
+RWKV_FWD_REL = 2.5e-3
+#: the depth at which phase 24 holds the bf16 kernel and plain paths
+#: against each other: at 17 random layers the bf16 gradient norm parts by
+#: tens of per cent between any two forwards that differ in a few roundings
+RWKV_AGREE_LAYERS = 4
+RWKV_BWD_SHAPE = (1, 2048, 64, 64)  # rwkv6-7b in phase 24: batch, tokens, heads, head dim (bf16)
+BWD_SHAPES_T = {"lru_scan_bwd": 2048, "rwkv_scan_bwd": 512}  # the other T the profiler counts at
+KERNELS = ["matmul", "flash_attention", "decode_attention", "lru_scan", "rwkv_scan",
+           "lru_scan_bwd", "rwkv_scan_bwd"]
 
 
 class SmokeFailure(Exception):
@@ -325,6 +382,13 @@ def nvidia_smi() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def bwd_rel(got, want) -> float:
+    """||got - want|| / ||want|| in fp32 (0 when both are zero)."""
+    d = (got.float() - want.float()).norm().item()
+    w = want.float().norm().item()
+    return d / w if w > 0 else (0.0 if d == 0 else math.inf)
 
 
 def _tensors(x) -> list:
@@ -972,8 +1036,64 @@ def live_cuda_report(phase: str, dev) -> None:
               f"{up or 'nothing in Python (C++ only)'}")
 
 
+def loss_and_grads(model, batch) -> tuple:
+    """Loss and global gradient norm of one forward/backward, no update;
+    the gradients stay in ``.grad``."""
+    from repro_torch.optim import global_norm
+    from repro_torch.train import make_loss_fn
+
+    model.zero_grad(set_to_none=True)
+    loss_, _ = make_loss_fn(model)(model.params(), batch)
+    loss_.backward()
+    grads_ = [p_.grad for p_ in model.params().values()]
+    return loss_.item(), global_norm(grads_).item()
+
+
+def timed_paths(model, batch, fn_cls, rec_chunk: int) -> dict:
+    """The kernel path (``attn_impl="cuda"``) against the plain path
+    (``"xla"``) on one batch with no update: (loss, global grad norm) of
+    each, the kernel path's forward + backward once with ``fn_cls.backward``
+    (a scan's autograd function) timed per call, synchronized around each,
+    then once more without, and the plain path's; plus the launches of the
+    kernel path's two passes."""
+    import torch
+
+    from repro_torch.models import ExecConfig
+
+    bwd = []
+    backward = fn_cls.backward
+
+    def timed_backward(ctx, *grads):
+        torch.cuda.synchronize()
+        t_ = time.perf_counter()
+        got_ = backward(ctx, *grads)
+        torch.cuda.synchronize()
+        bwd.append(time.perf_counter() - t_)
+        return got_
+
+    def run(impl):
+        model.exec_cfg = ExecConfig(attn_impl=impl, rec_chunk=rec_chunk)
+        torch.cuda.synchronize()
+        t0_ = time.perf_counter()
+        got_ = loss_and_grads(model, batch)
+        torch.cuda.synchronize()
+        return got_, (time.perf_counter() - t0_) * 1e3
+
+    paths = {}
+    fn_cls.backward = staticmethod(timed_backward)
+    try:
+        paths["cuda"], paths["cuda_fb_ms"] = run("cuda")
+    finally:
+        fn_cls.backward = backward
+    paths["launched"] = counts()
+    paths["bwd_ms"], paths["bwd_calls"] = sum(bwd) * 1e3, len(bwd)
+    _, paths["cuda_fb_free_ms"] = run("cuda")
+    paths["xla"], paths["xla_fb_ms"] = run("xla")
+    return paths
+
+
 def train_phases(out: Path, smi: str) -> dict:
-    """Phases 10-11 and 22-23, the training main path, on a card nothing else holds
+    """Phases 10-11 and 22-24, the training main path, on a card nothing else holds
     memory on (``main`` runs this in a child process: ``--train-phases``).
     Returns the kernels' launch counts over the training runs."""
     import dataclasses
@@ -989,9 +1109,9 @@ def train_phases(out: Path, smi: str) -> dict:
     from repro_torch.kernels import linear_scan as ls
     from repro_torch.kernels import ops
     from repro_torch.models import ExecConfig, TrainModel
-    from repro_torch.optim import AdamW, cosine_schedule, global_norm, tree_leaves
+    from repro_torch.optim import AdamW, cosine_schedule, tree_leaves
     from repro_torch.runtime import TrainJob
-    from repro_torch.train import make_loss_fn, make_train_step
+    from repro_torch.train import make_train_step
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1009,15 +1129,6 @@ def train_phases(out: Path, smi: str) -> dict:
         for n_, c_ in launched.items():
             train_launches[n_] += c_
 
-    def loss_and_grads(model, batch):
-        """Loss and global gradient norm of one forward/backward, no update;
-        the gradients stay in ``.grad``."""
-        model.zero_grad(set_to_none=True)
-        loss_, _ = make_loss_fn(model)(model.params(), batch)
-        loss_.backward()
-        grads_ = [p_.grad for p_ in model.params().values()]
-        return loss_.item(), global_norm(grads_).item()
-
     # 10. recurrentgemma-2b at full width and depth through TrainJob
     rg_cfg = tconfigs.get(TRAIN_ARCH)
     gc.collect()
@@ -1029,7 +1140,8 @@ def train_phases(out: Path, smi: str) -> dict:
         per_step = []
 
         def on_step(step_, metrics_, per_step=per_step):
-            per_step.append(ls.launches["lru_scan"] - sum(per_step))
+            done_ = [sum(c_[i_] for c_ in per_step) for i_ in (0, 1)]
+            per_step.append((ls.launches["lru_scan"] - done_[0], ls.launches["lru_scan_bwd"] - done_[1]))
 
         job = TrainJob(arch=TRAIN_ARCH, tiny=False, steps=TRAIN_CAP if run == 1 else 4,
                        # lr 1e-3 (the launcher's) with no warmup, so that a dozen
@@ -1055,12 +1167,13 @@ def train_phases(out: Path, smi: str) -> dict:
         print(f"[10] {TRAIN_ARCH} run {run} step wall ms per step: {[round(t_ * 1e3, 1) for t_ in times_]}; "
               f"median {med * 1e3:.1f} ms, {TRAIN_BATCH * TRAIN_SEQ / med:.1f} tokens/s "
               f"(batch {TRAIN_BATCH} x {TRAIN_SEQ}); torch.cuda.max_memory_allocated {peak:.2f} GB; "
-              f"lru_scan launches per step {per_step}; launches {launched}; {smi}")
+              f"(lru_scan, lru_scan_bwd) launches per step {per_step}; launches {launched}; {smi}")
         check(all(math.isfinite(x_) for x_ in losses), f"run {run}: a loss is not finite")
-        check(all(n_ == RG_LRU_LAYERS * m_ for n_, m_ in zip(per_step, mbs)),
-              f"run {run}: lru_scan launches per step {per_step} are not {RG_LRU_LAYERS} x "
-              f"microbatches {mbs}")
-        check(all(n_ == 0 for k_, n_ in launched.items() if k_ != "lru_scan"),
+        check(all(n_ == (2 * RG_LRU_LAYERS * m_, RG_LRU_LAYERS * m_) for n_, m_ in zip(per_step, mbs)),
+              f"run {run}: (lru_scan, lru_scan_bwd) launches per step {per_step} are not "
+              f"(2, 1) x {RG_LRU_LAYERS} x microbatches {mbs} (the forward and the backward's "
+              f"recompute; the reverse scan)")
+        check(all(n_ == 0 for k_, n_ in launched.items() if k_ not in ("lru_scan", "lru_scan_bwd")),
               f"run {run}: unexpected launches {launched}")
         check(peak < 80.0, f"run {run}: peak memory {peak:.2f} GB")
         if run == 1:
@@ -1078,55 +1191,36 @@ def train_phases(out: Path, smi: str) -> dict:
     train_report["recurrentgemma_2b"] = runs10
 
     # the kernel path against the plain path on one model and one batch, no
-    # update; the per-token backward of the lru scan timed apart
+    # update; the lru backward timed per call (synchronized around each, as
+    # the per-token oracle backward it replaced was timed), then the forward
+    # + backward again without those synchronizations
     reset_counts()
     model = TrainModel(rg_cfg, ExecConfig(attn_impl="cuda", rec_chunk=8), device=dev, seed=0)
     batch = make_batch_for(rg_cfg, TRAIN_BATCH, TRAIN_SEQ, step=0, seed=0, device=dev)
-    lru_bwd = []
-    lru_backward = ops._Lru.backward
-
-    def timed_backward(ctx, ghs, ghT):
-        torch.cuda.synchronize()
-        t_ = time.perf_counter()
-        got_ = lru_backward(ctx, ghs, ghT)
-        torch.cuda.synchronize()
-        lru_bwd.append(time.perf_counter() - t_)
-        return got_
-
-    paths = {}
-    for impl in ("cuda", "xla"):
-        model.exec_cfg = ExecConfig(attn_impl=impl, rec_chunk=8)
-        if impl == "cuda":
-            ops._Lru.backward = staticmethod(timed_backward)
-        try:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            paths[impl] = loss_and_grads(model, batch)
-            torch.cuda.synchronize()
-            fb_s = time.perf_counter() - t0
-        finally:
-            ops._Lru.backward = lru_backward
-        if impl == "cuda":
-            paths["cuda_fb_s"], paths["lru_bwd_s"] = fb_s, sum(lru_bwd)
-        else:
-            paths["xla_fb_s"] = fb_s
-    launched = counts()
+    paths = timed_paths(model, batch, ops._Lru, rec_chunk=8)
+    launched = paths.pop("launched")
     (lk, gk), (lp, gp) = paths["cuda"], paths["xla"]
     ok = abs(lk - lp) <= 1e-3 * abs(lp) and abs(gk - gp) <= 1e-2 * abs(gp)
     print(f"[10] {TRAIN_ARCH} kernel path vs plain path, batch {TRAIN_BATCH} x {TRAIN_SEQ}, no update: "
           f"loss {lk:.6f} / {lp:.6f} (rel {abs(lk - lp) / abs(lp):.2e}, limit 1e-3), global grad norm "
           f"{gk:.6f} / {gp:.6f} (rel {abs(gk - gp) / abs(gp):.2e}, limit 1e-2) {'ok' if ok else 'FAIL'}; "
-          f"forward+backward {paths['cuda_fb_s'] * 1e3:.1f} ms (kernel path, {len(lru_bwd)} lru "
-          f"backward calls {paths['lru_bwd_s'] * 1e3:.1f} ms, synchronized around each) / "
-          f"{paths['xla_fb_s'] * 1e3:.1f} ms (plain path); launches {launched}")
+          f"forward+backward {paths['cuda_fb_ms']:.1f} ms (kernel path, {paths['bwd_calls']} lru "
+          f"backward calls {paths['bwd_ms']:.1f} ms, {paths['bwd_ms'] / paths['bwd_calls']:.3f} ms a "
+          f"call, synchronized around each; the per-token oracle backward it replaced: 847.3 ms "
+          f"forward+backward, 670.1 ms in 18 calls), {paths['cuda_fb_free_ms']:.1f} ms without the per-call "
+          f"synchronizations / {paths['xla_fb_ms']:.1f} ms (plain path); launches {launched}; {smi}")
     check(ok, f"{TRAIN_ARCH}: the kernel path's loss or gradient norm disagrees with the plain path")
-    check(launched["lru_scan"] == RG_LRU_LAYERS and len(lru_bwd) == RG_LRU_LAYERS,
-          f"{TRAIN_ARCH}: kernel path launched lru_scan {launched['lru_scan']} times, "
-          f"{len(lru_bwd)} backward calls")
+    check(launched["lru_scan"] == 2 * RG_LRU_LAYERS and launched["lru_scan_bwd"] == RG_LRU_LAYERS
+          and paths["bwd_calls"] == RG_LRU_LAYERS,
+          f"{TRAIN_ARCH}: one forward + backward launched lru_scan {launched['lru_scan']} times "
+          f"(expected {2 * RG_LRU_LAYERS}: the forward and the recompute) and lru_scan_bwd "
+          f"{launched['lru_scan_bwd']} (expected {RG_LRU_LAYERS}) in {paths['bwd_calls']} backward calls")
     train_report["recurrentgemma_2b_paths"] = {
-        "loss": [lk, lp], "grad_norm": [gk, gp], "forward_backward_ms": [paths["cuda_fb_s"] * 1e3,
-                                                                      paths["xla_fb_s"] * 1e3],
-        "lru_backward_ms": paths["lru_bwd_s"] * 1e3, "lru_backward_calls": len(lru_bwd)}
+        "loss": [lk, lp], "grad_norm": [gk, gp],
+        "forward_backward_ms": [paths["cuda_fb_ms"], paths["xla_fb_ms"]],
+        "forward_backward_unsynchronized_ms": paths["cuda_fb_free_ms"],
+        "lru_backward_ms": paths["bwd_ms"], "lru_backward_calls": paths["bwd_calls"],
+        "per_token_oracle_before": {"forward_backward_ms": 847.3, "lru_backward_ms": 670.1}}
     del model, batch
     gc.collect()
     torch.cuda.empty_cache()
@@ -1215,8 +1309,250 @@ def train_phases(out: Path, smi: str) -> dict:
     # 22-23. the encoder-decoder and MoE families trained on the flash kernel
     fam_launches, train_report["families"] = family_train_phases(out, smi)
     add_train_launches(fam_launches)
+
+    # 24. rwkv6-7b at full width, depth cut, on the rwkv scan and its backward kernel
+    rwkv_launches, train_report["rwkv6_7b"] = rwkv_train_phase(smi)
+    add_train_launches(rwkv_launches)
     (out / "train_report.json").write_text(json.dumps(train_report, indent=1))
     return train_launches
+
+
+def rwkv_train_phase(smi: str) -> tuple:
+    """Phase 24: rwkv6-7b at full width (64 heads of 64, d_ff 14336, vocab
+    65536) with ``RWKV_TRAIN_LAYERS`` of its 32 layers, through
+    ``make_train_step`` on the kernel path (the scan's tensor-core forward
+    and its backward kernel, ``rec_chunk`` ``TRAIN_REC_CHUNK``), batch 1 x
+    2048.  Returns (the kernels' launches over the steps, the report)."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch import configs as tconfigs
+    from repro_torch.data import make_batch_for
+    from repro_torch.kernels import linear_scan as ls
+    from repro_torch.kernels import ops
+    from repro_torch.models import ExecConfig, TrainModel
+    from repro_torch.optim import AdamW, cosine_schedule
+    from repro_torch.train import make_train_step
+
+    dev = torch.device("cuda", 0)
+    full = tconfigs.get("rwkv6_7b")
+    cfg = dataclasses.replace(full, n_layers=RWKV_TRAIN_LAYERS, n_groups=0)
+    B, T = RWKV_TRAIN
+    torch.empty(0, device=dev)  # a context before the memory statistics are read
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    by_design = dict(ls.launches_by_design)
+    model = TrainModel(cfg, ExecConfig(attn_impl="cuda", rec_chunk=TRAIN_REC_CHUNK), device=dev, seed=0)
+    params = model.params()
+    n_params = sum(p_.numel() for p_ in params.values())
+    opt = AdamW(lr=cosine_schedule(1e-3, 10, 50))
+    opt_state = opt.init(params)
+    step_fn = make_train_step(model, opt)
+    walls, mets = [], []
+    for i in range(RWKV_TRAIN_STEPS):
+        batch = make_batch_for(cfg, B, T, step=i, seed=0, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, met = step_fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        mets.append({k_: v_.item() for k_, v_ in met.items()})
+    launched = counts()
+    by_design = {d_: n_ - by_design[d_] for d_, n_ in ls.launches_by_design.items()}
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    steady = sorted(walls[1:])[len(walls[1:]) // 2]
+    losses = [m_["loss"] for m_ in mets]
+    print(f"[24] rwkv6-7b at full width (d_model {cfg.d_model}, {cfg.n_heads} heads of {cfg.d_head}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), {RWKV_TRAIN_LAYERS} of {full.n_layers} layers "
+          f"({n_params / 1e9:.3f} B parameters, fp32 masters and AdamW state), batch {B} x {T}, "
+          f"rec_chunk {TRAIN_REC_CHUNK}, kernel path: loss per step {[round(x_, 6) for x_ in losses]}, "
+          f"grad norm {[round(m_['grad_norm'], 6) for m_ in mets]}; step wall ms {[round(w_, 1) for w_ in walls]} "
+          f"(median after the first {steady:.1f} ms, {B * T / steady * 1e3:.1f} tokens/s); "
+          f"torch.cuda.max_memory_allocated {peak:.2f} GB; launches {launched}, rwkv_scan by design "
+          f"{by_design}; {smi}")
+    check(all(math.isfinite(v_) for m_ in mets for v_ in m_.values()), "rwkv6-7b: a metric is not finite")
+    check(peak < 80.0, f"rwkv6-7b: peak memory {peak:.2f} GB")
+    per_run = RWKV_TRAIN_LAYERS * RWKV_TRAIN_STEPS
+    check(launched["rwkv_scan"] == per_run and launched["rwkv_scan_bwd"] == per_run
+          and by_design["tc"] == per_run
+          and all(n_ == 0 for k_, n_ in launched.items() if k_ not in ("rwkv_scan", "rwkv_scan_bwd")),
+          f"rwkv6-7b: launches {launched} (by design {by_design}) over {RWKV_TRAIN_STEPS} steps, "
+          f"expected rwkv_scan (tc) and rwkv_scan_bwd {RWKV_TRAIN_LAYERS} times a step and nothing else")
+    del opt_state, step_fn, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one batch, no update.  (a) Each layer's forward: the scan's inputs
+    # captured on the kernel path, the tensor-core kernel's y on them
+    # against the exact per-token scan and the sub-chunked plain version.
+    batch = make_batch_for(cfg, B, T, step=0, seed=0, device=dev)
+    fwd = rwkv_layer_forwards(model, batch)
+    # (b) bf16 as trained, the kernel path against the plain path
+    # (wkv_chunked) and the kernel path with the exact per-token forward,
+    # the rwkv backward timed per call: printed.  (c) The backward kernel
+    # inside the step: the kernel path's forward with the backward through
+    # the kernel and through ``rwkv_scan_bwd_plain``, held.  (d) fp32
+    # arithmetic on the same weights (the per-token forward design), kernel
+    # path against plain path, held.  (e) The bf16 paths at
+    # ``RWKV_AGREE_LAYERS`` layers, held.
+    reset_counts()
+    paths = timed_paths(model, batch, ops._Rwkv, rec_chunk=TRAIN_REC_CHUNK)
+    path_launches = paths.pop("launched")
+    (lk, gk), (lp, gp) = paths["cuda"], paths["xla"]
+    design = ls.rwkv_design
+    model.exec_cfg = ExecConfig(attn_impl="cuda", rec_chunk=TRAIN_REC_CHUNK)
+    ls.rwkv_design = lambda *args_, **kw_: "per_token"
+    try:
+        le, ge = loss_and_grads(model, batch)
+    finally:
+        ls.rwkv_design = design
+    print(f"[24] rwkv6-7b bf16 as trained, kernel path vs plain path (wkv_chunked), batch {B} x {T}, "
+          f"no update: loss {lk:.6f} / {lp:.6f} (rel {abs(lk - lp) / abs(lp):.2e}), global grad norm "
+          f"{gk:.6f} / {gp:.6f} (rel {abs(gk - gp) / abs(gp):.2e}); the kernel path with the exact "
+          f"per-token forward: loss {le:.6f}, grad norm {ge:.6f} (rel {abs(ge - gp) / abs(gp):.2e} to the "
+          f"plain path); printed, not held: the forwards' y agree to one bf16 rounding, and at "
+          f"{RWKV_TRAIN_LAYERS} random bf16 layers the gradient norm parts between any two of them "
+          f"(held at {RWKV_AGREE_LAYERS} layers below); forward+backward {paths['cuda_fb_ms']:.1f} "
+          f"ms (kernel path, {paths['bwd_calls']} rwkv backward calls {paths['bwd_ms']:.1f} ms, "
+          f"{paths['bwd_ms'] / max(paths['bwd_calls'], 1):.3f} ms a call, synchronized around each), "
+          f"{paths['cuda_fb_free_ms']:.1f} ms without those synchronizations / {paths['xla_fb_ms']:.1f} ms "
+          f"(plain path); launches {path_launches}; {smi}")
+    check(path_launches["rwkv_scan_bwd"] == RWKV_TRAIN_LAYERS and paths["bwd_calls"] == RWKV_TRAIN_LAYERS,
+          f"rwkv6-7b: one forward + backward launched rwkv_scan_bwd {path_launches['rwkv_scan_bwd']} "
+          f"times in {paths['bwd_calls']} backward calls, expected {RWKV_TRAIN_LAYERS}")
+    kernel_bwd = ls.rwkv_scan_bwd
+    model.exec_cfg = ExecConfig(attn_impl="cuda", rec_chunk=TRAIN_REC_CHUNK)
+    ls.rwkv_scan_bwd = lambda *args_, interpret=False: ls.rwkv_scan_bwd_plain(*args_)
+    try:
+        ls_, gs_ = loss_and_grads(model, batch)
+    finally:
+        ls.rwkv_scan_bwd = kernel_bwd
+    ok_b = ls_ == lk and abs(gk - gs_) <= 1e-2 * abs(gs_)
+    print(f"[24] rwkv6-7b bf16, the kernel path's forward, backward through the kernel vs through "
+          f"rwkv_scan_bwd_plain: loss {lk:.6f} / {ls_:.6f} (equal), global grad norm {gk:.6f} / {gs_:.6f} "
+          f"(rel {abs(gk - gs_) / abs(gs_):.2e}, limit 1e-2) {'ok' if ok_b else 'FAIL'}")
+    check(ok_b, "rwkv6-7b: the backward kernel disagrees with its plain version inside the step")
+    model.cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    fp32 = {}
+    for impl in ("cuda", "xla"):
+        model.exec_cfg = ExecConfig(attn_impl=impl, rec_chunk=TRAIN_REC_CHUNK)
+        fp32[impl] = loss_and_grads(model, batch)
+        model.zero_grad(set_to_none=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    model.cfg = cfg
+    (fk, fgk), (fp, fgp) = fp32["cuda"], fp32["xla"]
+    ok = abs(fk - fp) <= 1e-3 * abs(fp) and abs(fgk - fgp) <= 1e-2 * abs(fgp)
+    print(f"[24] rwkv6-7b fp32 arithmetic on the same weights, kernel path vs plain path: loss "
+          f"{fk:.6f} / {fp:.6f} (rel {abs(fk - fp) / abs(fp):.2e}, limit 1e-3), global grad norm "
+          f"{fgk:.6f} / {fgp:.6f} (rel {abs(fgk - fgp) / abs(fgp):.2e}, limit 1e-2) {'ok' if ok else 'FAIL'}")
+    check(ok, "rwkv6-7b: in fp32 the kernel path's loss or gradient norm disagrees with the plain path")
+    report = {"layers": RWKV_TRAIN_LAYERS, "of_layers": full.n_layers, "parameters": n_params,
+              "batch": [B, T], "rec_chunk": TRAIN_REC_CHUNK, "loss": losses, "step_ms": walls,
+              "median_step_ms": steady, "tokens_per_s": B * T / steady * 1e3, "peak_gb": peak,
+              "forward_by_layer": fwd,
+              "paths_bf16": {"loss": [lk, lp], "grad_norm": [gk, gp], "exact_forward": [le, ge],
+                             "forward_backward_ms": [paths["cuda_fb_ms"], paths["xla_fb_ms"]],
+                             "forward_backward_unsynchronized_ms": paths["cuda_fb_free_ms"],
+                             "rwkv_backward_ms": paths["bwd_ms"], "rwkv_backward_calls": paths["bwd_calls"]},
+              "backward_kernel_vs_plain_bf16": {"loss": [lk, ls_], "grad_norm": [gk, gs_]},
+              "paths_fp32": {"loss": [fk, fp], "grad_norm": [fgk, fgp]}}
+    del model, params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) the same training at RWKV_AGREE_LAYERS layers, kernel path
+    # against plain path in bf16, held
+    cfg = dataclasses.replace(full, n_layers=RWKV_AGREE_LAYERS, n_groups=0)
+    model = TrainModel(cfg, ExecConfig(attn_impl="cuda", rec_chunk=TRAIN_REC_CHUNK), device=dev, seed=0)
+    params = model.params()
+    opt = AdamW(lr=cosine_schedule(1e-3, 10, 50))
+    opt_state = opt.init(params)
+    step_fn = make_train_step(model, opt)
+    for i in range(RWKV_TRAIN_STEPS):
+        params, opt_state, _ = step_fn(params, opt_state, make_batch_for(cfg, B, T, step=i, seed=0, device=dev))
+    del opt_state, step_fn, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    batch = make_batch_for(cfg, B, T, step=0, seed=0, device=dev)
+    agree = {}
+    for impl in ("cuda", "xla"):
+        model.exec_cfg = ExecConfig(attn_impl=impl, rec_chunk=TRAIN_REC_CHUNK)
+        agree[impl] = loss_and_grads(model, batch)
+        model.zero_grad(set_to_none=True)
+    (ak, agk), (ap, agp) = agree["cuda"], agree["xla"]
+    ok = abs(ak - ap) <= 1e-3 * abs(ap) and abs(agk - agp) <= 1e-2 * abs(agp)
+    print(f"[24] rwkv6-7b bf16 with {RWKV_AGREE_LAYERS} of {full.n_layers} layers at full width, trained "
+          f"{RWKV_TRAIN_STEPS} steps the same way, kernel path vs plain path (wkv_chunked), batch {B} x {T}, "
+          f"no update: loss {ak:.6f} / {ap:.6f} (rel {abs(ak - ap) / abs(ap):.2e}, limit 1e-3), global grad "
+          f"norm {agk:.6f} / {agp:.6f} (rel {abs(agk - agp) / abs(agp):.2e}, limit 1e-2) "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, f"rwkv6-7b at {RWKV_AGREE_LAYERS} layers: in bf16 the kernel path's loss or gradient norm "
+              "disagrees with the plain path")
+    report["paths_bf16_agree"] = {"layers": RWKV_AGREE_LAYERS, "loss": [ak, ap], "grad_norm": [agk, agp]}
+    del model, params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launched, report
+
+
+def rwkv_layer_forwards(model, batch) -> dict:
+    """Phase 24 (a): each layer's ``rwkv_scan`` inputs from one forward on
+    the kernel path; on each, the tensor-core kernel's y against the exact
+    per-token scan in fp32 (||y - exact|| / ||exact|| at ``RWKV_FWD_REL``,
+    beside the exact values rounded to bf16) and against the sub-chunked
+    plain version rounded to bf16 (``TOL``, as serving holds it).  These
+    launches are checks, made after the main path's counts were read."""
+    import torch
+
+    from repro_torch.kernels import linear_scan as ls
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref
+    from repro_torch.models import ExecConfig
+    from repro_torch.train import make_loss_fn
+
+    captured, scan = [], ops.rwkv_scan
+
+    def capture(*args_, **kw_):
+        captured.append([t_.detach().clone() for t_ in args_])
+        return scan(*args_, **kw_)
+
+    model.exec_cfg = ExecConfig(attn_impl="cuda", rec_chunk=TRAIN_REC_CHUNK)
+    ops.rwkv_scan = capture
+    try:
+        with torch.no_grad():
+            make_loss_fn(model)(model.params(), batch)
+    finally:
+        ops.rwkv_scan = scan
+    tol = TOL["rwkv_scan"]["bfloat16"]
+    rel, rounded, worst, designs = [], [], [], set()
+    for args_ in captured:
+        before = dict(ls.launches_by_design)
+        y = ls.rwkv_scan_chunked(*args_, chunk=TRAIN_REC_CHUNK)[0]
+        designs |= {d_ for d_, n_ in ls.launches_by_design.items() if n_ > before[d_]}
+        f32 = (*(t_.float() for t_ in args_[:3]), *args_[3:])
+        exact = ref.rwkv_scan_ref(*f32)[0]
+        rel.append(bwd_rel(y, exact))
+        rounded.append(bwd_rel(exact.to(y.dtype), exact))
+        sub = ls.rwkv_scan_subchunk_plain(*args_)[0].float()
+        worst.append(((y.float() - sub).abs() / (tol + tol * sub.abs())).max().item())
+        del y, exact, sub, f32
+    del captured
+    torch.cuda.empty_cache()
+    ok = (len(rel) == RWKV_TRAIN_LAYERS and designs == {"tc"} and max(rel) <= RWKV_FWD_REL
+          and max(worst) <= 1.0)
+    print(f"[24] rwkv6-7b bf16, each layer's rwkv_scan inputs from the kernel path, the {sorted(designs)} "
+          f"kernel's y against the exact per-token scan in fp32, ||y - exact|| / ||exact|| by layer "
+          f"{[float(f'{x_:.3e}') for x_ in rel]} (max {max(rel):.3e}, limit {RWKV_FWD_REL:g}; the exact "
+          f"values rounded to bf16: max {max(rounded):.3e}); against the sub-chunked plain version, worst "
+          f"err/limit by layer {[round(x_, 3) for x_ in worst]} (allclose(atol={tol:g}, rtol={tol:g})) "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, "rwkv6-7b: the tensor-core forward disagrees with the exact scan on a trained layer's inputs")
+    return {"rel_to_exact": rel, "exact_rounded_rel": rounded, "worst_err_over_limit": worst}
 
 
 def flash_per_forward(cfg) -> tuple:
@@ -1957,7 +2293,7 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" / "chip_smoke"),
                     help="directory for the tuning DBs this run writes")
     ap.add_argument("--train-phases", action="store_true",
-                    help="run phases 10-11 and 22-23 only (the child process the full run starts)")
+                    help="run phases 10-11 and 22-24 only (the child process the full run starts)")
     ap.add_argument("--family-phases", action="store_true",
                     help="run phases 12-15 and 20-21 only (the child process the full run starts)")
     ap.add_argument("--parallel-phases", action="store_true",
@@ -1998,7 +2334,8 @@ def main(argv=None) -> int:
 
     import torch.nn.functional as F
 
-    from repro_torch.kernels import _cuda, autotuned, kernel_router, ops, routed, tune_call
+    from repro_torch.core.costs import H100_SXM, roofline_terms
+    from repro_torch.kernels import _cuda, autotuned, kernel_router, ops, ref, routed, tune_call
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import linear_scan as ls
@@ -2082,7 +2419,7 @@ def main(argv=None) -> int:
     names = list(call_args)
 
     # -------------------------------------------- 2. kernels vs plain versions
-    max_err = {name: 0.0 for name in names}
+    max_err = {name: 0.0 for name in KERNELS}
 
     def compare(label, name, got, want, phase=2, full=None):
         """Hold got against want; ``full`` (default: more than a million
@@ -2104,6 +2441,22 @@ def main(argv=None) -> int:
         print(f"[{phase}] {label}: max_abs_err={err:.3e} max|plain|={mag:.4g} "
               f"worst err/limit={worst:.3f} allclose(atol={tol:g}, rtol={tol:g}) "
               f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"{label}: kernel disagrees with its plain version")
+
+    def compare_bwd(label, name, got, want, outputs):
+        """Hold each backward output against its plain version by
+        ||got - want|| / ||want|| at ``BWD_REL``; the JSON line reports the
+        largest |error|."""
+        ok, parts = True, []
+        torch.cuda.synchronize()
+        for out_, g_, w_ in zip(outputs, got, want):
+            rel_ = bwd_rel(g_, w_)
+            limit_ = BWD_REL[str(g_.dtype).replace("torch.", "")]
+            ok = ok and g_.shape == w_.shape and g_.dtype == w_.dtype and rel_ <= limit_
+            max_err[name] = max(max_err[name], (g_.float() - w_.float()).abs().max().item())
+            parts.append(f"{out_} {rel_:.2e} ({str(g_.dtype).replace('torch.', '')}, limit {limit_:g})")
+        print(f"[2] {label}: ||kernel - plain|| / ||plain|| per output: {', '.join(parts)}; "
+              f"max_abs_err={max_err[name]:.3e} {'ok' if ok else 'FAIL'}")
         check(ok, f"{label}: kernel disagrees with its plain version")
 
     def ran(module, call):
@@ -2252,6 +2605,69 @@ def main(argv=None) -> int:
     compare(f"rwkv_scan bf16 r,k,v{shape} lw=-14 chunk=16 ({design})", "rwkv_scan", got,
             ls.rwkv_scan_plain(*strong, chunk=16))
 
+    # the scans' backward kernels at the trained shapes, against their plain
+    # versions, with the final-state cotangents nonzero; then one call of
+    # each under torch.profiler at two sequence lengths: the same kernels
+    lb_knobs = {"chunk": TRAIN_REC_CHUNK, "block_d": ls.LRU_BLOCK_D}
+
+    def lru_bwd_args(shape):
+        a_ = torch.sigmoid(randn(shape, torch.float32))
+        return (a_, randn(shape, torch.float32), randn(shape[::2], torch.float32),
+                randn(shape, torch.float32), randn(shape[::2], torch.float32))
+
+    def rwkv_bwd_args(shape):
+        B_, _, H_, hd_ = shape
+        return (*(randn(shape, torch.bfloat16) for _ in range(3)),
+                -torch.exp(randn(shape, torch.float32)), randn((H_, hd_), torch.float32, 0.5),
+                randn((B_, H_, hd_, hd_), torch.float32), randn(shape, torch.bfloat16),
+                randn((B_, H_, hd_, hd_), torch.float32))
+
+    lb_args = lru_bwd_args(LRU_BWD_SHAPE)
+    rb_args = rwkv_bwd_args(RWKV_BWD_SHAPE)
+    bwd_calls = {"lru_scan_bwd": lambda args_: ls.lru_scan_bwd(*args_, **lb_knobs),
+                 "rwkv_scan_bwd": lambda args_: ls.rwkv_scan_bwd(*args_)}
+    lb_nseg = lru_segments(lb_args[:3], lb_knobs)
+    compare_bwd(f"lru_scan_bwd fp32 a,b,g{LRU_BWD_SHAPE} g_T nonzero {lb_knobs} ({lb_nseg} segments)",
+                "lru_scan_bwd", bwd_calls["lru_scan_bwd"](lb_args),
+                ls.lru_scan_bwd_plain(*lb_args, **lb_knobs), ("da", "db", "dh0"))
+    rb_chunk = ls.rwkv_bwd_chunk(RWKV_BWD_SHAPE[1], RWKV_BWD_SHAPE[3])
+    rb_seg = ls.rwkv_bwd_segment(RWKV_BWD_SHAPE[1], rb_chunk)
+    rb_outputs = ("dr", "dk", "dv", "dlw", "du", "ds0")
+    rb_want = ls.rwkv_scan_bwd_plain(*rb_args)
+    compare_bwd(f"rwkv_scan_bwd bf16 r,k,v,gy{RWKV_BWD_SHAPE} lw,u,s0 fp32 gs_T nonzero (chunk {rb_chunk}, "
+                f"checkpoints every {rb_seg} tokens, {RWKV_BWD_SHAPE[0] * RWKV_BWD_SHAPE[2]} blocks)", "rwkv_scan_bwd",
+                bwd_calls["rwkv_scan_bwd"](rb_args), rb_want, rb_outputs)
+    # a planted fault the limit must reject: dk or dv without its u term
+    # (u (r_t . gy_t)-weighted terms, computed by the plain version at u = 0)
+    rb_no_u = ls.rwkv_scan_bwd_plain(*rb_args[:4], torch.zeros_like(rb_args[4]), *rb_args[5:])
+    for i_ in (1, 2):
+        rel_ = bwd_rel(rb_no_u[i_], rb_want[i_])
+        w_ = rb_want[i_].float()
+        print(f"[2] planted fault: rwkv_scan_bwd's {rb_outputs[i_]} without its u term against the plain "
+              f"version: ||fault - plain|| / ||plain|| {rel_:.2e} (limit {BWD_REL['bfloat16']:g}) "
+              f"{'rejected' if rel_ > BWD_REL['bfloat16'] else 'ACCEPTED'}; max |fault - plain| / max |plain| "
+              f"{((rb_no_u[i_].float() - w_).abs().max() / w_.abs().max()).item():.2e}")
+        check(rel_ > BWD_REL["bfloat16"], f"the backward limit accepts {rb_outputs[i_]} without its u term")
+    del rb_want, rb_no_u
+    bwd_kernel_counts = {}
+    for name, shape, args_ in (("lru_scan_bwd", LRU_BWD_SHAPE, lb_args),
+                               ("rwkv_scan_bwd", RWKV_BWD_SHAPE, rb_args)):
+        other = list(shape)
+        other[1] = BWD_SHAPES_T[name]
+        seen = {}
+        for shape_, a_ in ((shape, args_), (tuple(other), None)):
+            if a_ is None:
+                a_ = (lru_bwd_args if name == "lru_scan_bwd" else rwkv_bwd_args)(shape_)
+            bwd_calls[name](a_)  # warm
+            busy_, kernels_ = trace_busy(out, lambda: bwd_calls[name](a_), 1, f"{name}_T{shape_[1]}")
+            seen[shape_[1]] = {"kernels": kernels_, "device_busy_ms": busy_}
+            del a_
+        bwd_kernel_counts[name] = seen
+        print(f"[2] {name} under torch.profiler, one call: device kernels (copies and memsets "
+              f"included) and busy ms by T: {seen}")
+        check(len({v_["kernels"] for v_ in seen.values()}) == 1,
+              f"{name}: the kernel count of one backward call depends on T: {seen}")
+
     check(all(n > 0 for n in counts().values()), f"phase 2 did not launch every kernel: {counts()}")
     print(f"[2] launches: {counts()}")
 
@@ -2344,8 +2760,8 @@ def main(argv=None) -> int:
             print(f"[5] tune {cmd[0]}{' ' + cmd[1] if cmd[0] == 'db' else ''}: {line}")
         check(proc.returncode == 0, f"python -m repro_torch.tune {' '.join(cmd)} exited {proc.returncode}")
     print(f"[5] tuning-loop launches: {tuning_launches} by phase: {phase_launches}")
-    for name, n in tuning_launches.items():
-        check(n > 0, f"the tuning loop never launched the {name} kernel")
+    for name in names:
+        check(tuning_launches[name] > 0, f"the tuning loop never launched the {name} kernel")
 
     for name, got in replayed.items():
         ca, kw = call_args[name]
@@ -2570,6 +2986,34 @@ def main(argv=None) -> int:
               f"{l_row[which]:.4f} ms, segmented: {nseg} segments of {LRU_SHAPE[1] // nseg} steps, "
               f"{blocks} blocks on {n_sm} SMs, {l_bytes_ms / l_row[which]:.4f} of the bytes bound "
               f"{l_bytes_ms:.4f} ms")
+    # the scans' backward kernels at the trained shapes: the kernel (the lru
+    # one with its recompute of hs), its plain version and the eager oracle
+    # the port's backward ran before (autograd through ref.*_scan_ref); no
+    # single PyTorch call computes either (library: none)
+    def oracle_bwd(oracle, inputs, cotangents):
+        leaves = [t_.detach().requires_grad_(True) for t_ in inputs]
+        with torch.enable_grad():
+            return torch.autograd.grad(oracle(*leaves), leaves, cotangents)
+
+    for name, args_, n_in, plain, oracle, work in (
+            ("lru_scan_bwd", lb_args, 3, lambda: ls.lru_scan_bwd_plain(*lb_args, **lb_knobs),
+             ref.lru_scan_ref, ls.lru_bwd_flops_bytes),
+            ("rwkv_scan_bwd", rb_args, 6, lambda: ls.rwkv_scan_bwd_plain(*rb_args),
+             ref.rwkv_scan_ref, ls.rwkv_bwd_flops_bytes)):
+        terms = roofline_terms(*work(*args_[:n_in]), "float32", H100_SXM)
+        kernel = (lambda a_=args_, n_=name: bwd_calls[n_](a_))
+        row = {"tuned": cuda_ms(kernel, 5), "plain": cuda_ms(plain, 1),
+               "oracle": cuda_ms(lambda: oracle_bwd(oracle, args_[:n_in], args_[n_in:]), 1),
+               "library": None, "main_path": None, "terms": terms}
+        row["tuned_again"] = cuda_ms(kernel, 5)
+        row["default"] = row["tuned"]
+        times[name] = row
+        bound_ms = terms.bound_s * 1e3
+        print(f"[7] {name} {'fp32 ' + str(LRU_BWD_SHAPE) if name == 'lru_scan_bwd' else 'bf16 ' + str(RWKV_BWD_SHAPE)}: "
+              f"{row['tuned']:.4f} / {row['tuned_again']:.4f} ms, plain {row['plain']:.2f} ms, eager "
+              f"oracle (autograd through ref) {row['oracle']:.2f} ms, library none, bound {bound_ms:.4f} ms "
+              f"by {terms.dominant} ({terms.flops / 1e9:.2f} GFLOP fp32, {terms.bytes_accessed / 1e6:.1f} "
+              f"MB; {bound_ms / min(row['tuned'], row['tuned_again']):.4f} of the roofline); {smi}")
     csa_nm_ms = cuda_ms(lambda: ops.decode_attention(*da_args, **records_csa_nm.point), 5)
     print(f"[7] decode_attention tuned by csa+nm: {csa_nm_ms:.4f} ms {records_csa_nm.point}; "
           f"by the route: {drec.point}")
@@ -2633,7 +3077,7 @@ def main(argv=None) -> int:
     del eq, ek, ev, eq_bhsd
     del a, b, q, k, v, k_exp, v_exp, q_bhsd, lru_a, lru_b, lru_h0, rr, rk, rv, rlw, ru, rs0
     del dq, dk, dv, dvalid, dk_exp, dv_exp, dmask, rg_args, rg_k_exp, rg_v_exp, small_da
-    del call_args, lru_args, rwkv_args, da_args, timing
+    del call_args, lru_args, rwkv_args, da_args, timing, lb_args, rb_args
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2713,11 +3157,13 @@ def main(argv=None) -> int:
           f"launch.train --distributed did not adopt phase 10's tuning record: {summary['final_knobs']}")
     check(summary["loss"][0] == ref_loss, f"launch.train --distributed's first loss {summary['loss'][0]} "
           f"is not phase 10's {ref_loss}")
-    check(dist_launches["lru_scan"] == RG_LRU_LAYERS * ref_mb * DIST_STEPS
-          and all(n_ == 0 for k_, n_ in dist_launches.items() if k_ != "lru_scan"),
-          f"launch.train --distributed launched {dist_launches}, expected lru_scan "
-          f"{RG_LRU_LAYERS} x {ref_mb} microbatches x {DIST_STEPS} steps and nothing else")
-    for name in names:
+    per_run = RG_LRU_LAYERS * ref_mb * DIST_STEPS
+    check(dist_launches["lru_scan"] == 2 * per_run and dist_launches["lru_scan_bwd"] == per_run
+          and all(n_ == 0 for k_, n_ in dist_launches.items() if k_ not in ("lru_scan", "lru_scan_bwd")),
+          f"launch.train --distributed launched {dist_launches}, expected lru_scan 2 x "
+          f"{RG_LRU_LAYERS} x {ref_mb} microbatches x {DIST_STEPS} steps (the forward and the "
+          f"backward's recompute), lru_scan_bwd once as many, and nothing else")
+    for name in KERNELS:
         parallel_launches[name] += dist_launches[name]
     # pretune --launch: host arithmetic on the H100 data sheet, no kernel
     for run in (1, 2):
@@ -2869,7 +3315,7 @@ def main(argv=None) -> int:
     # what serving leaves allocated (PERF.md §7)
     live_cuda_report("9", dev)
     main_launches = {n: tuning_launches[n] + route_launches[n] + serve_launches.get(n, 0)
-                     + train_launches[n] + family_launches[n] + parallel_launches[n] for n in names}
+                     + train_launches[n] + family_launches[n] + parallel_launches[n] for n in KERNELS}
     print(f"[11] training launches: {train_launches}; families' serving launches: {family_launches}; "
           f"parallel launches: {parallel_launches}; "
           f"all main paths: {main_launches}; launches by "
@@ -2886,10 +3332,16 @@ def main(argv=None) -> int:
                "lru_scan": ("src/repro_torch/kernels/csrc/linear_scan.cu",
                             "src/repro/kernels/linear_scan.py:147"),
                "rwkv_scan": ("src/repro_torch/kernels/csrc/rwkv_subchunk.cu",
-                             "src/repro/kernels/linear_scan.py:77")}
+                             "src/repro/kernels/linear_scan.py:77"),
+               # no Pallas counterpart: the JAX package's custom_vjp takes
+               # jax.vjp of its per-token lax.scan (kernels/ops.py)
+               "lru_scan_bwd": ("src/repro_torch/kernels/csrc/linear_scan.cu",
+                                "src/repro/kernels/ops.py:98"),
+               "rwkv_scan_bwd": ("src/repro_torch/kernels/csrc/linear_scan.cu",
+                                 "src/repro/kernels/ops.py:74")}
     train_report = json.loads((out / "train_report.json").read_text())
     kernels = []
-    for name in names:
+    for name in KERNELS:
         row = times[name]
         terms = row["terms"]
         entry = {
@@ -2913,6 +3365,12 @@ def main(argv=None) -> int:
                          fp32_operations_bound_ms=terms.compute_s * 1e3,
                          per_token_ms={str(c): t for c, t in row["per_token"].items()},
                          per_token_source="src/repro_torch/kernels/csrc/linear_scan.cu")
+        if name in ("lru_scan_bwd", "rwkv_scan_bwd"):
+            entry.update(design="reverse_segmented" if name == "lru_scan_bwd" else "chunk_checkpoints",
+                         shape=list(LRU_BWD_SHAPE if name == "lru_scan_bwd" else RWKV_BWD_SHAPE),
+                         ms=min(row["tuned"], row["tuned_again"]), ms_default=None,
+                         oracle_ms=row["oracle"], kernels_per_call_by_T=bwd_kernel_counts[name],
+                         pallas_counterpart=None)
         if name == "decode_attention":
             entry.update(design="split_kv", splits=row["splits_tuned"], grid=row["grid_tuned"],
                          splits_default=row["splits_default"], grid_default=row["grid_default"])

@@ -58,6 +58,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -156,12 +157,22 @@ __device__ __forceinline__ void write_row(T* p, const float (&h)[CPT]) {
 // [rows][block_d] each, in the input dtype.
 // Every thread stages and reads only its own channels, so no barrier sits
 // between the copies and the scans.
-template <typename T, int CPT>
+//
+// REV: the lru backward's reverse scan.  With g = dL/dhs and g_T = dL/dh_T,
+// G_t = g_t + a_{t+1} G_{t+1} (G_T = g_T, a_T = 1) is the same recurrence
+// read from t = T-1 down to 0 with a' = (a_1 .. a_{T-1}, 1), b' = g and
+// h0' = g_T.  Scan step s is time T-1-s; a' is read one row later in time,
+// and its first row (s = 0) is 1.  Where it writes G_t (fp32, = db_t) it
+// also writes da_t = G_t h_{t-1}, reading the forward's h_{t-1} from `hs`
+// (h0 at t = 0), and the block that ends at t = 0 writes dh0 = a_0 G_0 in
+// place of the final state.
+template <typename T, int CPT, bool REV>
 __global__ void __launch_bounds__(1024)
 lru_segment_kernel(const T* __restrict__ a, const T* __restrict__ b, const float* __restrict__ h0,
-                   T* __restrict__ hs, float* __restrict__ hT, int* __restrict__ flags,
-                   float* __restrict__ carry, int T_len, int D, int bd, int chunk, int rows,
-                   int nseg, int ncols) {
+                   std::conditional_t<REV, float, T>* __restrict__ out, float* __restrict__ fin,
+                   int* __restrict__ flags, float* __restrict__ carry, int T_len, int D, int bd,
+                   int chunk, int rows, int nseg, int ncols, const T* __restrict__ hs,
+                   const float* __restrict__ h0_fwd, float* __restrict__ da) {
   extern __shared__ __align__(16) unsigned char lru_smem[];
   int* ticket_s = reinterpret_cast<int*>(lru_smem);  // 16 bytes, then the tiles
   T* as = reinterpret_cast<T*>(lru_smem + 16);
@@ -174,13 +185,42 @@ lru_segment_kernel(const T* __restrict__ a, const T* __restrict__ b, const float
   const int bi = col / nblk;
   const int lc = CPT * threadIdx.x;               // first channel of this thread in the block
   const int ch = (col % nblk) * bd + lc;          // ... and in the row
-  const long long base = (static_cast<long long>(bi) * T_len + static_cast<long long>(seg) * rows) * D + ch;
+  const long long col0 = static_cast<long long>(bi) * T_len * D + ch;
+  const int s0 = seg * rows;                      // the segment's first scan step
+  // element offset of the segment's row r: time s0 + r, or T-1-(s0 + r) in reverse
+  auto row = [&](int r) -> long long {
+    const long long s = static_cast<long long>(s0) + r;
+    return col0 + (REV ? T_len - 1 - s : s) * static_cast<long long>(D);
+  };
+  auto emit = [&](int r, const float (&h)[CPT]) {
+    const long long off = row(r);
+    if constexpr (REV) {
+      write_row<float, CPT>(out + off, h);
+      float hp[CPT];
+      if (s0 + r == T_len - 1) {
+#pragma unroll
+        for (int i = 0; i < CPT; ++i) hp[i] = h0_fwd[static_cast<long long>(bi) * D + ch + i];
+      } else {
+        read_row<T, CPT>(hs + off - D, hp);
+      }
+#pragma unroll
+      for (int i = 0; i < CPT; ++i) hp[i] *= h[i];
+      write_row<float, CPT>(da + off, hp);
+    } else {
+      write_row<T, CPT>(out + off, h);
+    }
+  };
 
   const int nch = rows / chunk;
   for (int c = 0; c < nch; ++c) {
     for (int r = c * chunk; r < (c + 1) * chunk; ++r) {
-      stage<T, CPT>(as + r * bd + lc, a + base + static_cast<long long>(r) * D);
-      stage<T, CPT>(bs + r * bd + lc, b + base + static_cast<long long>(r) * D);
+      if (REV && s0 + r == 0) {
+#pragma unroll
+        for (int i = 0; i < CPT; ++i) as[r * bd + lc + i] = from_float<T>(1.f);
+      } else {
+        stage<T, CPT>(as + r * bd + lc, a + row(r) + (REV ? D : 0));
+      }
+      stage<T, CPT>(bs + r * bd + lc, b + row(r));
     }
     cp_async_commit();
   }
@@ -192,7 +232,7 @@ lru_segment_kernel(const T* __restrict__ a, const T* __restrict__ b, const float
     P[i] = 1.f;
   }
   // pass 1, chunk by chunk as the copies land: segment 0 is exact from h0
-  // and writes hs; every other segment forms (P, hloc)
+  // and writes its rows; every other segment forms (P, hloc)
   for (int c = 0; c < nch; ++c) {
     cp_async_wait_upto(nch - 1 - c);
     for (int r = c * chunk; r < (c + 1) * chunk; ++r) {
@@ -203,7 +243,7 @@ lru_segment_kernel(const T* __restrict__ a, const T* __restrict__ b, const float
         P[i] *= av[i];
         h[i] = fmaf(av[i], h[i], bv[i]);
       }
-      if (seg == 0) write_row<T, CPT>(hs + base + static_cast<long long>(r) * D, h);
+      if (seg == 0) emit(r, h);
     }
   }
 
@@ -224,7 +264,7 @@ lru_segment_kernel(const T* __restrict__ a, const T* __restrict__ b, const float
 #pragma unroll
       for (int i = 0; i < CPT; ++i) mine[i] = fmaf(P[i], cin[i], h[i]);
     }
-    // pass 2: the exact recurrence from the carry, hs written once
+    // pass 2: the exact recurrence from the carry, each row written once
 #pragma unroll
     for (int i = 0; i < CPT; ++i) h[i] = cin[i];
     if (seg < nseg - 1) {
@@ -237,7 +277,7 @@ lru_segment_kernel(const T* __restrict__ a, const T* __restrict__ b, const float
       read_row<T, CPT>(bs + r * bd + lc, bv);
 #pragma unroll
       for (int i = 0; i < CPT; ++i) h[i] = fmaf(av[i], h[i], bv[i]);
-      write_row<T, CPT>(hs + base + static_cast<long long>(r) * D, h);
+      emit(r, h);
     }
   } else if (nseg > 1) {
 #pragma unroll
@@ -247,15 +287,25 @@ lru_segment_kernel(const T* __restrict__ a, const T* __restrict__ b, const float
     if (threadIdx.x == 0) st_release(flags + 1 + ticket, 1);
   }
   if (seg == nseg - 1) {
+    float a0[CPT];
+    if constexpr (REV) {
+      read_row<T, CPT>(a + col0, a0);  // a at t = 0: dh0 = a_0 G_0
+    } else {
 #pragma unroll
-    for (int i = 0; i < CPT; ++i) hT[static_cast<long long>(bi) * D + ch + i] = h[i];
+      for (int i = 0; i < CPT; ++i) a0[i] = 1.f;
+    }
+#pragma unroll
+    for (int i = 0; i < CPT; ++i) fin[static_cast<long long>(bi) * D + ch + i] = a0[i] * h[i];
   }
 }
 
-template <typename T>
-int lru_launch(const void* a, const void* b, const void* h0, void* hs, void* hT, void* flags,
+// Forward: (a, b, h0) -> (out = hs, fin = hT).  REV: (a, b = g, h0 = g_T,
+// hs, h0_fwd) -> (out = G, da, fin = dh0).
+template <typename T, bool REV>
+int lru_launch(const void* a, const void* b, const void* h0, void* out, void* fin, void* flags,
                void* carry, int B, int T_len, int D, int chunk, int block_d, int nseg, int cpt,
-               void* stream) {
+               void* stream, const void* hs = nullptr, const void* h0_fwd = nullptr,
+               void* da = nullptr) {
   if (B <= 0 || T_len <= 0 || D <= 0 || chunk <= 0 || block_d <= 0 || block_d > 1024 ||
       nseg <= 0 || T_len % chunk || D % block_d || (T_len / chunk) % nseg ||
       (cpt != 1 && cpt != 4) || block_d % cpt)
@@ -270,13 +320,15 @@ int lru_launch(const void* a, const void* b, const void* h0, void* hs, void* hT,
   // The attribute is the block's limit, not this launch's need: the tuner launches one
   // kernel at several tiles from several threads, and a per-launch value set by one
   // thread would refuse another thread's larger launch ("invalid argument").
-  auto kernel = cpt == 4 ? lru_segment_kernel<T, 4> : lru_segment_kernel<T, 1>;
+  auto kernel = cpt == 4 ? lru_segment_kernel<T, 4, REV> : lru_segment_kernel<T, 1, REV>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, BLOCK_SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
+  using O = std::conditional_t<REV, float, T>;
   kernel<<<ncols * nseg, block_d / cpt, smem, s>>>(
       static_cast<const T*>(a), static_cast<const T*>(b), static_cast<const float*>(h0),
-      static_cast<T*>(hs), static_cast<float*>(hT), static_cast<int*>(flags),
-      static_cast<float*>(carry), T_len, D, block_d, chunk, rows, nseg, ncols);
+      static_cast<O*>(out), static_cast<float*>(fin), static_cast<int*>(flags),
+      static_cast<float*>(carry), T_len, D, block_d, chunk, rows, nseg, ncols,
+      static_cast<const T*>(hs), static_cast<const float*>(h0_fwd), static_cast<float*>(da));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -370,6 +422,233 @@ int rwkv_launch(const void* r, const void* k, const void* v, const void* lw, con
   }
 }
 
+// ---------------------------------------------------------- RWKV-6 backward
+// The gradient of the per-token recurrence (rwkv_kernel above) with respect
+// to r, k, v, lw, u and s0, in an fp32 state.  With w_t = exp(lw_t),
+// akv_t = k_t v_t^T and dS_T = dL/dS_T, from t = T-1 down to 0:
+//     dA      = dS_t + (u * r_t) gy_t^T
+//     dr_t    = (S_{t-1} + diag(u) akv_t) gy_t      dk_t = dA v_t
+//     dv_t    = dA^T k_t                            dlw_t = w_t * rowsum(dS_t * S_{t-1})
+//     du     += r_t * k_t (v_t . gy_t)              dS_{t-1} = diag(w_t) dS_t + r_t gy_t^T
+// and ds0 = dS_{-1}.  One block per (head, batch row).  S_{t-1} cannot be
+// had from S_t by dividing by w (w underflows), so the block first runs the
+// recurrence forward and stores S at the start of every segment of `seg`
+// tokens in `ck` (global scratch), then takes the segments last first: it
+// runs the segment forward from its checkpoint, storing S at the start of
+// each of its chunks in `sub` (a scratch of seg / chunk states per block,
+// whatever T), then takes the segment's chunks last first: it reloads the
+// chunk's start, recomputes the chunk's states into shared memory and walks
+// the chunk backwards.  Layout: thread (i, q) owns row i of S and of dS, columns
+// q, q + 4, ..., so the row sums (dr, dk, dlw) are the thread's own plus two
+// shuffles among the row's 4 lanes; dv, a column sum, goes through a padded
+// [HD][HD + 4] array of partials in shared memory (double-buffered: one
+// barrier per token).  du is summed per block and written as a partial per
+// (batch row, head); the wrapper adds the batch rows.  What bounds it:
+// operations, about 26 HD^2 fp32 FLOP per (token, head) on the CUDA cores
+// (the forward three times and the step above; the gradient needs 14), against a
+// few bytes per (token, head, channel); the grid has only B * H blocks.
+// Shared memory: five [chunk][HD] fp32 rows (r, k, v, exp(lw), gy), the
+// chunk's states [chunk][HD][HD + 4] and the two partial arrays.
+constexpr int RWKV_BWD_TPR = 4;  // threads per state row
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(RWKV_BWD_TPR * HD)
+rwkv_bwd_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
+                const float* __restrict__ lw, const float* __restrict__ u,
+                const float* __restrict__ s0, const T* __restrict__ gy,
+                const float* __restrict__ gsT, T* __restrict__ dr, T* __restrict__ dk,
+                T* __restrict__ dv, float* __restrict__ dlw, float* __restrict__ du_part,
+                float* __restrict__ ds0, float* __restrict__ ck, float* __restrict__ sub,
+                int T_len, int H, int chunk, int seg) {
+  constexpr int TPR = RWKV_BWD_TPR, CW = HD / TPR, RS = HD + 4;
+  extern __shared__ float rwkv_bwd_smem[];
+  float* rs = rwkv_bwd_smem;
+  float* ks = rs + chunk * HD;
+  float* vs = ks + chunk * HD;
+  float* ws = vs + chunk * HD;
+  float* gs = ws + chunk * HD;
+  float* hist = gs + chunk * HD;                               // [chunk][HD][RS]
+  float* part = hist + static_cast<size_t>(chunk) * HD * RS;  // [2][HD][RS]
+  const int tid = threadIdx.x;
+  const int i = tid / TPR, q = tid % TPR;
+  const int h = blockIdx.x, bi = blockIdx.y;
+  const long long bh = static_cast<long long>(bi) * H + h;
+  const int nsub = seg / chunk;  // chunks per segment
+  const int nseg = T_len / seg;
+  const float ui = u[h * HD + i];
+  const long long mat = (bh * HD + i) * HD + q;  // this thread's first element of s0, gsT, ds0
+  // token t's row of a (B, T, H, HD) array
+  auto tok = [&](int t) -> long long {
+    return ((static_cast<long long>(bi) * T_len + t) * H + h) * HD;
+  };
+  // state n of this block's `slots` states in a scratch, this thread's
+  // first element (element cc lies cc * HD * TPR further): consecutive
+  // threads, consecutive words
+  auto slot = [&](float* base, int slots, int n) -> float* {
+    return base + ((bh * slots + n) * CW) * (HD * TPR) + tid;
+  };
+  auto load_rows = [&](int t0, bool all) {
+    for (int e = tid; e < chunk * HD; e += TPR * HD) {
+      const long long o = tok(t0 + e / HD) + e % HD;
+      ks[e] = to_float(k[o]);
+      vs[e] = to_float(v[o]);
+      ws[e] = expf(lw[o]);
+      if (all) {
+        rs[e] = to_float(r[o]);
+        gs[e] = to_float(gy[o]);
+      }
+    }
+  };
+
+  float S[CW];
+  // S from a scratch slot or into one; each thread reads back only what it wrote
+  auto load_state = [&](const float* p) {
+#pragma unroll
+    for (int cc = 0; cc < CW; ++cc) S[cc] = p[cc * HD * TPR];
+  };
+  auto store_state = [&](float* p) {
+#pragma unroll
+    for (int cc = 0; cc < CW; ++cc) p[cc * HD * TPR] = S[cc];
+  };
+  auto load_s0 = [&]() {
+#pragma unroll
+    for (int cc = 0; cc < CW; ++cc) S[cc] = s0[mat + TPR * cc];
+  };
+  // S over the chunk that starts at t0
+  auto advance = [&](int t0) {
+    load_rows(t0, false);
+    __syncthreads();
+    for (int t = 0; t < chunk; ++t) {
+      const float wi = ws[t * HD + i], ki = ks[t * HD + i];
+#pragma unroll
+      for (int cc = 0; cc < CW; ++cc) S[cc] = fmaf(wi, S[cc], ki * vs[t * HD + q + TPR * cc]);
+    }
+    __syncthreads();  // the next chunk's staging overwrites these rows
+  };
+
+  // the forward recurrence, S stored at the start of segments 1 .. nseg-1
+  load_s0();
+  for (int c = 0; c < (nseg - 1) * nsub; ++c) {
+    advance(c * chunk);
+    if ((c + 1) % nsub == 0) store_state(slot(ck, nseg - 1, (c + 1) / nsub - 1));
+  }
+
+  float dS[CW];
+#pragma unroll
+  for (int cc = 0; cc < CW; ++cc) dS[cc] = gsT[mat + TPR * cc];
+  float du_acc = 0.f;
+  int buf = 0;
+  for (int c = nseg * nsub - 1; c >= 0; --c) {
+    const int t0 = c * chunk;
+    const int sg = c / nsub, cs = c % nsub;
+    if (cs == nsub - 1) {
+      // a new segment: S at the start of its chunks 1 .. nsub-1 into `sub`
+      if (sg == 0) load_s0(); else load_state(slot(ck, nseg - 1, sg - 1));
+      for (int c2 = 0; c2 + 1 < nsub; ++c2) {
+        advance((sg * nsub + c2) * chunk);
+        store_state(slot(sub, nsub - 1, c2));
+      }
+    }
+    if (cs > 0) load_state(slot(sub, nsub - 1, cs - 1));
+    else if (sg == 0) load_s0();
+    else load_state(slot(ck, nseg - 1, sg - 1));
+    __syncthreads();  // every thread is done with the previous chunk's rows
+    load_rows(t0, true);
+    __syncthreads();
+    // the chunk's states S_{t-1}; each thread reads back only what it wrote
+    for (int t = 0; t < chunk; ++t) {
+      float* hrow = hist + (t * HD + i) * RS + q;
+      const float wi = ws[t * HD + i], ki = ks[t * HD + i];
+#pragma unroll
+      for (int cc = 0; cc < CW; ++cc) {
+        hrow[TPR * cc] = S[cc];
+        S[cc] = fmaf(wi, S[cc], ki * vs[t * HD + q + TPR * cc]);
+      }
+    }
+    for (int t = chunk - 1; t >= 0; --t) {
+      const float ri = rs[t * HD + i], ki = ks[t * HD + i], wi = ws[t * HD + i];
+      const float ur = ui * ri, uk = ui * ki;
+      const float* hrow = hist + (t * HD + i) * RS + q;
+      float* prow = part + (buf * HD + i) * RS + q;
+      float dr_ = 0.f, dk_ = 0.f, dl_ = 0.f, vg = 0.f;
+#pragma unroll
+      for (int cc = 0; cc < CW; ++cc) {
+        const int j = q + TPR * cc;
+        const float vj = vs[t * HD + j], gj = gs[t * HD + j], sj = hrow[TPR * cc];
+        dr_ = fmaf(fmaf(uk, vj, sj), gj, dr_);
+        const float dA = fmaf(ur, gj, dS[cc]);
+        dk_ = fmaf(dA, vj, dk_);
+        prow[TPR * cc] = dA * ki;
+        dl_ = fmaf(dS[cc], sj, dl_);
+        dS[cc] = fmaf(wi, dS[cc], ri * gj);
+        vg = fmaf(vj, gj, vg);
+      }
+#pragma unroll
+      for (int off = 1; off < TPR; off <<= 1) {
+        dr_ += __shfl_xor_sync(0xffffffffu, dr_, off);
+        dk_ += __shfl_xor_sync(0xffffffffu, dk_, off);
+        dl_ += __shfl_xor_sync(0xffffffffu, dl_, off);
+        vg += __shfl_xor_sync(0xffffffffu, vg, off);
+      }
+      const long long o = tok(t0 + t);
+      if (q == 0) {
+        dr[o + i] = from_float<T>(dr_);
+        dk[o + i] = from_float<T>(dk_);
+        dlw[o + i] = wi * dl_;
+        du_acc = fmaf(ri * ki, vg, du_acc);
+      }
+      __syncthreads();  // the token's dv partials are complete
+      if (tid < HD) {
+        const float* pc = part + buf * HD * RS + tid;
+        float acc = 0.f;
+#pragma unroll 8
+        for (int ii = 0; ii < HD; ++ii) acc += pc[ii * RS];
+        dv[o + tid] = from_float<T>(acc);
+      }
+      buf ^= 1;
+    }
+  }
+#pragma unroll
+  for (int cc = 0; cc < CW; ++cc) ds0[mat + TPR * cc] = dS[cc];
+  if (q == 0) du_part[bh * HD + i] = du_acc;
+}
+
+template <typename T, int HD>
+int rwkv_bwd_launch_hd(const void* const* in, void* const* out, void* ck, void* sub, int B, int T_len,
+                       int H, int chunk, int seg, void* stream) {
+  constexpr int RS = HD + 4;
+  const size_t smem = (5 * static_cast<size_t>(chunk) * HD + static_cast<size_t>(chunk) * HD * RS +
+                       2 * static_cast<size_t>(HD) * RS) * sizeof(float);
+  if (smem > static_cast<size_t>(BLOCK_SMEM)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(rwkv_bwd_kernel<T, HD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, BLOCK_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(H, B);
+  rwkv_bwd_kernel<T, HD><<<grid, RWKV_BWD_TPR * HD, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(in[0]), static_cast<const T*>(in[1]), static_cast<const T*>(in[2]),
+      static_cast<const float*>(in[3]), static_cast<const float*>(in[4]),
+      static_cast<const float*>(in[5]), static_cast<const T*>(in[6]),
+      static_cast<const float*>(in[7]), static_cast<T*>(out[0]), static_cast<T*>(out[1]),
+      static_cast<T*>(out[2]), static_cast<float*>(out[3]), static_cast<float*>(out[4]),
+      static_cast<float*>(out[5]), static_cast<float*>(ck), static_cast<float*>(sub), T_len, H,
+      chunk, seg);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int rwkv_bwd_launch(const void* const* in, void* const* out, void* ck, void* sub, int B, int T_len,
+                    int H, int hd, int chunk, int seg, void* stream) {
+  if (B <= 0 || T_len <= 0 || H <= 0 || chunk <= 0 || seg <= 0 || seg % chunk || T_len % seg)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (hd) {
+    case 8: return rwkv_bwd_launch_hd<T, 8>(in, out, ck, sub, B, T_len, H, chunk, seg, stream);
+    case 16: return rwkv_bwd_launch_hd<T, 16>(in, out, ck, sub, B, T_len, H, chunk, seg, stream);
+    case 32: return rwkv_bwd_launch_hd<T, 32>(in, out, ck, sub, B, T_len, H, chunk, seg, stream);
+    case 64: return rwkv_bwd_launch_hd<T, 64>(in, out, ck, sub, B, T_len, H, chunk, seg, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -380,15 +659,15 @@ extern "C" {
 int repro_lru_scan_f32(const void* a, const void* b, const void* h0, void* hs, void* hT,
                        void* flags, void* carry, int B, int T, int D, int chunk, int block_d,
                        int nseg, int cpt, void* stream) {
-  return lru_launch<float>(a, b, h0, hs, hT, flags, carry, B, T, D, chunk, block_d, nseg, cpt,
-                           stream);
+  return lru_launch<float, false>(a, b, h0, hs, hT, flags, carry, B, T, D, chunk, block_d, nseg,
+                                  cpt, stream);
 }
 
 int repro_lru_scan_bf16(const void* a, const void* b, const void* h0, void* hs, void* hT,
                         void* flags, void* carry, int B, int T, int D, int chunk, int block_d,
                         int nseg, int cpt, void* stream) {
-  return lru_launch<__nv_bfloat16>(a, b, h0, hs, hT, flags, carry, B, T, D, chunk, block_d, nseg,
-                                   cpt, stream);
+  return lru_launch<__nv_bfloat16, false>(a, b, h0, hs, hT, flags, carry, B, T, D, chunk, block_d,
+                                          nseg, cpt, stream);
 }
 
 int repro_rwkv_scan_f32(const void* r, const void* k, const void* v, const void* lw, const void* u,
@@ -401,6 +680,40 @@ int repro_rwkv_scan_bf16(const void* r, const void* k, const void* v, const void
                          const void* u, const void* s0, void* y, void* sT, int B, int T, int H,
                          int hd, int chunk, void* stream) {
   return rwkv_launch<__nv_bfloat16>(r, k, v, lw, u, s0, y, sT, B, T, H, hd, chunk, stream);
+}
+
+// The lru backward's reverse scan: a, g (= dL/dhs) and hs (the forward's
+// states) in the input dtype; g_T, h0, G, da and dh0 fp32; flags and carry
+// as for the forward.
+int repro_lru_scan_bwd_f32(const void* a, const void* g, const void* gT, const void* hs,
+                           const void* h0, void* G, void* da, void* dh0, void* flags, void* carry,
+                           int B, int T, int D, int chunk, int block_d, int nseg, int cpt,
+                           void* stream) {
+  return lru_launch<float, true>(a, g, gT, G, dh0, flags, carry, B, T, D, chunk, block_d, nseg, cpt,
+                                 stream, hs, h0, da);
+}
+
+int repro_lru_scan_bwd_bf16(const void* a, const void* g, const void* gT, const void* hs,
+                            const void* h0, void* G, void* da, void* dh0, void* flags, void* carry,
+                            int B, int T, int D, int chunk, int block_d, int nseg, int cpt,
+                            void* stream) {
+  return lru_launch<__nv_bfloat16, true>(a, g, gT, G, dh0, flags, carry, B, T, D, chunk, block_d,
+                                         nseg, cpt, stream, hs, h0, da);
+}
+
+// The RWKV-6 backward: in = (r, k, v, lw, u, s0, gy, gsT), out = (dr, dk, dv,
+// dlw, du_part, ds0); r, k, v, gy, dr, dk, dv in the input dtype, the rest
+// fp32; du_part (B, H, hd); seg: tokens per checkpoint segment, a multiple of
+// chunk dividing T; ck: B * H * max(1, T / seg - 1) * hd * hd fp32, sub:
+// B * H * max(1, seg / chunk - 1) * hd * hd fp32.
+int repro_rwkv_scan_bwd_f32(const void* const* in, void* const* out, void* ck, void* sub, int B,
+                            int T, int H, int hd, int chunk, int seg, void* stream) {
+  return rwkv_bwd_launch<float>(in, out, ck, sub, B, T, H, hd, chunk, seg, stream);
+}
+
+int repro_rwkv_scan_bwd_bf16(const void* const* in, void* const* out, void* ck, void* sub, int B,
+                             int T, int H, int hd, int chunk, int seg, void* stream) {
+  return rwkv_bwd_launch<__nv_bfloat16>(in, out, ck, sub, B, T, H, hd, chunk, seg, stream);
 }
 
 const char* repro_linear_scan_error_string(int code) {

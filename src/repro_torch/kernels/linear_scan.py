@@ -30,8 +30,27 @@ Replace the JAX package's ``kernels/linear_scan.py::lru_scan_chunked`` and
     per-token recurrence, one thread per state column, about 5·hd² fp32
     FLOP per token and head on the CUDA cores; head dims 8, 16, 32, 64.
 
-Knobs the kernels cannot run raise ``ValueError`` naming the knob before
-any launch (the tuner charges them ``inf``).  :func:`lru_scan_plain` and
+The backward passes (``ops.lru_scan`` and ``ops.rwkv_scan`` under autograd)
+are kernels too; the JAX package has no Pallas counterpart for them (its
+``custom_vjp`` takes ``jax.vjp`` of the per-token ``lax.scan``, one device
+loop under ``jit``):
+
+* ``lru_scan_bwd`` (``csrc/linear_scan.cu``): the forward kernel recomputes
+  hs from the saved (a, b, h0), then the same segmented kernel runs in
+  reverse time, G_t = g_t + a_{t+1} G_{t+1} from G_T = g_T, writing
+  db = G, da_t = G_t h_{t−1} and dh0 = a_0 G_0 as it goes, at the forward
+  call's (chunk, block_d); :func:`lru_scan_bwd_plain` is the same reverse
+  recurrence in plain PyTorch;
+* ``rwkv_scan_bwd`` (``csrc/linear_scan.cu``): one block per (head, batch
+  row) runs the recurrence forward storing the state at every chunk's
+  start, then walks the chunks last first, recomputing each chunk's states
+  in shared memory; fp32 state, no tensor cores; its chunk is derived from
+  the shape and shared memory (:func:`rwkv_bwd_chunk`), not a knob;
+  :func:`rwkv_scan_bwd_plain` is the same reverse recurrence in plain PyTorch.
+
+Each is a fixed number of launches whatever T.  Knobs the kernels cannot
+run raise ``ValueError`` naming the knob before any launch (the tuner
+charges them ``inf``).  :func:`lru_scan_plain` and
 :func:`rwkv_scan_plain` check the knobs and run the exact oracles of
 ``ref.py``; the wrappers take them only for CPU tensors with ``interpret=True``.
 """
@@ -59,6 +78,15 @@ __all__ = [
     "rwkv_tc_flops",
     "lru_flops_bytes",
     "rwkv_flops_bytes",
+    "lru_scan_bwd",
+    "lru_scan_bwd_plain",
+    "rwkv_scan_bwd",
+    "rwkv_scan_bwd_plain",
+    "rwkv_bwd_chunk",
+    "rwkv_bwd_segment",
+    "rwkv_bwd_scratch",
+    "lru_bwd_flops_bytes",
+    "rwkv_bwd_flops_bytes",
     "launches",
     "launches_by_design",
 ]
@@ -88,9 +116,16 @@ TC_TOKEN_BYTES = 3 * 144 + 272
 TC_STAGES = 2
 TC_FIXED_BYTES = 4 * (64 * 72 + 16 * 68 + 16 * 72 + 16 * 20 + 2 * 64)
 
-#: kernel launches so far, per kernel, and the rwkv scan's by design (the
-#: plain versions do not count)
-launches = {"lru_scan": 0, "rwkv_scan": 0}
+#: the most tokens a chunk of the RWKV backward kernel's recomputed states
+#: holds, and the most tokens between its state checkpoints (a multiple of
+#: the chunk)
+RWKV_BWD_MAX_CHUNK = 64
+RWKV_BWD_SEGMENT = 64
+
+#: kernel launches so far, per kernel (the backward kernels under ``_bwd``;
+#: the lru backward's recompute of hs counts as an ``lru_scan`` launch), and
+#: the rwkv scan's by design (the plain versions do not count)
+launches = {"lru_scan": 0, "rwkv_scan": 0, "lru_scan_bwd": 0, "rwkv_scan_bwd": 0}
 launches_by_design = {"tc": 0, "per_token": 0}
 _count_lock = threading.Lock()
 
@@ -156,6 +191,39 @@ def rwkv_smem_bytes(chunk: int, hd: int) -> int:
     """Shared memory of one rwkv block: five fp32 (chunk, hd) tiles (r, k, v,
     exp(lw), u·k)."""
     return 5 * chunk * hd * 4
+
+
+def rwkv_bwd_smem_bytes(chunk: int, hd: int) -> int:
+    """Shared memory of one block of the rwkv backward: five fp32 (chunk, hd)
+    rows (r, k, v, exp(lw), gy), the chunk's states (chunk, hd, hd + 4) and
+    two (hd, hd + 4) arrays of dv partials."""
+    return 4 * (5 * chunk * hd + chunk * hd * (hd + 4) + 2 * hd * (hd + 4))
+
+
+def rwkv_bwd_chunk(T: int, hd: int) -> int:
+    """Tokens per chunk of the rwkv backward kernel: the largest divisor of T
+    up to ``RWKV_BWD_MAX_CHUNK`` whose block fits the shared memory (8 at
+    head dim 64 and T a multiple of 8).  A pure function of the shape, not
+    a knob."""
+    return max(c for c in range(1, min(T, RWKV_BWD_MAX_CHUNK) + 1)
+               if T % c == 0 and rwkv_bwd_smem_bytes(c, hd) <= SMEM_LIMIT)
+
+
+def rwkv_bwd_segment(T: int, chunk: int) -> int:
+    """Tokens between the rwkv backward kernel's state checkpoints: the
+    largest multiple of ``chunk`` up to max(``RWKV_BWD_SEGMENT``, chunk)
+    that divides T (64 at head dim 64 and T a multiple of 64).  A pure
+    function of the shape, not a knob."""
+    return max(m * chunk for m in range(1, max(RWKV_BWD_SEGMENT // chunk, 1) + 1)
+               if T % (m * chunk) == 0)
+
+
+def rwkv_bwd_scratch(T: int, chunk: int, seg: int) -> tuple:
+    """(checkpoints, chunk starts): the fp32 (hd, hd) states per (batch row,
+    head) the rwkv backward kernel keeps in global scratch, T / segment - 1
+    and segment / chunk - 1 (at least 1 each).  Bytes: 4 hd² B H times
+    their sum, 38 states (40 MB) at (1, 2048, 64, 64)."""
+    return max(1, T // seg - 1), max(1, seg // chunk - 1)
 
 
 def rwkv_tc_smem_bytes(chunk: int) -> int:
@@ -247,6 +315,30 @@ def rwkv_flops_bytes(r, k, v, lw, u, s0) -> tuple:
     return flops, float(nbytes)
 
 
+def lru_bwd_flops_bytes(a, b, h0) -> tuple:
+    """(FLOP, bytes) of one backward call: the forward's multiply-add and
+    the reverse scan's, and da = G h (5 FLOP per element); a, b and g read
+    once, da and db written once, h0, g_T read and dh0 written (fp32)."""
+    n = a.numel()
+    return 5.0 * n, float(5 * n * a.element_size() + 3 * h0.numel() * 4)
+
+
+def rwkv_bwd_flops_bytes(r, k, v, lw, u, s0) -> tuple:
+    """(FLOP, bytes) of one backward call.  Per (token, head), in fp32 on
+    the CUDA cores: the state S_{t-1} (3·hd², a product and a multiply-add
+    per element), S gy, dS v, dSᵀ k and rowsum(dS ⊙ S) (2·hd² each) and
+    dS ← diag(w) dS + r gyᵀ (3·hd²): 14·hd².  The u terms of dr, dk and dv
+    are O(hd): dk = dS v + (u r)(gy · v), dv = dSᵀ k + gy ((u r) · k).  The
+    kernel does more (the forward twice, the u terms per element).  Bytes: r, k, v,
+    gy, lw read and dr, dk, dv, dlw written once; u, s0, gs_T read and du,
+    ds0 written once."""
+    B, T, H, hd = r.shape
+    flops = 14.0 * B * T * H * hd * hd
+    nbytes = (7 * r.numel() * r.element_size()  # r, k, v, gy in; dr, dk, dv out
+              + 2 * lw.numel() * 4 + 2 * u.numel() * 4 + 3 * s0.numel() * 4)
+    return flops, float(nbytes)
+
+
 def rwkv_tc_flops(B: int, T: int, H: int) -> tuple:
     """(tensor-core TF32 FLOP, CUDA-core fp32 FLOP) the tensor-core design
     does for one call at head dim 64.  Per (batch, head) and sub-chunk of
@@ -303,12 +395,64 @@ def lru_scan_segmented_plain(a, b, h0, *, segments: int):
     return hs.reshape(B, T, D).to(a.dtype), h[:, -1]
 
 
+def lru_scan_bwd_plain(a, b, h0, ghs, ghT, *, chunk: int = 128, block_d: int = LRU_BLOCK_D):
+    """The lru backward in plain PyTorch: the knobs are checked as the kernel
+    checks them, hs is recomputed exactly in fp32, then from G = g_T,
+    G_t = g_t + a_{t+1} G_{t+1} (a_T = 1) back to t = 0; db = G,
+    da_t = G_t h_{t−1} (h_{−1} = h0), dh0 = a_0 G_0.  ``ghT`` may be None
+    (zero).  Returns (da, db, dh0) in the dtypes of (a, b, h0)."""
+    B, T, D = a.shape
+    _chunk(T, chunk)
+    _lru_block_d(D, block_d)
+    af, h0f = a.float(), h0.float()
+    hs, _ = ref.lru_scan_ref(af, b.float(), h0f)
+    g = ghs.float()
+    G = torch.zeros_like(h0f) if ghT is None else ghT.float()
+    Gs = torch.empty_like(g)
+    for t in range(T - 1, -1, -1):
+        G = g[:, t] + (af[:, t + 1] * G if t + 1 < T else G)
+        Gs[:, t] = G
+    hprev = torch.cat([h0f[:, None], hs[:, :-1]], dim=1)
+    return (Gs * hprev).to(a.dtype), Gs.to(b.dtype), (af[:, 0] * Gs[:, 0]).to(h0.dtype)
+
+
 def rwkv_scan_plain(r, k, v, lw, u, s0, *, chunk: int = 64):
     """The rwkv kernel in plain PyTorch: ``chunk`` is checked as the kernel
     checks it (it does not change the arithmetic), then the exact fp32
     oracle runs; y in ``r.dtype``, sT fp32."""
     _chunk(r.shape[1], chunk)
     return ref.rwkv_scan_ref(r, k, v, lw, u, s0)
+
+
+def rwkv_scan_bwd_plain(r, k, v, lw, u, s0, gy, gsT):
+    """The rwkv backward in plain fp32 PyTorch: the states S_{t−1} from a
+    forward pass, then from dS = gs_T back to t = 0, per (batch, head),
+    with w = exp(lw) and A = k vᵀ: dr = (S_{t−1} + diag(u) A) gy,
+    dA = dS + (u r) gyᵀ, dk = dA v, dv = dAᵀ k, dlw = w ⊙ rowsum(dS ⊙ S_{t−1}),
+    du += r ⊙ k (v · gy), dS ← diag(w) dS + r gyᵀ; ds0 = dS.  ``gsT`` may be
+    None (zero).  Returns (dr, dk, dv, dlw, du, ds0) in the inputs' dtypes."""
+    B, T, H, hd = r.shape
+    rf, kf, vf, lwf, g = (x.float() for x in (r, k, v, lw, gy))
+    uf = u.float()
+    S, prev = s0.float(), []
+    for t in range(T):
+        prev.append(S)
+        S = torch.exp(lwf[:, t])[..., None] * S + kf[:, t, :, :, None] * vf[:, t, :, None, :]
+    dS = torch.zeros_like(S) if gsT is None else gsT.float()
+    dr, dk, dv, dlw = (torch.empty_like(rf) for _ in range(4))
+    du = torch.zeros_like(uf)
+    for t in range(T - 1, -1, -1):
+        rt, kt, vt, gt, wt = rf[:, t], kf[:, t], vf[:, t], g[:, t], torch.exp(lwf[:, t])
+        akv = kt[..., :, None] * vt[..., None, :]
+        dr[:, t] = torch.einsum("bhij,bhj->bhi", prev[t] + uf[None, :, :, None] * akv, gt)
+        dA = dS + (uf[None] * rt)[..., :, None] * gt[..., None, :]
+        dk[:, t] = torch.einsum("bhij,bhj->bhi", dA, vt)
+        dv[:, t] = torch.einsum("bhij,bhi->bhj", dA, kt)
+        dlw[:, t] = wt * (dS * prev[t]).sum(-1)
+        du = du + (rt * kt * (vt * gt).sum(-1, keepdim=True)).sum(0)
+        dS = wt[..., None] * dS + rt[..., :, None] * gt[..., None, :]
+    return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dlw.to(lw.dtype), du.to(u.dtype),
+            dS.to(s0.dtype))
 
 
 def rwkv_scan_subchunk_plain(r, k, v, lw, u, s0, *, sub: int = TC_SUBCHUNK):
@@ -391,26 +535,34 @@ def _lru_launch(a, b, h0, chunk: int, block_d: int, nseg: int):
     """Launch the lru kernel with ``nseg`` segments on checked CUDA tensors
     (h0 fp32).  ``scripts/probe_lru.py`` also calls it at other segment
     counts."""
-    B, T, D = a.shape
     hs = torch.empty_like(a)  # the caching allocator's blocks start on 512-byte boundaries
-    hT = torch.empty((B, D), dtype=torch.float32, device=a.device)
+    hT = torch.empty((a.shape[0], a.shape[2]), dtype=torch.float32, device=a.device)
+    _lru_run("lru_scan", (a, b, h0, hs, hT), (a, b, hs), chunk, block_d, nseg)
+    return hs, hT
+
+
+def _lru_run(name: str, tensors, staged, chunk: int, block_d: int, nseg: int) -> None:
+    """Call ``repro_<name>_<dtype>`` of ``linear_scan.cu`` on ``tensors``
+    (the first is a) with fresh flags and carries; 4 channels a thread when
+    the ``staged`` tensors allow 16-byte (fp32) or 8-byte (bf16) copies."""
+    a = tensors[0]
+    B, T, D = a.shape
     ncols = B * (D // block_d)
     flags = torch.empty(1 + ncols * nseg, dtype=torch.int32, device=a.device)  # zeroed by the launch
     carry = torch.empty(max(1, ncols * nseg * block_d), dtype=torch.float32, device=a.device)
     vec = 4 * a.element_size()
-    cpt = lru_channels_per_thread(D, block_d, all(x.data_ptr() % vec == 0 for x in (a, b, hs)))
+    cpt = lru_channels_per_thread(D, block_d, all(x.data_ptr() % vec == 0 for x in staged))
     lib = _cuda.load("linear_scan")
-    fn = getattr(lib, f"repro_lru_scan_{_SUFFIX[a.dtype]}")
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn = getattr(lib, f"repro_{name}_{_SUFFIX[a.dtype]}")
+    fn.argtypes = [ctypes.c_void_p] * (len(tensors) + 2) + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        rc = fn(a.data_ptr(), b.data_ptr(), h0.data_ptr(), hs.data_ptr(), hT.data_ptr(),
-                flags.data_ptr(), carry.data_ptr(), B, T, D, chunk, block_d, nseg, cpt, stream)
+        rc = fn(*(x.data_ptr() for x in tensors), flags.data_ptr(), carry.data_ptr(), B, T, D, chunk,
+                block_d, nseg, cpt, stream)
     if rc != 0:
-        _raise_launch(lib, rc, f"lru_scan (chunk {chunk}, block_d {block_d}, {nseg} segments)")
-    _count("lru_scan")
-    return hs, hT
+        _raise_launch(lib, rc, f"{name} (chunk {chunk}, block_d {block_d}, {nseg} segments)")
+    _count(name)
 
 
 def rwkv_scan_chunked(r, k, v, lw, u, s0, *, chunk: int = 64, interpret: bool = False):
@@ -471,3 +623,94 @@ def _rwkv_launch(r, k, v, lw, u, s0, L: int, design: str):
                            f"CUDA error {rc}: {err(rc).decode()}")
     _count("rwkv_scan", design)
     return y, sT
+
+
+# ------------------------------------------------------- backward launches
+def lru_scan_bwd(a, b, h0, ghs, ghT, *, chunk: int = 128, block_d: int = LRU_BLOCK_D,
+                 interpret: bool = False):
+    """The gradient of ``lru_scan_chunked``: (a, b, h0) as the forward took
+    them, ``ghs`` = dL/dhs, ``ghT`` = dL/dhT (or None) -> (da, db, dh0) in the
+    dtypes of (a, b, h0).  CUDA tensors launch the forward kernel (hs
+    recomputed) and the reverse scan at the forward's (chunk, block_d);
+    ``interpret=True`` runs the plain version, which takes CPU tensors only.
+    Anything else raises."""
+    B, T, D = a.shape
+    L, bd = legal_lru(T, D, chunk, block_d, on_card=not interpret, itemsize=a.element_size())
+    if interpret:
+        if any(x is not None and x.is_cuda for x in (a, b, h0, ghs, ghT)):
+            raise ValueError("lru_scan_bwd: interpret=True runs the plain version on CPU tensors only")
+        return lru_scan_bwd_plain(a, b, h0, ghs, ghT, chunk=L, block_d=bd)
+    h0f = h0.float().contiguous()
+    g = ghs.to(a.dtype).contiguous()
+    gT = torch.zeros_like(h0f) if ghT is None else ghT.float().contiguous()
+    io = (torch.float32, torch.bfloat16)
+    f32 = (torch.float32,)
+    _check_cuda("lru_scan_bwd", {"a": a, "b": b, "h0": h0f, "ghs": g, "ghT": gT},
+                {"a": io, "b": (a.dtype,), "h0": f32, "ghs": (a.dtype,), "ghT": f32})
+    nseg = lru_segments(B, T, D, L, bd, a.element_size(), sm_count(a.device))
+    hs, _ = _lru_launch(a, b, h0f, L, bd, nseg)
+    da, G, dh0 = _lru_bwd_launch(a, g, gT, hs, h0f, L, bd, nseg)
+    return da.to(a.dtype), G.to(b.dtype), dh0.to(h0.dtype)
+
+
+def _lru_bwd_launch(a, g, gT, hs, h0, chunk: int, block_d: int, nseg: int):
+    """Launch the reverse scan on checked CUDA tensors (a, g, hs in one
+    dtype; gT, h0 fp32) -> (da, G, dh0), fp32."""
+    G = torch.empty(a.shape, dtype=torch.float32, device=a.device)
+    da = torch.empty_like(G)
+    dh0 = torch.empty_like(h0)
+    _lru_run("lru_scan_bwd", (a, g, gT, hs, h0, G, da, dh0), (a, g, hs), chunk, block_d, nseg)
+    return da, G, dh0
+
+
+def rwkv_scan_bwd(r, k, v, lw, u, s0, gy, gsT, *, interpret: bool = False):
+    """The gradient of ``rwkv_scan_chunked``: its inputs, ``gy`` = dL/dy and
+    ``gsT`` = dL/dsT (or None) -> (dr, dk, dv, dlw, du, ds0) in the inputs'
+    dtypes.  CUDA tensors launch the backward kernel (its chunk from
+    :func:`rwkv_bwd_chunk`); ``interpret=True`` runs the plain version,
+    which takes CPU tensors only.  Anything else raises."""
+    B, T, H, hd = r.shape
+    if interpret:
+        if any(x is not None and x.is_cuda for x in (r, k, v, lw, u, s0, gy, gsT)):
+            raise ValueError("rwkv_scan_bwd: interpret=True runs the plain version on CPU tensors only")
+        return rwkv_scan_bwd_plain(r, k, v, lw, u, s0, gy, gsT)
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"rwkv_scan_bwd: head dim {hd} not instantiated (have {HEAD_DIMS})")
+    lwf, uf, s0f = (x.float().contiguous() for x in (lw, u, s0))
+    g = gy.to(r.dtype).contiguous()
+    gS = torch.zeros_like(s0f) if gsT is None else gsT.float().contiguous()
+    io = (torch.float32, torch.bfloat16)
+    f32 = (torch.float32,)
+    _check_cuda("rwkv_scan_bwd", {"r": r, "k": k, "v": v, "lw": lwf, "u": uf, "s0": s0f, "gy": g,
+                                  "gsT": gS},
+                {"r": io, "k": (r.dtype,), "v": (r.dtype,), "lw": f32, "u": f32, "s0": f32,
+                 "gy": (r.dtype,), "gsT": f32})
+    L = rwkv_bwd_chunk(T, hd)
+    dr, dk, dv, dlw, du, ds0 = _rwkv_bwd_launch(r, k, v, lwf, uf, s0f, g, gS, L, rwkv_bwd_segment(T, L))
+    return (dr, dk, dv, dlw.to(lw.dtype), du.to(u.dtype), ds0.to(s0.dtype))
+
+
+def _rwkv_bwd_launch(r, k, v, lw, u, s0, gy, gsT, chunk: int, seg: int):
+    """Launch the rwkv backward kernel on checked CUDA tensors -> (dr, dk, dv
+    in ``r.dtype``; dlw, du, ds0 fp32)."""
+    B, T, H, hd = r.shape
+    dr, dk, dv = (torch.empty_like(r) for _ in range(3))
+    dlw = torch.empty(r.shape, dtype=torch.float32, device=r.device)
+    du_part = torch.empty((B, H, hd), dtype=torch.float32, device=r.device)
+    ds0 = torch.empty_like(s0)
+    ck, sub = (torch.empty(B * H * n * hd * hd, dtype=torch.float32, device=r.device)
+               for n in rwkv_bwd_scratch(T, chunk, seg))
+    ins = (ctypes.c_void_p * 8)(*[x.data_ptr() for x in (r, k, v, lw, u, s0, gy, gsT)])
+    outs = (ctypes.c_void_p * 6)(*[x.data_ptr() for x in (dr, dk, dv, dlw, du_part, ds0)])
+    lib = _cuda.load("linear_scan")
+    fn = getattr(lib, f"repro_rwkv_scan_bwd_{_SUFFIX[r.dtype]}")
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream(r.device).cuda_stream
+        rc = fn(ctypes.addressof(ins), ctypes.addressof(outs), ck.data_ptr(), sub.data_ptr(), B, T, H,
+                hd, chunk, seg, stream)
+    if rc != 0:
+        _raise_launch(lib, rc, f"rwkv_scan_bwd (chunk {chunk}, segment {seg}, hd {hd})")
+    _count("rwkv_scan_bwd")
+    return dr, dk, dv, dlw, du_part.sum(0), ds0

@@ -1,10 +1,14 @@
 """Public wrappers for the ported kernels.
 
-Gradients: forward passes run the kernels (``decode_attention`` is
-inference-only and has none, as in the JAX package); backward passes recompute through
-the plain oracles in :mod:`ref` (``torch.autograd.Function`` here, where the
-JAX package uses ``jax.custom_vjp``), exactly like the JAX package's
-``_flash_bwd``.  Fused backward kernels are future work.
+Gradients (``torch.autograd.Function`` here, where the JAX package uses
+``jax.custom_vjp``): forward passes run the kernels (``decode_attention`` is
+inference-only and has none, as in the JAX package).  The two scans'
+backward passes are kernels too (``linear_scan.lru_scan_bwd`` and
+``rwkv_scan_bwd``: a fixed number of launches whatever T, where the JAX
+package takes ``jax.vjp`` of its per-token ``lax.scan``); on CPU tensors with
+``interpret=True`` they run their plain versions.  Flash attention's
+backward recomputes through the plain oracle in :mod:`ref`, exactly like
+the JAX package's ``_flash_bwd``; a fused kernel for it is future work.
 
 All wrappers accept ``interpret=True``, which runs each kernel's plain
 PyTorch version on CPU tensors (the CPU tests' path).  CUDA tensors launch
@@ -17,6 +21,7 @@ import torch
 from . import ref
 from .decode_attention import decode_attention_fwd
 from .flash_attention import flash_attention_fwd
+from . import linear_scan
 from .linear_scan import LRU_BLOCK_D, lru_scan_chunked, rwkv_scan_chunked
 from .matmul import matmul_tiled
 
@@ -64,15 +69,12 @@ class _Rwkv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, r, k, v, lw, u, s0, chunk, interpret):
         ctx.save_for_backward(r, k, v, lw, u, s0)
+        ctx.interpret = interpret
         return rwkv_scan_chunked(r, k, v, lw, u, s0, chunk=chunk, interpret=interpret)
 
     @staticmethod
     def backward(ctx, gy, gs):
-        saved = ctx.saved_tensors
-        with torch.enable_grad():
-            leaves = [t.detach().requires_grad_(True) for t in saved]
-            outs = ref.rwkv_scan_ref(*leaves)
-            grads = torch.autograd.grad(outs, leaves, (gy, gs), allow_unused=True)
+        grads = linear_scan.rwkv_scan_bwd(*ctx.saved_tensors, gy, gs, interpret=ctx.interpret)
         return (*grads, None, None)
 
 
@@ -86,15 +88,12 @@ class _Lru(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a, b, h0, chunk, block_d, interpret):
         ctx.save_for_backward(a, b, h0)
+        ctx.knobs = {"chunk": chunk, "block_d": block_d, "interpret": interpret}
         return lru_scan_chunked(a, b, h0, chunk=chunk, block_d=block_d, interpret=interpret)
 
     @staticmethod
     def backward(ctx, ghs, ghT):
-        saved = ctx.saved_tensors
-        with torch.enable_grad():
-            leaves = [t.detach().requires_grad_(True) for t in saved]
-            outs = ref.lru_scan_ref(*leaves)
-            grads = torch.autograd.grad(outs, leaves, (ghs, ghT), allow_unused=True)
+        grads = linear_scan.lru_scan_bwd(*ctx.saved_tensors, ghs, ghT, **ctx.knobs)
         return (*grads, None, None, None)
 
 

@@ -448,6 +448,162 @@ def test_scan_knobs_the_kernels_cannot_run_raise_before_launch():
     torch.cuda.synchronize()
 
 
+#: a backward output against its plain version: ||got - want|| / ||want||,
+#: by the output's dtype.  The gradients are heavy-tailed sums of products
+#: that cancel, so an element-wise limit tied to the largest |plain| would
+#: pass a missing term; a bf16 output rounds each element once (about 2e-3
+#: of the norm), an fp32 one sums the same products in another order.
+BWD_REL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+def _bwd_rel(got, want):
+    d = (got.float().cpu() - want.float().cpu()).norm().item()
+    w = want.float().cpu().norm().item()
+    return d / w if w > 0 else (0.0 if d == 0 else math.inf)
+
+
+def _bwd_close(got, want, what):
+    err, limit = _bwd_rel(got, want), BWD_REL[got.dtype]
+    assert err <= limit, f"{what}: ||got - want|| / ||want|| = {err:.3e} over {limit:g}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_limit_rejects_a_dropped_u_term(dtype):
+    """The limit that holds the backward kernels (on the CPU, through the
+    plain version): dk and dv with their u terms dropped (the gradient at
+    u = 0) fail it at heavy-tailed decays lw = -exp(randn), while the bf16
+    gradient against the same gradient from fp32 inputs passes."""
+    dev = torch.device("cpu")
+    B, T, H, hd = 1, 64, 2, 64
+    r, k, v = (_randn(100 + i, (B, T, H, hd), dtype, dev) for i in range(3))
+    lw = -torch.exp(_randn(103, (B, T, H, hd), torch.float32, dev))
+    u = _randn(104, (H, hd), torch.float32, dev, 0.5)
+    s0 = _randn(105, (B, H, hd, hd), torch.float32, dev)
+    gy = _randn(106, (B, T, H, hd), dtype, dev)
+    gsT = _randn(107, (B, H, hd, hd), torch.float32, dev)
+    want = tls.rwkv_scan_bwd_plain(r, k, v, lw, u, s0, gy, gsT)
+    no_u = tls.rwkv_scan_bwd_plain(r, k, v, lw, torch.zeros_like(u), s0, gy, gsT)
+    for i, name in ((1, "dk"), (2, "dv")):
+        assert _bwd_rel(no_u[i], want[i]) > BWD_REL[dtype], name
+    if dtype == torch.bfloat16:
+        exact = tls.rwkv_scan_bwd_plain(r.float(), k.float(), v.float(), lw, u, s0, gy.float(), gsT)
+        for name, g_, w_ in zip(("dr", "dk", "dv"), want, exact):
+            _bwd_close(g_, w_, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,D,chunk,block_d", [
+    (2, 64, 32, 16, 16), (1, 64, 96, 4, 96), (3, 96, 40, 32, 8), (1, 48, 5, 16, 5),
+    (4, 256, 2560, 8, 128),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lru_backward_kernel_matches_plain(dtype, B, T, D, chunk, block_d):
+    """The reverse scan (one recompute of hs, one backward launch) against
+    the plain reverse recurrence, with g and g_T nonzero; odd widths take
+    element copies; the last shape is recurrentgemma-2b's training call."""
+    dev = _card()
+    a, b, h0 = _lru_args(B, T, D, dtype, dev, seed=60)
+    ghs = _randn(63, (B, T, D), dtype, dev)
+    ghT = _randn(64, (B, D), torch.float32, dev)
+    before = dict(tls.launches)
+    got = tls.lru_scan_bwd(a, b, h0, ghs, ghT, chunk=chunk, block_d=block_d)
+    assert tls.launches["lru_scan"] == before["lru_scan"] + 1
+    assert tls.launches["lru_scan_bwd"] == before["lru_scan_bwd"] + 1
+    want = tls.lru_scan_bwd_plain(a, b, h0, ghs, ghT, chunk=min(chunk, T), block_d=min(block_d, D))
+    for name, g_, w_ in zip(("da", "db", "dh0"), got, want):
+        assert g_.dtype == w_.dtype and g_.shape == w_.shape
+        _bwd_close(g_, w_, name)
+
+
+RWKV_BWD_SHAPES = [(2, 64, 2, 8), (1, 64, 2, 16), (2, 48, 1, 32), (1, 13, 1, 64), (1, 36, 2, 64),
+                   (1, 256, 4, 64), (1, 256, 2, 8), (1, 100, 1, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,hd", RWKV_BWD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rwkv_backward_kernel_matches_plain(dtype, B, T, H, hd):
+    """Every head dim; T = 13 (chunk 1) and 36 (chunk 9) where the derived
+    chunk is not a power of two; several checkpoint segments of one chunk
+    (hd 8, T 256), of 8 chunks (hd 64, T 256) and of 5 chunks of 10 (T 100);
+    gy and gs_T nonzero."""
+    dev = _card()
+    r, k, v = (_randn(70 + i, (B, T, H, hd), dtype, dev) for i in range(3))
+    lw = -torch.exp(_randn(73, (B, T, H, hd), torch.float32, dev))
+    u = _randn(74, (H, hd), torch.float32, dev, 0.5)
+    s0 = _randn(75, (B, H, hd, hd), torch.float32, dev)
+    gy = _randn(76, (B, T, H, hd), dtype, dev)
+    gsT = _randn(77, (B, H, hd, hd), torch.float32, dev)
+    before = tls.launches["rwkv_scan_bwd"]
+    got = tls.rwkv_scan_bwd(r, k, v, lw, u, s0, gy, gsT)
+    assert tls.launches["rwkv_scan_bwd"] == before + 1
+    want = tls.rwkv_scan_bwd_plain(r, k, v, lw, u, s0, gy, gsT)
+    for name, g_, w_ in zip(("dr", "dk", "dv", "dlw", "du", "ds0"), got, want):
+        assert g_.dtype == w_.dtype and g_.shape == w_.shape
+        assert bool(torch.isfinite(g_.float()).all()), name
+        _bwd_close(g_, w_, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rwkv_backward_kernel_strong_decay(dtype):
+    """lw = -14 (w underflows to ~8e-7): the states come from checkpoints,
+    never from dividing by w."""
+    dev = _card()
+    B, T, H, hd = 1, 64, 2, 64
+    r, k, v = (_randn(80 + i, (B, T, H, hd), dtype, dev) for i in range(3))
+    lw = torch.full((B, T, H, hd), -14.0, device=dev)
+    u = _randn(83, (H, hd), torch.float32, dev, 0.5)
+    s0 = _randn(84, (B, H, hd, hd), torch.float32, dev)
+    gy = _randn(85, (B, T, H, hd), dtype, dev)
+    gsT = _randn(86, (B, H, hd, hd), torch.float32, dev)
+    got = tls.rwkv_scan_bwd(r, k, v, lw, u, s0, gy, gsT)
+    for name, g_, w_ in zip(("dr", "dk", "dv", "dlw", "du", "ds0"), got,
+                            tls.rwkv_scan_bwd_plain(r, k, v, lw, u, s0, gy, gsT)):
+        assert bool(torch.isfinite(g_.float()).all()), name
+        _bwd_close(g_, w_, name)
+
+
+@pytest.mark.cuda
+def test_scan_backward_under_autograd_calls_no_oracle():
+    """``ops.lru_scan`` and ``ops.rwkv_scan`` under autograd on CUDA tensors:
+    the backward launches its kernel once and never runs a per-token oracle
+    (both are replaced by functions that raise)."""
+    from repro_torch.kernels import ref as tref
+
+    dev = _card()
+    a, b, h0 = _lru_args(2, 64, 32, torch.float32, dev, seed=90)
+    r, k, v = (_randn(91 + i, (1, 32, 2, 64), torch.bfloat16, dev) for i in range(3))
+    lw = -torch.exp(_randn(94, (1, 32, 2, 64), torch.float32, dev))
+    u, s0 = _randn(95, (2, 64), torch.float32, dev), _randn(96, (1, 2, 64, 64), torch.float32, dev)
+    lru_leaves = [t.clone().requires_grad_(True) for t in (a, b, h0)]
+    rwkv_leaves = [t.clone().requires_grad_(True) for t in (r, k, v, lw, u, s0)]
+    lru_want = tls.lru_scan_bwd_plain(a, b, h0, torch.ones_like(a), torch.ones_like(h0), chunk=16,
+                                      block_d=32)
+    y_ones = torch.ones_like(r)
+    rwkv_want = tls.rwkv_scan_bwd_plain(r, k, v, lw, u, s0, y_ones, torch.ones_like(s0))
+    oracles = (tref.lru_scan_ref, tref.rwkv_scan_ref)
+
+    def refuse(*a_, **k_):
+        raise AssertionError("a backward ran the per-token oracle")
+
+    before = dict(tls.launches)
+    tref.lru_scan_ref = tref.rwkv_scan_ref = refuse
+    try:
+        hs, hT = ops.lru_scan(*lru_leaves, chunk=16, block_d=32)
+        (hs.sum() + hT.sum()).backward()
+        y, sT = ops.rwkv_scan(*rwkv_leaves, chunk=16)
+        (y.float().sum() + sT.sum()).backward()
+    finally:
+        tref.lru_scan_ref, tref.rwkv_scan_ref = oracles
+    assert {n_: tls.launches[n_] - before[n_] for n_ in before} == {
+        "lru_scan": 2, "rwkv_scan": 1, "lru_scan_bwd": 1, "rwkv_scan_bwd": 1}
+    for name, leaf, w_ in zip(("da", "db", "dh0"), lru_leaves, lru_want):
+        _bwd_close(leaf.grad, w_, name)
+    for name, leaf, w_ in zip(("dr", "dk", "dv", "dlw", "du", "ds0"), rwkv_leaves, rwkv_want):
+        _bwd_close(leaf.grad, w_, name)
+
+
 def _decode_inputs(B, H, Kh, S, hd, dtype, dev, valid):
     q = _randn(50, (B, H, hd), dtype, dev)
     k = _randn(51, (B, Kh, S, hd), dtype, dev)
@@ -851,13 +1007,16 @@ def test_tiny_train_step_on_the_card_kernel_path_matches_plain(arch):
     for qwen2-7b's attention, lru_scan for recurrentgemma-2b's RG-LRU
     layers, each under autograd) against the plain path from the same
     weights, in fp32 compute: loss and gradient norm at 1e-5, every
-    gradient leaf within 1e-4 of its largest magnitude."""
+    gradient leaf within 1e-4 of its largest magnitude.  Each lru backward
+    launches the forward kernel once more (its recompute of hs) and the
+    reverse scan once."""
     from repro_torch.data import make_batch_for
     from repro_torch.optim import AdamW
     from repro_torch.train import make_loss_fn, make_train_step
 
     dev = _card()
-    grads, metrics, before = {}, {}, (tfa.launches, tls.launches["lru_scan"])
+    counted = lambda: (tfa.launches, tls.launches["lru_scan"], tls.launches["lru_scan_bwd"])  # noqa: E731
+    grads, metrics, before = {}, {}, counted()
     for impl in ("cuda", "xla"):
         model = _tiny_train(arch, dev, impl)
         batch = make_batch_for(model.cfg, 4, 32, step=0, seed=0, device=dev)
@@ -869,8 +1028,9 @@ def test_tiny_train_step_on_the_card_kernel_path_matches_plain(arch):
         _, _, metrics[impl] = make_train_step(model, opt, microbatches=2)(params, opt.init(params),
                                                                          batch)
         if impl == "cuda":
-            launched = (tfa.launches - before[0], tls.launches["lru_scan"] - before[1])
-            assert launched == ((2 + 4, 0) if arch == "qwen2_7b" else (0, 4 + 8)), launched
+            launched = tuple(n - b for n, b in zip(counted(), before))
+            assert launched == ((2 + 4, 0, 0) if arch == "qwen2_7b"
+                                else (0, 2 * (4 + 8), 4 + 8)), launched
     for k in ("loss", "grad_norm"):
         torch.testing.assert_close(metrics["cuda"][k], metrics["xla"][k], atol=1e-5, rtol=1e-5)
     for n, g in grads["cuda"].items():

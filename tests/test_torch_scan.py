@@ -204,7 +204,7 @@ def test_lru_illegal_knobs_raise_before_any_launch():
         tops.lru_scan(a, b, h0, chunk=256, block_d=256)
     with pytest.raises(ValueError, match="chunk=96"):
         tops.lru_scan(a, b, h0, chunk=96)
-    assert tls.launches == {"lru_scan": 0, "rwkv_scan": 0}
+    assert tls.launches == {"lru_scan": 0, "rwkv_scan": 0, "lru_scan_bwd": 0, "rwkv_scan_bwd": 0}
     assert tls.lru_smem_bytes(256, 128, 4) > tls.SMEM_LIMIT >= tls.lru_smem_bytes(256, 128, 2)
     tls.check_lru(256, 128, itemsize=2)
     assert tls.legal_lru(2048, 2560, 4, 128, on_card=True) == (4, 128)
@@ -220,7 +220,7 @@ def test_scan_wrappers_refuse_cpu_tensors_without_interpret():
     _, targs = _rwkv_inputs(1, 16, 1, 8, "float32")
     with pytest.raises(ValueError, match="CUDA tensors"):
         tops.rwkv_scan(*targs, chunk=16)
-    assert tls.launches == {"lru_scan": 0, "rwkv_scan": 0}
+    assert tls.launches == {"lru_scan": 0, "rwkv_scan": 0, "lru_scan_bwd": 0, "rwkv_scan_bwd": 0}
 
 
 def test_scan_gradients_follow_the_oracles():

@@ -1,0 +1,270 @@
+"""The scans' backward on the CPU: ``linear_scan.lru_scan_bwd_plain`` and
+``rwkv_scan_bwd_plain`` (the arithmetic of the backward kernels, which the
+CPU path of ``ops.lru_scan`` / ``ops.rwkv_scan`` runs under autograd) against
+autograd through the port's per-token oracles and against ``jax.vjp`` of the
+JAX package's ``ops.lru_scan`` / ``ops.rwkv_scan`` with ``interpret=True``
+(whose ``custom_vjp`` takes the vjp of its per-token ``lax.scan``), on the
+same numpy-seeded inputs and cotangents.
+
+Tolerances (atol = rtol, compared in fp32, every leaf): against the port's
+oracle 1e-5 in fp32 (the same recurrence summed in another order) and the
+JAX tests' bf16 limits in bf16 (3e-2 lru, 5e-2 rwkv: one rounding of each
+output to bf16 either side); against JAX the limits of
+``tests/test_torch_scan.py``: lru as against the oracle, rwkv 5e-4 in fp32.
+In bf16 the JAX lru op's own ``custom_vjp`` cannot be differentiated: it
+hands hs's bf16 cotangent to the vjp of its oracle, whose hs is fp32, and
+JAX refuses the mismatch.  There the JAX side is ``jax.vjp`` of that oracle
+(``repro.kernels.ref.lru_scan_ref``) with hs rounded to a's dtype, as the
+op's forward returns it.  The CUDA kernels are held against these plain
+versions on the card by ``tests/test_torch_cuda.py``.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+pytest.importorskip("torch")  # without torch the whole module skips
+
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import linear_scan as tls
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+ORACLE_TOL = {"lru": {"float32": 1e-5, "bfloat16": 3e-2},
+              "rwkv": {"float32": 1e-5, "bfloat16": 5e-2}}
+JAX_TOL = {"lru": ORACLE_TOL["lru"], "rwkv": {"float32": 5e-4, "bfloat16": 5e-2}}
+
+
+def _np(seed, shape, scale=1.0):
+    return (np.random.RandomState(seed).standard_normal(shape) * scale).astype(np.float32)
+
+
+def _both(x, dtype):
+    """The same values as a JAX array and a torch tensor (bf16 rounds alike)."""
+    return jnp.asarray(x, JDT[dtype]), torch.from_numpy(x).to(TDT[dtype])
+
+
+def _close(got, want, tol, what):
+    g = got.float().numpy() if isinstance(got, torch.Tensor) else np.asarray(got, np.float32)
+    w = want.float().numpy() if isinstance(want, torch.Tensor) else np.asarray(want, np.float32)
+    np.testing.assert_allclose(g, w, atol=tol, rtol=tol, err_msg=what)
+
+
+def _oracle_grads(oracle, inputs, cotangents):
+    """Autograd through the port's per-token oracle."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+    outs = oracle(*leaves)
+    return torch.autograd.grad(outs, leaves, cotangents)
+
+
+def _jax_grads(op, inputs, cotangents):
+    outs, vjp = jax.vjp(op, *inputs)
+    return vjp(tuple(jnp.asarray(c, o.dtype) for c, o in zip(cotangents, outs)))
+
+
+# ------------------------------------------------------------------ lru scan
+def _lru_case(B, T, D, dtype, *, h0=True, only_gT=False, strong=False, seed=0):
+    """(JAX inputs, torch inputs, numpy cotangents (g, g_T))."""
+    logits = _np(seed, (B, T, D)) - (12.0 if strong else 0.0)  # strong: a ~ 1e-5
+    a = 1.0 / (1.0 + np.exp(-logits))
+    raw = [a.astype(np.float32), _np(seed + 1, (B, T, D))]
+    pairs = [_both(x, dtype) for x in raw]
+    h = _np(seed + 2, (B, D)) if h0 else np.zeros((B, D), np.float32)
+    g = np.zeros((B, T, D), np.float32) if only_gT else _np(seed + 3, (B, T, D))
+    gT = _np(seed + 4, (B, D))
+    return ([p[0] for p in pairs] + [jnp.asarray(h)], [p[1] for p in pairs] + [torch.from_numpy(h)],
+            (g, gT))
+
+
+LRU_CASES = {
+    "plain": dict(B=2, T=32, D=16, chunk=8, block_d=8),
+    "zero_h0": dict(B=2, T=32, D=16, chunk=8, block_d=16, h0=False),
+    "only_gT": dict(B=1, T=24, D=8, chunk=8, block_d=8, only_gT=True),
+    "strong_decay": dict(B=2, T=16, D=8, chunk=4, block_d=4, strong=True),
+    "one_chunk_odd": dict(B=3, T=20, D=6, chunk=20, block_d=3),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(LRU_CASES))
+def test_lru_backward_plain_matches_oracle_and_jax(case, dtype):
+    kw = dict(LRU_CASES[case])
+    chunk, block_d = kw.pop("chunk"), kw.pop("block_d")
+    jargs, targs, (g, gT) = _lru_case(dtype=dtype, **kw)
+    ghs, ghT = torch.from_numpy(g).to(TDT[dtype]), torch.from_numpy(gT)
+    got = tls.lru_scan_bwd_plain(*targs, ghs, ghT, chunk=chunk, block_d=block_d)
+    assert [x.dtype for x in got] == [x.dtype for x in targs]
+    assert [x.shape for x in got] == [x.shape for x in targs]
+    want = _oracle_grads(lambda a, b, h0: tuple(x.to(y) for x, y in zip(
+        tref.lru_scan_ref(a, b, h0), (a.dtype, torch.float32))), targs, (ghs, ghT))
+    if dtype == "float32":
+        jop = lambda a, b, h0: jops.lru_scan(a, b, h0, chunk=chunk, interpret=True)  # noqa: E731
+    else:  # see the module docstring
+        jop = lambda a, b, h0: (lambda hs, hT: (hs.astype(a.dtype), hT))(  # noqa: E731
+            *jref.lru_scan_ref(a, b, h0))
+    jwant = _jax_grads(jop, jargs, (g, gT))
+    for name, x, w, jw in zip(("da", "db", "dh0"), got, want, jwant):
+        _close(x, w, ORACLE_TOL["lru"][dtype], f"{case} {name} vs the port's oracle")
+        _close(x, jw, JAX_TOL["lru"][dtype], f"{case} {name} vs jax.vjp")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lru_backward_through_ops_under_autograd(dtype):
+    """``ops.lru_scan`` with ``interpret=True`` on CPU tensors: autograd runs
+    the backward's plain version (counted here), launches nothing, and gives
+    the plain version's gradients, bit for bit."""
+    _, targs, (g, gT) = _lru_case(2, 16, 8, dtype, seed=3)
+    leaves = [t.clone().requires_grad_(True) for t in targs]
+    ghs, ghT = torch.from_numpy(g).to(TDT[dtype]), torch.from_numpy(gT)
+    calls, plain = [], tls.lru_scan_bwd_plain
+
+    def counting(*a, **k):
+        calls.append(k)
+        return plain(*a, **k)
+
+    before = dict(tls.launches)
+    tls.lru_scan_bwd_plain = counting
+    try:
+        hs, hT = tops.lru_scan(*leaves, chunk=4, block_d=8, interpret=True)
+        got = torch.autograd.grad((hs, hT), leaves, (ghs, ghT))
+    finally:
+        tls.lru_scan_bwd_plain = plain
+    assert calls == [{"chunk": 4, "block_d": 8}] and tls.launches == before
+    for x, w in zip(got, plain(*targs, ghs, ghT, chunk=4, block_d=8)):
+        assert x.dtype == w.dtype and torch.equal(x, w)
+
+
+# ----------------------------------------------------------------- rwkv scan
+def _rwkv_case(B, T, H, hd, dtype, *, s0=True, only_gsT=False, strong=False, seed=10):
+    raw = [_np(seed + i, (B, T, H, hd)) for i in range(3)]
+    lw = np.full((B, T, H, hd), -14.0, np.float32) if strong else -np.exp(_np(seed + 3, (B, T, H, hd)))
+    pairs = [_both(x, dtype) for x in raw]
+    rest = [lw, _np(seed + 4, (H, hd), 0.5),
+            _np(seed + 5, (B, H, hd, hd)) if s0 else np.zeros((B, H, hd, hd), np.float32)]
+    gy = np.zeros((B, T, H, hd), np.float32) if only_gsT else _np(seed + 6, (B, T, H, hd))
+    gsT = _np(seed + 7, (B, H, hd, hd))
+    return ([p[0] for p in pairs] + [jnp.asarray(x) for x in rest],
+            [p[1] for p in pairs] + [torch.from_numpy(x) for x in rest], (gy, gsT))
+
+
+RWKV_CASES = {
+    "plain": dict(B=2, T=16, H=2, hd=8),
+    "zero_s0": dict(B=1, T=16, H=2, hd=16, s0=False),
+    "only_gsT": dict(B=1, T=12, H=1, hd=8, only_gsT=True),
+    "strong_decay": dict(B=1, T=16, H=2, hd=8, strong=True),
+    "odd_T_hd64": dict(B=1, T=36, H=1, hd=64),  # the kernel's chunk: 9, not a power of 2
+    "hd32": dict(B=2, T=24, H=1, hd=32),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(RWKV_CASES))
+def test_rwkv_backward_plain_matches_oracle_and_jax(case, dtype):
+    jargs, targs, (gy, gsT) = _rwkv_case(dtype=dtype, **RWKV_CASES[case])
+    tgy, tgs = torch.from_numpy(gy).to(TDT[dtype]), torch.from_numpy(gsT)
+    got = tls.rwkv_scan_bwd_plain(*targs, tgy, tgs)
+    assert [x.dtype for x in got] == [x.dtype for x in targs]
+    assert [x.shape for x in got] == [x.shape for x in targs]
+    assert all(bool(torch.isfinite(x.float()).all()) for x in got)
+    want = _oracle_grads(tref.rwkv_scan_ref, targs, (tgy, tgs))
+    jwant = _jax_grads(lambda *x: jops.rwkv_scan(*x, chunk=4, interpret=True), jargs, (gy, gsT))
+    for name, x, w, jw in zip(("dr", "dk", "dv", "dlw", "du", "ds0"), got, want, jwant):
+        _close(x, w, ORACLE_TOL["rwkv"][dtype], f"{case} {name} vs the port's oracle")
+        _close(x, jw, JAX_TOL["rwkv"][dtype], f"{case} {name} vs jax.vjp")
+
+
+def test_rwkv_backward_through_ops_under_autograd():
+    _, targs, (gy, gsT) = _rwkv_case(1, 8, 2, 8, "bfloat16", seed=20)
+    leaves = [t.clone().requires_grad_(True) for t in targs]
+    tgy, tgs = torch.from_numpy(gy).to(torch.bfloat16), torch.from_numpy(gsT)
+    calls, plain = [], tls.rwkv_scan_bwd_plain
+
+    def counting(*a, **k):
+        calls.append(len(a))
+        return plain(*a, **k)
+
+    before = dict(tls.launches)
+    tls.rwkv_scan_bwd_plain = counting
+    try:
+        y, sT = tops.rwkv_scan(*leaves, chunk=4, interpret=True)
+        got = torch.autograd.grad((y, sT), leaves, (tgy, tgs))
+    finally:
+        tls.rwkv_scan_bwd_plain = plain
+    assert calls == [8] and tls.launches == before
+    for x, w in zip(got, plain(*targs, tgy, tgs)):
+        assert x.dtype == w.dtype and torch.equal(x, w)
+
+
+# ------------------------------------------------------------- the wrappers
+def test_backward_wrappers_refuse_cpu_tensors_without_interpret():
+    _, (a, b, h0), (g, gT) = _lru_case(1, 16, 8, "float32")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tls.lru_scan_bwd(a, b, h0, torch.from_numpy(g), torch.from_numpy(gT), chunk=16)
+    _, targs, (gy, gsT) = _rwkv_case(1, 16, 1, 8, "float32")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tls.rwkv_scan_bwd(*targs, torch.from_numpy(gy), torch.from_numpy(gsT))
+    with pytest.raises(ValueError, match="head dim 128"):
+        tls.rwkv_scan_bwd(*(torch.zeros(1, 4, 1, 128) for _ in range(4)), torch.zeros(1, 128),
+                          torch.zeros(1, 1, 128, 128), torch.zeros(1, 4, 1, 128), None)
+    with pytest.raises(ValueError, match="chunk=12"):
+        tls.lru_scan_bwd(a, b, h0, torch.from_numpy(g), None, chunk=12, interpret=True)
+    assert tls.launches == {"lru_scan": 0, "rwkv_scan": 0, "lru_scan_bwd": 0, "rwkv_scan_bwd": 0}
+
+
+def test_missing_final_state_cotangent_is_zero():
+    _, targs, (g, gT) = _lru_case(1, 16, 8, "float32", seed=5)
+    ghs = torch.from_numpy(g)
+    for x, w in zip(tls.lru_scan_bwd(*targs, ghs, None, chunk=8, interpret=True),
+                    tls.lru_scan_bwd_plain(*targs, ghs, torch.zeros(1, 8), chunk=8)):
+        assert torch.equal(x, w)
+    _, rargs, (gy, _) = _rwkv_case(1, 8, 1, 8, "float32", seed=6)
+    tgy = torch.from_numpy(gy)
+    for x, w in zip(tls.rwkv_scan_bwd(*rargs, tgy, None, interpret=True),
+                    tls.rwkv_scan_bwd_plain(*rargs, tgy, torch.zeros(1, 1, 8, 8))):
+        assert torch.equal(x, w)
+
+
+@pytest.mark.parametrize("T,hd,want", [(2048, 64, 8), (2048, 32, 32), (2048, 8, 64), (13, 64, 1),
+                                       (36, 64, 9), (16, 16, 16)])
+def test_rwkv_backward_chunk_is_derived_from_the_shape(T, hd, want):
+    """The largest divisor of T up to 64 whose block (staged rows, the
+    chunk's states, the dv partials) fits the shared memory."""
+    L = tls.rwkv_bwd_chunk(T, hd)
+    assert L == want and T % L == 0
+    assert tls.rwkv_bwd_smem_bytes(L, hd) <= tls.SMEM_LIMIT
+    bigger = [c for c in range(L + 1, min(T, tls.RWKV_BWD_MAX_CHUNK) + 1) if T % c == 0]
+    assert all(tls.rwkv_bwd_smem_bytes(c, hd) > tls.SMEM_LIMIT for c in bigger)
+
+
+@pytest.mark.parametrize("T,hd,seg,states", [(2048, 64, 64, (31, 7)), (4096, 64, 64, (63, 7)),
+                                             (2048, 8, 64, (31, 1)), (13, 64, 13, (1, 12)),
+                                             (36, 64, 36, (1, 3)), (100, 64, 50, (1, 4))])
+def test_rwkv_backward_checkpoints_are_derived_from_the_shape(T, hd, seg, states):
+    """The checkpoint segment: the largest multiple of the chunk up to 64
+    tokens that divides T; the scratch holds T / segment - 1 checkpoints and
+    segment / chunk - 1 chunk starts per (batch row, head), so its chunk
+    starts do not grow with T."""
+    L = tls.rwkv_bwd_chunk(T, hd)
+    assert tls.rwkv_bwd_segment(T, L) == seg and seg % L == 0 and T % seg == 0
+    assert tls.rwkv_bwd_scratch(T, L, seg) == states
+
+
+def test_backward_work_counts():
+    """The bounds' FLOP and bytes from the shapes: lru 5 FLOP and five
+    passes of the input dtype per element; rwkv 14·hd² FLOP per (token,
+    head) and seven passes of r's dtype."""
+    a = torch.zeros(4, 256, 2560)
+    h0 = torch.zeros(4, 2560)
+    flops, nbytes = tls.lru_bwd_flops_bytes(a, a, h0)
+    assert flops == 5.0 * a.numel() and nbytes == 5 * a.numel() * 4 + 3 * h0.numel() * 4
+    r = torch.zeros(1, 2048, 64, 64, dtype=torch.bfloat16)
+    lw = torch.zeros(1, 2048, 64, 64)
+    u, s0 = torch.zeros(64, 64), torch.zeros(1, 64, 64, 64)
+    flops, nbytes = tls.rwkv_bwd_flops_bytes(r, r, r, lw, u, s0)
+    assert flops == 14.0 * 2048 * 64 * 64 * 64
+    assert nbytes == 7 * r.numel() * 2 + 2 * lw.numel() * 4 + 2 * u.numel() * 4 + 3 * s0.numel() * 4

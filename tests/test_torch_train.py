@@ -252,36 +252,56 @@ def test_loss_and_grads_match_jax(arch, dtype):
         assert port <= ref + 5e-2, (name, port, ref)
 
 
-@pytest.mark.parametrize("arch", ["qwen2_7b", "recurrentgemma_2b"])
+@pytest.mark.parametrize("arch", ["qwen2_7b", "recurrentgemma_2b", "rwkv6_7b"])
 def test_train_model_runs_the_kernels_under_autograd(arch):
     """The kernel path's forward goes through the ops wrappers (flash for
-    window-0 attention, lru_scan for the RG-LRU layers) and its gradients
-    equal the plain path's at the fp32 limit."""
+    window-0 attention, lru_scan for the RG-LRU layers, rwkv_scan for the
+    RWKV layers), and each scan's backward through its backward kernel's
+    plain version (once per forward call); the loss and gradients equal the
+    plain path's on one batch and, on the batch ``_grads`` uses, the JAX
+    package's ``value_and_grad`` (Pallas interpret), at the fp32 limits
+    (loss 1e-5, each leaf 1e-4 of its largest magnitude)."""
+    from repro_torch.kernels import linear_scan as tls
     from repro_torch.kernels import ops
 
-    calls = {"flash_attention": 0, "lru_scan": 0}
+    calls = {"flash_attention": 0, "lru_scan": 0, "rwkv_scan": 0}
+    bwd_calls = {"lru_scan_bwd_plain": 0, "rwkv_scan_bwd_plain": 0}
     origs = {n: getattr(ops, n) for n in calls}
+    bwd_origs = {n: getattr(tls, n) for n in bwd_calls}
 
-    def counting(name):
+    def counting(name, module, table, fns):
         def fn(*a, **k):
-            calls[name] += 1
-            return origs[name](*a, **k)
-        return fn
+            table[name] += 1
+            return fns[name](*a, **k)
+        setattr(module, name, fn)
+
+    def kernel_path(tb):
+        """(loss, gradients) of the kernel path, its wrapper calls counted."""
+        tm.zero_grad(set_to_none=True)
+        tm.exec_cfg = TExec(attn_impl="cuda", interpret=True, rec_chunk=4)
+        try:
+            for n in calls:
+                counting(n, ops, calls, origs)
+            for n in bwd_calls:
+                counting(n, tls, bwd_calls, bwd_origs)
+            loss, _ = tmake_loss(tm)(tm.params(), tb)
+            loss.backward()
+        finally:
+            for n, f in origs.items():
+                setattr(ops, n, f)
+            for n, f in bwd_origs.items():
+                setattr(tls, n, f)
+        return loss, {n: p.grad.clone() for n, p in tm.params().items()}
 
     _, tm = _models(arch, "float32")
     _, tb = _batch(12)
-    try:
-        for n in calls:
-            setattr(ops, n, counting(n))
-        loss, _ = tmake_loss(tm)(tm.params(), tb)
-        loss.backward()
-    finally:
-        for n, f in origs.items():
-            setattr(ops, n, f)
-    want = {"qwen2_7b": {"flash_attention": 2, "lru_scan": 0},
-            "recurrentgemma_2b": {"flash_attention": 0, "lru_scan": 4}}[arch]
+    loss, kernel_grads = kernel_path(tb)
+    want = {"qwen2_7b": {"flash_attention": 2, "lru_scan": 0, "rwkv_scan": 0},
+            "recurrentgemma_2b": {"flash_attention": 0, "lru_scan": 4, "rwkv_scan": 0},
+            "rwkv6_7b": {"flash_attention": 0, "lru_scan": 0, "rwkv_scan": 2}}[arch]
     assert calls == want
-    kernel_grads = {n: p.grad.clone() for n, p in tm.params().items()}
+    assert bwd_calls == {"lru_scan_bwd_plain": want["lru_scan"],
+                         "rwkv_scan_bwd_plain": want["rwkv_scan"]}
     tm.zero_grad(set_to_none=True)
     tm.exec_cfg = TExec(attn_impl="xla", rec_chunk=4)
     loss2, _ = tmake_loss(tm)(tm.params(), tb)
@@ -290,6 +310,14 @@ def test_train_model_runs_the_kernels_under_autograd(arch):
     for n, p in tm.params().items():
         scale = kernel_grads[n].abs().max().item()
         assert (p.grad - kernel_grads[n]).abs().max().item() <= 1e-4 * scale + 1e-12, n
+
+    _, jb = _batch(11)
+    jloss_t, jkernel_grads = kernel_path(jb)
+    jloss, jgrads, _, _ = _grads(arch, "float32")
+    np.testing.assert_allclose(jloss_t.item(), jloss, rtol=1e-5, atol=1e-5)
+    for n, g in jkernel_grads.items():
+        scale = np.abs(jgrads[n]).max() + 1e-12
+        assert _err(_f32(g), jgrads[n], scale) <= 1e-4, (n, _err(_f32(g), jgrads[n], scale))
 
 
 def test_chunked_loss_equals_full_loss_on_the_model():
