@@ -37,7 +37,16 @@ Phases, each printing its numbers on lines of its own:
    ||kernel - plain|| / ||plain||, ``BWD_REL``), a planted fault (the rwkv
    gradient's dk or dv without its u term) that the same limit must reject,
    and one call of each under ``torch.profiler`` at two sequence lengths:
-   the same kernel count;
+   the same kernel count; then flash attention's backward kernel at the
+   trained shapes (``FA_BWD_CASES``: seamless-m4t-large-v2's encoder layer
+   q (3, 4096, 16, 64) non-causal and qwen2-7b's layer q (1, 2048, 28, 128),
+   k/v 4 heads, causal, both bf16 on the tensor-core design; (1, 512, 8, 64)
+   fp32 on the CUDA-core design; q, k, v and dO strided views) against
+   ``flash_attention_bwd_plain`` on the forward kernel's o and lse (the lse
+   held against the plain forward's), two calls bit-identical, a planted
+   fault (dq and dk without the -D term) the same limit must reject, and
+   one call under ``torch.profiler`` at 2048 and 512 tokens: the same
+   kernel count;
 3. the PATSMA tuning loop: ``tune_call`` on the five calls with the default
    CSA budget, committing records to ``DIR/tune.json``, and once more on
    the decode call with ``strategy="csa+nm"`` into ``DIR/tune_csa_nm.json``;
@@ -70,7 +79,10 @@ Phases, each printing its numbers on lines of its own:
    and tuned (its own DB), with SDPA's time and the bound; the scans'
    backward kernels at phase 2's shapes beside their plain versions, the
    eager per-token oracle (autograd through ``ref.*_scan_ref``) and their
-   fp32 bounds;
+   fp32 bounds; flash attention's backward kernel at phase 2's two bf16
+   shapes beside its plain version, the eager oracle it replaced (autograd
+   through ``ref.flash_attention_ref``), SDPA's backward (KV heads
+   expanded) and its bound (five products at the bf16 rate);
 8. serving recurrentgemma-2b at full width and depth through
    ``repro_torch.launch.serve`` (batch 8, prompt 2048, 64 new tokens, random
    weights from seed 0) twice on one DB: the first run tunes the decode
@@ -105,9 +117,11 @@ Phases, each printing its numbers on lines of its own:
    optimizer state ``on_step`` saw at its step, bit for bit;
 11. qwen2-7b at full width with 2 layers through ``make_train_step``, batch 1
    x 2048 tokens: one step and a second on the kernel path (2 flash
-   launches a step, all of the ``wgmma`` design, under autograd) and on the
-   plain path from the same weights; loss and gradient norm before the
-   update (1e-3 / 1e-2 relative), step wall times and peak memory;
+   launches a step, all of the ``wgmma`` design, under autograd, and 2
+   backward launches of the ``mma`` design) and on the plain path from the
+   same weights; loss and gradient norm before the update (1e-3 / 1e-2
+   relative), step wall times, tokens/s, peak memory and the flash
+   backward's device ms a step (CUDA events around each call);
 12. serving seamless-m4t-large-v2 at full width and depth (24 encoder and 24
    decoder layers, frames (8, 4096, 1024), batch 8, prompt 2048, 64 new
    tokens) twice on one DB (the second a DB hit): every prefill launches
@@ -185,17 +199,19 @@ Phases, each printing its numbers on lines of its own:
    ms of each (in turns), the peak bytes each allocates, outputs within
    ``SDPA_TOL``;
 22. training seamless-m4t-large-v2 at full width and depth through
-   ``TrainJob`` (frames (3, 4096, 1024), batch 3 x 512 decoder tokens, the
-   largest batch under 80 GB, lr 1e-3 with no warmup, 6 steps): the loss per
-   step (finite, the last below the first), step ms, tokens/s, the peak, and
-   the flash launches per step (the 24 encoder layers non-causal and the 24
-   decoder self-attentions causal, all of the ``wgmma`` design, the count
-   taken from the config); then the kernel path against the plain path on
-   one sequence, no update (loss 1e-3, gradient norm 1e-2 relative);
+   ``TrainJob`` (frames of 4096, ``SEAMLESS_TRAIN``: the largest batch of
+   512 decoder tokens under 80 GB, lr 1e-3 with no warmup, 6 steps): the
+   loss per step (finite, the last below the first), step ms, tokens/s, the
+   peak, the flash launches per step (the 24 encoder layers non-causal and
+   the 24 decoder self-attentions causal, all of the ``wgmma`` design, the
+   count taken from the config), as many backward launches of the ``mma``
+   design and their device ms a step; the same job at batch 3 for 2 steps,
+   for its peak; then the kernel path against the plain path on one
+   sequence, no update (loss 1e-3, gradient norm 1e-2 relative);
 23. moonshot-v1-16b-a3b at full width with 2 of its 48 layers through
    ``make_train_step``, batch 1 x 2048, 4 steps: the same checks and prints,
-   the flash kernel causal, and the MoE dispatch's capacity branch with its
-   drops per layer;
+   the flash kernel and its backward causal, and the MoE dispatch's
+   capacity branch with its drops per layer;
 24. training rwkv6-7b at full width with 17 of its 32 layers (the most
    whose peak stays under 80 GB) through ``make_train_step``, batch 1 x
    2048, ``rec_chunk`` 8, 3 steps: loss and grad norm per step, step ms,
@@ -304,7 +320,9 @@ RG_LRU_LAYERS = 18  # lru_scan launches per forward pass
 # phase 11: qwen2-7b at full width, 2 layers, one sequence of 2048 tokens
 QWEN_LAYERS, QWEN_SEQ = 2, 2048
 # phase 22: seamless-m4t-large-v2 trained at full width and depth through
-# TrainJob, frames of 4096: the largest (batch, decoder tokens) under 80 GB
+# TrainJob, frames of 4096: the largest (batch, decoder tokens) under 80 GB.
+# With the flash backward kernel batch 4 still runs out of memory in the
+# backward (``scripts/probe_flash_train.py --seamless-batches 3 4``)
 SEAMLESS_TRAIN, SEAMLESS_TRAIN_STEPS = (3, 512), 6
 # phase 23: moonshot-v1-16b-a3b at full width with 2 of its 48 layers
 MOONSHOT_TRAIN_LAYERS, MOONSHOT_TRAIN_STEPS = 2, 4
@@ -362,9 +380,17 @@ RWKV_FWD_REL = 2.5e-3
 #: tens of per cent between any two forwards that differ in a few roundings
 RWKV_AGREE_LAYERS = 4
 RWKV_BWD_SHAPE = (1, 2048, 64, 64)  # rwkv6-7b in phase 24: batch, tokens, heads, head dim (bf16)
-BWD_SHAPES_T = {"lru_scan_bwd": 2048, "rwkv_scan_bwd": 512}  # the other T the profiler counts at
+BWD_SHAPES_T = {"lru_scan_bwd": 2048, "rwkv_scan_bwd": 512,  # the other T the profiler counts at
+                "flash_attention_bwd": 512}
+#: flash attention's backward at the trained shapes (label, (batch, seq,
+#: query heads, KV heads, head dim), dtype name, causal): seamless's encoder
+#: layer (phase 22's batch, 24 calls a step), qwen2-7b's layer (phase 11,
+#: GQA 28/4 at head dim 128) and one fp32 case (the CUDA-core design)
+FA_BWD_CASES = (("seamless encoder", (3, 4096, 16, 16, 64), "bfloat16", False),
+                ("qwen2-7b layer", (1, 2048, 28, 4, 128), "bfloat16", True),
+                ("fp32", (1, 512, 8, 2, 64), "float32", True))
 KERNELS = ["matmul", "flash_attention", "decode_attention", "lru_scan", "rwkv_scan",
-           "lru_scan_bwd", "rwkv_scan_bwd"]
+           "lru_scan_bwd", "rwkv_scan_bwd", "flash_attention_bwd"]
 
 
 class SmokeFailure(Exception):
@@ -391,6 +417,36 @@ def bwd_rel(got, want) -> float:
     return d / w if w > 0 else (0.0 if d == 0 else math.inf)
 
 
+@contextlib.contextmanager
+def flash_bwd_events():
+    """CUDA events around each call of ``ops._Flash.backward`` while the
+    block runs: yields the list of (start, end) pairs, to be read after a
+    synchronize (the flash backward's device time, launches included)."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    pairs, backward = [], ops._Flash.backward
+
+    def timed(ctx, *grads):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        got = backward(ctx, *grads)
+        e1.record()
+        pairs.append((e0, e1))
+        return got
+
+    ops._Flash.backward = staticmethod(timed)
+    try:
+        yield pairs
+    finally:
+        ops._Flash.backward = backward
+
+
+def events_total_ms(pairs) -> float:
+    return sum(a.elapsed_time(b) for a, b in pairs)
+
+
 def _tensors(x) -> list:
     """The tensors of a kernel's result (one tensor, or the scans' pair)."""
     return list(x) if isinstance(x, (tuple, list)) else [x]
@@ -404,7 +460,7 @@ def counts() -> dict:
     from repro_torch.kernels import matmul as mm
 
     return {"matmul": mm.launches, "flash_attention": fa.launches,
-            "decode_attention": da.launches, **ls.launches}
+            "decode_attention": da.launches, **ls.launches, "flash_attention_bwd": fa.bwd_launches}
 
 
 def reset_counts() -> None:
@@ -415,6 +471,7 @@ def reset_counts() -> None:
 
     mm.launches = 0
     fa.launches = 0
+    fa.bwd_launches = 0
     da.launches = 0
     for n in ls.launches:
         ls.launches[n] = 0
@@ -1263,29 +1320,39 @@ def train_phases(out: Path, smi: str) -> dict:
         opt_state = opt.init(params)
         step_fn = make_train_step(model, opt)
         walls, mets = [], []
-        for i in range(2):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            params, opt_state, met = step_fn(params, opt_state, q_batch if i == 0 else
-                                             make_batch_for(q_cfg, 1, QWEN_SEQ, step=1, device=dev))
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) * 1e3)
-            mets.append({k_: v_.item() for k_, v_ in met.items()})
+        mma0 = fa.launches_by_design["bwd_mma"]
+        with flash_bwd_events() as fb_events:
+            for i in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, opt_state, met = step_fn(params, opt_state, q_batch if i == 0 else
+                                                 make_batch_for(q_cfg, 1, QWEN_SEQ, step=1, device=dev))
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+                mets.append({k_: v_.item() for k_, v_ in met.items()})
         launched = counts()
         wgmma = fa.launches_by_design["wgmma"] - wgmma0
+        bwd_mma = fa.launches_by_design["bwd_mma"] - mma0
+        bwd_ms = events_total_ms(fb_events) / 2
         if impl == "cuda":
             add_train_launches(launched)
         peak = torch.cuda.max_memory_allocated(dev) / 1e9
         q_paths[impl] = {"fingerprint": fingerprint, "loss": mets[0]["loss"],
                          "grad_norm": mets[0]["grad_norm"], "step_ms": walls, "peak_gb": peak,
-                         "flash_launches": launched["flash_attention"], "wgmma": wgmma}
+                         "tokens_per_s": QWEN_SEQ / (walls[1] / 1e3),
+                         "flash_launches": launched["flash_attention"], "wgmma": wgmma,
+                         "flash_bwd_launches": launched["flash_attention_bwd"], "bwd_mma": bwd_mma,
+                         "flash_bwd_device_ms_per_step": bwd_ms}
         print(f"[11] qwen2-7b 2 layers (d_model {q_cfg.d_model}, {q_cfg.n_heads}/{q_cfg.n_kv_heads} "
               f"heads of {q_cfg.d_head}, d_ff {q_cfg.d_ff}, vocab {q_cfg.vocab_size}; "
               f"{sum(p_.numel() for p_ in params.values()) / 1e9:.3f} B parameters), batch 1 x "
               f"{QWEN_SEQ}, {'kernel' if impl == 'cuda' else 'plain'} path: loss {mets[0]['loss']:.6f}, "
               f"grad norm {mets[0]['grad_norm']:.6f} (before the update); step wall {walls[0]:.1f} ms "
-              f"(first), {walls[1]:.1f} ms (second); peak {peak:.2f} GB; flash_attention launches "
-              f"{launched['flash_attention']} ({wgmma} wgmma); weights fingerprint {fingerprint:.6e}; {smi}")
+              f"(first), {walls[1]:.1f} ms (second), {QWEN_SEQ / (walls[1] / 1e3):.1f} tokens/s (second); "
+              f"peak {peak:.2f} GB; flash_attention launches {launched['flash_attention']} ({wgmma} wgmma), "
+              f"flash_attention_bwd launches {launched['flash_attention_bwd']} ({bwd_mma} mma), the flash "
+              f"backward {bwd_ms:.3f} device ms a step (CUDA events around each call, "
+              f"{len(fb_events)} calls); weights fingerprint {fingerprint:.6e}; {smi}")
         check(all(math.isfinite(v_) for m_ in mets for v_ in m_.values()), f"qwen2-7b {impl}: non-finite")
         check(peak < 80.0, f"qwen2-7b {impl}: peak memory {peak:.2f} GB")
         del model, params, opt_state, step_fn, opt
@@ -1301,6 +1368,10 @@ def train_phases(out: Path, smi: str) -> dict:
           and qp["flash_launches"] == 0,
           f"qwen2-7b: flash launches {qk['flash_launches']} ({qk['wgmma']} wgmma) over two steps, "
           f"expected {2 * QWEN_LAYERS} of the wgmma design; plain path {qp['flash_launches']}")
+    check(qk["flash_bwd_launches"] == 2 * QWEN_LAYERS and qk["bwd_mma"] == 2 * QWEN_LAYERS
+          and qp["flash_bwd_launches"] == 0,
+          f"qwen2-7b: flash backward launches {qk['flash_bwd_launches']} ({qk['bwd_mma']} mma) over two "
+          f"steps, expected {2 * QWEN_LAYERS} of the mma design; plain path {qp['flash_bwd_launches']}")
     train_report["qwen2_7b_2_layers"] = q_paths
     del q_batch
     gc.collect()
@@ -1566,10 +1637,11 @@ def flash_per_forward(cfg) -> tuple:
 def family_train_phases(out: Path, smi: str) -> tuple:
     """Phases 22-23: seamless-m4t-large-v2 at full width and depth through
     ``TrainJob`` and moonshot-v1-16b-a3b at full width with 2 of 48 layers
-    through ``make_train_step``, both on the flash kernel (the seamless
-    encoder non-causal at head dim 64, every decoder self-attention causal;
-    the backward recomputes through ``ref.flash_attention_ref``), and the
-    cross attention's scores under autograd in the bf16 product form.
+    through ``make_train_step``, both on the flash kernel and its backward
+    kernel (the seamless encoder non-causal at head dim 64, every decoder
+    self-attention causal), and the cross attention's scores under autograd
+    in the bf16 product form; seamless also at batch 3 for its peak, where
+    ``SEAMLESS_TRAIN`` holds another batch.
     Returns (the kernels' launch counts over the training runs, a report)."""
     import dataclasses
     import gc
@@ -1634,25 +1706,30 @@ def family_train_phases(out: Path, smi: str) -> tuple:
     free()
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counts()
-    wgmma0 = fa.launches_by_design["wgmma"]
-    per_step = []
+    wgmma0, mma0 = fa.launches_by_design["wgmma"], fa.launches_by_design["bwd_mma"]
+    per_step, bwd_per_step = [], []
     flags, restore = flash_spy()
 
     def on_step(step_, metrics_):
         per_step.append(fa.launches - sum(per_step))
+        bwd_per_step.append(fa.bwd_launches - sum(bwd_per_step))
 
     job = TrainJob(arch=SEAMLESS, tiny=False, steps=SEAMLESS_TRAIN_STEPS, global_batch=SEAMLESS_TRAIN[0],
                    seq_len=SEAMLESS_TRAIN[1], warmup=0, seed=0, device="cuda")
     try:
-        t0 = time.perf_counter()
-        hist = job.run(on_step=on_step)
-        wall = time.perf_counter() - t0
+        with flash_bwd_events() as fb_events:
+            t0 = time.perf_counter()
+            hist = job.run(on_step=on_step)
+            wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        bwd_ms = events_total_ms(fb_events) / len(per_step)
     finally:
         restore()
     launched = counts()
     for n_, c_ in launched.items():
         launched_total[n_] += c_
     wgmma = fa.launches_by_design["wgmma"] - wgmma0
+    bwd_mma = fa.launches_by_design["bwd_mma"] - mma0
     peak = torch.cuda.max_memory_allocated(dev) / 1e9
     del job
     free()
@@ -1665,16 +1742,36 @@ def family_train_phases(out: Path, smi: str) -> tuple:
           f"{[round(t_ * 1e3, 1) for t_ in times_]}, median {med * 1e3:.1f} ms, {B * S / med:.1f} tokens/s; "
           f"torch.cuda.max_memory_allocated {peak:.2f} GB; flash launches per step {per_step} "
           f"({wgmma} wgmma; {sum(flags)} causal, {len(flags) - sum(flags)} non-causal; the model implies "
-          f"{causal} causal + {noncausal} non-causal a step); launches {launched}; {smi}")
+          f"{causal} causal + {noncausal} non-causal a step), flash backward launches per step "
+          f"{bwd_per_step} ({bwd_mma} mma), the flash backward {bwd_ms:.2f} device ms a step (CUDA events "
+          f"around each call); launches {launched}; {smi}")
     check(all(math.isfinite(x_) for x_ in losses) and losses[-1] < losses[0],
           f"{SEAMLESS}: the loss is not finite and falling: {losses}")
     check(per_step == [causal + noncausal] * len(losses) and wgmma == sum(per_step)
           and sum(flags) == causal * len(losses) and len(flags) == sum(per_step),
           f"{SEAMLESS}: flash launches per step {per_step} ({wgmma} wgmma, {sum(flags)} causal), "
           f"expected {causal} causal + {noncausal} non-causal wgmma launches a step")
-    check(all(n_ == 0 for k_, n_ in launched.items() if k_ != "flash_attention"),
+    check(bwd_per_step == per_step and bwd_mma == sum(bwd_per_step),
+          f"{SEAMLESS}: flash backward launches per step {bwd_per_step} ({bwd_mma} mma), expected one "
+          f"of the mma design per forward launch {per_step}")
+    check(all(n_ == 0 for k_, n_ in launched.items() if k_ not in ("flash_attention", "flash_attention_bwd")),
           f"{SEAMLESS}: unexpected launches {launched}")
     check(peak < 80.0, f"{SEAMLESS}: peak memory {peak:.2f} GB")
+    batch3 = None
+    if B != 3:  # the batch the oracle backward held it to: its peak now
+        torch.cuda.reset_peak_memory_stats(dev)
+        job = TrainJob(arch=SEAMLESS, tiny=False, steps=2, global_batch=3, seq_len=S, warmup=0, seed=0,
+                       device="cuda")
+        hist3 = job.run()
+        batch3 = {"peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+                  "step_ms": [t_ * 1e3 for t_ in hist3["step_time"]]}
+        del job
+        free()
+        print(f"[22] {SEAMLESS} TrainJob at batch 3 x {S} (2 steps, for the peak): step wall ms "
+              f"{[round(t_, 1) for t_ in batch3['step_ms']]}, torch.cuda.max_memory_allocated "
+              f"{batch3['peak_gb']:.2f} GB; {smi}")
+        check(batch3["peak_gb"] < peak, f"{SEAMLESS}: batch 3 peaks at {batch3['peak_gb']:.2f} GB, not under "
+              f"batch {B}'s {peak:.2f} GB")
     # the plain path keeps every encoder layer's (B, 16, 4096, 4096) fp32
     # softmax for the backward: 3.2 GB a layer and sequence in all, so the
     # paths are held on one sequence
@@ -1688,6 +1785,8 @@ def family_train_phases(out: Path, smi: str) -> tuple:
     report[SEAMLESS] = {"batch": [B, S], "loss": losses, "step_ms": [t_ * 1e3 for t_ in times_],
                         "median_step_ms": med * 1e3, "tokens_per_s": B * S / med, "peak_gb": peak,
                         "flash_per_step": per_step, "wgmma": wgmma, "paths": paths,
+                        "flash_bwd_per_step": bwd_per_step, "bwd_mma": bwd_mma,
+                        "flash_bwd_device_ms_per_step": bwd_ms, "batch3": batch3,
                         "params": sum(p_.numel() for p_ in model.params().values())}
     del model, batch
     free()
@@ -1698,7 +1797,7 @@ def family_train_phases(out: Path, smi: str) -> tuple:
     causal, noncausal = flash_per_forward(cfg)
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counts()
-    wgmma0 = fa.launches_by_design["wgmma"]
+    wgmma0, mma0 = fa.launches_by_design["wgmma"], fa.launches_by_design["bwd_mma"]
     model = TrainModel(cfg, ExecConfig(attn_impl="cuda"), device=dev, seed=0)
     params = model.params()
     n_params = sum(p_.numel() for p_ in params.values())
@@ -1714,17 +1813,20 @@ def family_train_phases(out: Path, smi: str) -> tuple:
 
     flags, restore = flash_spy()
     blocks.moe_apply = moe_spy
-    walls, mets, per_step = [], [], []
+    walls, mets, per_step, bwd_per_step = [], [], [], []
     try:
-        for i in range(MOONSHOT_TRAIN_STEPS):
-            batch = make_batch_for(cfg, 1, QWEN_SEQ, step=i, seed=0, device=dev)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            params, opt_state, met = step_fn(params, opt_state, batch)
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) * 1e3)
-            mets.append({k_: v_.item() for k_, v_ in met.items()})
-            per_step.append(fa.launches - sum(per_step))
+        with flash_bwd_events() as fb_events:
+            for i in range(MOONSHOT_TRAIN_STEPS):
+                batch = make_batch_for(cfg, 1, QWEN_SEQ, step=i, seed=0, device=dev)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, opt_state, met = step_fn(params, opt_state, batch)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+                mets.append({k_: v_.item() for k_, v_ in met.items()})
+                per_step.append(fa.launches - sum(per_step))
+                bwd_per_step.append(fa.bwd_launches - sum(bwd_per_step))
+        bwd_ms = events_total_ms(fb_events) / len(per_step)
     finally:
         restore()
         blocks.moe_apply = real_moe
@@ -1732,6 +1834,7 @@ def family_train_phases(out: Path, smi: str) -> tuple:
     for n_, c_ in launched.items():
         launched_total[n_] += c_
     wgmma = fa.launches_by_design["wgmma"] - wgmma0
+    bwd_mma = fa.launches_by_design["bwd_mma"] - mma0
     peak = torch.cuda.max_memory_allocated(dev) / 1e9
     losses = [m_["loss"] for m_ in mets]
     T, K = stats[0][0], cfg.top_k
@@ -1742,7 +1845,9 @@ def family_train_phases(out: Path, smi: str) -> tuple:
           f"{[round(x_, 4) for x_ in losses]}, grad norm {[round(m_['grad_norm'], 4) for m_ in mets]}; "
           f"step wall ms {[round(w_, 1) for w_ in walls]}, {QWEN_SEQ / (sorted(walls)[len(walls) // 2] / 1e3):.1f} "
           f"tokens/s (median step); torch.cuda.max_memory_allocated {peak:.2f} GB; flash launches per "
-          f"step {per_step} ({wgmma} wgmma, causal {sorted(set(flags))}); MoE dispatch: T = {T} tokens, "
+          f"step {per_step} ({wgmma} wgmma, causal {sorted(set(flags))}), flash backward launches per step "
+          f"{bwd_per_step} ({bwd_mma} mma), the flash backward {bwd_ms:.3f} device ms a step; MoE dispatch: "
+          f"T = {T} tokens, "
           f"T*K = {T * K} assignments (> {moe.DROP_FREE_ASSIGNMENTS}: the capacity branch), C = "
           f"{sorted({c_ for _, c_, _ in stats})} slots per expert, dropped per layer in step 1 "
           f"{[d_ for _, _, d_ in first]} of {T * K}; launches {launched}; {smi}")
@@ -1753,7 +1858,10 @@ def family_train_phases(out: Path, smi: str) -> tuple:
           f"expected {causal} causal wgmma launches a step")
     check(T * K > moe.DROP_FREE_ASSIGNMENTS and all(c_ == moe.capacity(cfg, T) for _, c_, _ in stats),
           f"{MOONSHOT}: training did not take the capacity branch: {stats[:2]}")
-    check(all(n_ == 0 for k_, n_ in launched.items() if k_ != "flash_attention"),
+    check(bwd_per_step == per_step and bwd_mma == sum(bwd_per_step),
+          f"{MOONSHOT}: flash backward launches per step {bwd_per_step} ({bwd_mma} mma), expected one of "
+          f"the mma design per forward launch {per_step}")
+    check(all(n_ == 0 for k_, n_ in launched.items() if k_ not in ("flash_attention", "flash_attention_bwd")),
           f"{MOONSHOT}: unexpected launches {launched}")
     check(peak < 80.0, f"{MOONSHOT}: peak memory {peak:.2f} GB")
     del opt_state, step_fn, opt, params
@@ -1763,10 +1871,13 @@ def family_train_phases(out: Path, smi: str) -> tuple:
     paths = paths_agree(23, MOONSHOT, model, batch)
     report[MOONSHOT] = {"layers": cfg.n_layers, "params": n_params, "loss": losses, "step_ms": walls,
                         "peak_gb": peak, "flash_per_step": per_step, "wgmma": wgmma, "paths": paths,
+                        "flash_bwd_per_step": bwd_per_step, "bwd_mma": bwd_mma,
+                        "flash_bwd_device_ms_per_step": bwd_ms,
                         "capacity": stats[0][1], "drops_step1": [d_ for _, _, d_ in first]}
     del model, batch
     free()
     report["flash_launches"] = {SEAMLESS: report[SEAMLESS]["wgmma"], MOONSHOT: report[MOONSHOT]["wgmma"]}
+    report["flash_bwd_launches"] = {SEAMLESS: report[SEAMLESS]["bwd_mma"], MOONSHOT: report[MOONSHOT]["bwd_mma"]}
     return launched_total, report
 
 
@@ -2668,6 +2779,70 @@ def main(argv=None) -> int:
         check(len({v_["kernels"] for v_ in seen.values()}) == 1,
               f"{name}: the kernel count of one backward call depends on T: {seen}")
 
+    # flash attention's backward kernel at the trained shapes, q, k, v and dO
+    # as strided views (as ops.flash_attention and attn_apply pass them), o
+    # and lse from the forward kernel: against its plain version, two calls
+    # bit-identical; a planted fault (dS without its -D term: the plain
+    # version on o = 0) the same limit must reject; one call under
+    # torch.profiler at two sequence lengths: the same kernel count
+    def fa_bwd_args(shape, dtype, causal):
+        B_, S_, H_, Kh_, hd_ = shape
+        dt_ = getattr(torch, dtype)
+        q_ = randn((B_, S_, H_, hd_), dt_).transpose(1, 2)
+        k_, v_ = (randn((B_, S_, Kh_, hd_), dt_).transpose(1, 2) for _ in range(2))
+        do_ = randn((B_, S_, H_, hd_), dt_).transpose(1, 2)
+        o_, lse_ = fa.flash_attention_fwd(q_, k_, v_, causal=causal, return_lse=True, block_q=64, block_kv=64)
+        return q_, k_, v_, o_, lse_, do_
+
+    fb_args = {}
+    for label, shape, dtype, causal in FA_BWD_CASES:
+        args_ = fa_bwd_args(shape, dtype, causal)
+        q_, k_, v_, o_, lse_, do_ = args_
+        _, lse_plain = fa.flash_attention_plain(q_, k_, v_, causal=causal, return_lse=True, block_q=64,
+                                                block_kv=64)
+        lse_err = (lse_ - lse_plain).abs().max().item()
+        print(f"[2] flash_attention forward's lse at the {label} shape against its plain version: "
+              f"max|kernel - plain| {lse_err:.3e}")
+        check(lse_err <= 1e-4, f"flash_attention lse at the {label} shape: {lse_err:.3e}")
+        del lse_plain
+        got, design = ran(fa, lambda: fa.flash_attention_bwd(*args_, causal=causal))
+        want = fa.flash_attention_bwd_plain(*args_, causal=causal)
+        check(design == ("bwd_mma" if dtype == "bfloat16" else "bwd_simt"),
+              f"flash_attention_bwd {dtype} at the {label} shape ran {design}")
+        compare_bwd(f"flash_attention_bwd {dtype} {label} q{tuple(q_.shape)} kv{tuple(k_.shape)} causal={causal} "
+                    f"({design}; q, k, v, dO strided)", "flash_attention_bwd", got, want, ("dq", "dk", "dv"))
+        again = fa.flash_attention_bwd(*args_, causal=causal)
+        same = all(torch.equal(g_, a_) for g_, a_ in zip(got, again))
+        print(f"[2] flash_attention_bwd {label}: two calls on the same inputs bit-identical: {same}")
+        check(same, f"flash_attention_bwd at the {label} shape: two calls differ")
+        if label == "qwen2-7b layer":
+            no_d = fa.flash_attention_bwd_plain(q_, k_, v_, torch.zeros_like(o_), lse_, do_, causal=causal)
+            for i_, name_ in ((0, "dq"), (1, "dk")):
+                rel_ = bwd_rel(no_d[i_], want[i_])
+                print(f"[2] planted fault: flash_attention_bwd's {name_} without its -D term against the plain "
+                      f"version: ||fault - plain|| / ||plain|| {rel_:.2e} (limit {BWD_REL['bfloat16']:g}) "
+                      f"{'rejected' if rel_ > BWD_REL['bfloat16'] else 'ACCEPTED'}")
+                check(rel_ > BWD_REL["bfloat16"], f"the backward limit accepts {name_} without its -D term")
+            del no_d
+        fb_args[label] = args_
+        del got, want, again
+    bwd_calls["flash_attention_bwd"] = lambda args_: fa.flash_attention_bwd(*args_, causal=True)
+    qwen_bwd = next(c_ for c_ in FA_BWD_CASES if c_[0] == "qwen2-7b layer")
+    seen = {}
+    for S_ in (qwen_bwd[1][1], BWD_SHAPES_T["flash_attention_bwd"]):
+        shape_ = (qwen_bwd[1][0], S_, *qwen_bwd[1][2:])
+        a_ = fb_args["qwen2-7b layer"] if S_ == qwen_bwd[1][1] else fa_bwd_args(shape_, "bfloat16", True)
+        bwd_calls["flash_attention_bwd"](a_)  # warm
+        busy_, kernels_ = trace_busy(out, lambda: bwd_calls["flash_attention_bwd"](a_), 1,
+                                     f"flash_attention_bwd_S{S_}")
+        seen[S_] = {"kernels": kernels_, "device_busy_ms": busy_}
+        del a_
+    bwd_kernel_counts["flash_attention_bwd"] = seen
+    print(f"[2] flash_attention_bwd under torch.profiler, one call at the qwen2-7b layer's heads: device "
+          f"kernels (copies and memsets included) and busy ms by S: {seen}")
+    check(len({v_["kernels"] for v_ in seen.values()}) == 1,
+          f"flash_attention_bwd: the kernel count of one backward call depends on S: {seen}")
+
     check(all(n > 0 for n in counts().values()), f"phase 2 did not launch every kernel: {counts()}")
     print(f"[2] launches: {counts()}")
 
@@ -3014,6 +3189,42 @@ def main(argv=None) -> int:
               f"oracle (autograd through ref) {row['oracle']:.2f} ms, library none, bound {bound_ms:.4f} ms "
               f"by {terms.dominant} ({terms.flops / 1e9:.2f} GFLOP fp32, {terms.bytes_accessed / 1e6:.1f} "
               f"MB; {bound_ms / min(row['tuned'], row['tuned_again']):.4f} of the roofline); {smi}")
+    # flash attention's backward kernel at phase 2's bf16 shapes: the kernel,
+    # its plain version, the eager oracle the port's backward ran before
+    # (autograd through ref.flash_attention_ref) and SDPA's backward with the
+    # KV heads expanded (torch.autograd.grad through
+    # scaled_dot_product_attention; a yardstick the port never calls)
+    fb_rows = {}
+    for label, shape, dtype, causal in FA_BWD_CASES:
+        if dtype != "bfloat16":
+            continue
+        q_, k_, v_, o_, lse_, do_ = fb_args[label]
+        g_ = q_.shape[1] // k_.shape[1]
+        terms = roofline_terms(*fa.bwd_flops_bytes(q_, k_, v_, causal), "bfloat16", H100_SXM)
+        kernel = (lambda a_=fb_args[label], c_=causal: fa.flash_attention_bwd(*a_, causal=c_))
+        sq_, sk_, sv_ = (t_.detach().clone().requires_grad_(True)
+                         for t_ in (q_, k_.repeat_interleave(g_, 1), v_.repeat_interleave(g_, 1)))
+        so_ = F.scaled_dot_product_attention(sq_, sk_, sv_, is_causal=causal)
+        row = {"tuned": cuda_ms(kernel, 5),
+               "plain": cuda_ms(lambda a_=fb_args[label], c_=causal: fa.flash_attention_bwd_plain(*a_, causal=c_), 1),
+               "oracle": cuda_ms(lambda: oracle_bwd(lambda q__, k__, v__: ref.flash_attention_ref(
+                   q__, k__, v__, causal=causal), (q_.transpose(1, 2), k_, v_), do_.transpose(1, 2)), 1),
+               "library": cuda_ms(lambda: torch.autograd.grad(so_, (sq_, sk_, sv_), do_, retain_graph=True), 5),
+               "main_path": None, "terms": terms, "shape": list(shape), "causal": causal}
+        row["tuned_again"] = cuda_ms(kernel, 5)
+        row["default"] = row["tuned"]
+        del sq_, sk_, sv_, so_
+        fb_rows[label] = row
+        bound_ms = terms.bound_s * 1e3
+        best = min(row["tuned"], row["tuned_again"])
+        print(f"[7] flash_attention_bwd bf16 {label} q{tuple(q_.shape)} kv{tuple(k_.shape)} causal={causal} "
+              f"(mma design): {row['tuned']:.4f} / {row['tuned_again']:.4f} ms, plain {row['plain']:.2f} ms, "
+              f"eager oracle (autograd through ref) {row['oracle']:.2f} ms, SDPA backward {row['library']:.4f} ms, "
+              f"bound {bound_ms:.4f} ms by {terms.dominant} ({terms.flops / 1e9:.1f} GFLOP in five products, "
+              f"{terms.bytes_accessed / 1e6:.1f} MB; {bound_ms / best:.4f} of the roofline, "
+              f"{best / row['library']:.2f}x SDPA's backward, {row['oracle'] / best:.1f}x faster than the "
+              f"oracle); {smi}")
+    times["flash_attention_bwd"] = {**fb_rows["seamless encoder"], "qwen2_7b": fb_rows["qwen2-7b layer"]}
     csa_nm_ms = cuda_ms(lambda: ops.decode_attention(*da_args, **records_csa_nm.point), 5)
     print(f"[7] decode_attention tuned by csa+nm: {csa_nm_ms:.4f} ms {records_csa_nm.point}; "
           f"by the route: {drec.point}")
@@ -3077,7 +3288,7 @@ def main(argv=None) -> int:
     del eq, ek, ev, eq_bhsd
     del a, b, q, k, v, k_exp, v_exp, q_bhsd, lru_a, lru_b, lru_h0, rr, rk, rv, rlw, ru, rs0
     del dq, dk, dv, dvalid, dk_exp, dv_exp, dmask, rg_args, rg_k_exp, rg_v_exp, small_da
-    del call_args, lru_args, rwkv_args, da_args, timing, lb_args, rb_args
+    del call_args, lru_args, rwkv_args, da_args, timing, lb_args, rb_args, fb_args
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3338,7 +3549,10 @@ def main(argv=None) -> int:
                "lru_scan_bwd": ("src/repro_torch/kernels/csrc/linear_scan.cu",
                                 "src/repro/kernels/ops.py:98"),
                "rwkv_scan_bwd": ("src/repro_torch/kernels/csrc/linear_scan.cu",
-                                 "src/repro/kernels/ops.py:74")}
+                                 "src/repro/kernels/ops.py:74"),
+               # no Pallas counterpart: jax.vjp of the oracle (kernels/ops.py)
+               "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                                       "src/repro/kernels/ops.py:43")}
     train_report = json.loads((out / "train_report.json").read_text())
     kernels = []
     for name in KERNELS:
@@ -3371,6 +3585,18 @@ def main(argv=None) -> int:
                          ms=min(row["tuned"], row["tuned_again"]), ms_default=None,
                          oracle_ms=row["oracle"], kernels_per_call_by_T=bwd_kernel_counts[name],
                          pallas_counterpart=None)
+        if name == "flash_attention_bwd":  # seamless's encoder shape; qwen2-7b's layer beside it
+            qrow = row["qwen2_7b"]
+            entry.update(design="mma", shape=row["shape"], causal=row["causal"],
+                         ms=min(row["tuned"], row["tuned_again"]), ms_default=None, oracle_ms=row["oracle"],
+                         kernels_per_call_by_S=bwd_kernel_counts[name], pallas_counterpart=None,
+                         train_by_family={"qwen2_7b_2_layers": train_report["qwen2_7b_2_layers"]["cuda"]["bwd_mma"],
+                                          **train_report["families"]["flash_bwd_launches"]},
+                         qwen2_7b_shape={"shape": qrow["shape"], "causal": qrow["causal"],
+                                         "ms": min(qrow["tuned"], qrow["tuned_again"]), "plain_ms": qrow["plain"],
+                                         "oracle_ms": qrow["oracle"], "library_ms": qrow["library"],
+                                         "bound_ms": qrow["terms"].bound_s * 1e3,
+                                         "bound_by": qrow["terms"].dominant})
         if name == "decode_attention":
             entry.update(design="split_kv", splits=row["splits_tuned"], grid=row["grid_tuned"],
                          splits_default=row["splits_default"], grid_default=row["grid_default"])

@@ -8,7 +8,10 @@
 // and scaled by 1/sqrt(hd) before the dot, the m/l/acc carry is fp32,
 // causal masking keeps qi >= kj (aligned top-left) with -1e30 in masked
 // slots, KV tiles wholly in the future are skipped, and rows whose l is 0
-// give 0.  GQA: query head h reads KV head h / (H / Kh).
+// give 0.  GQA: query head h reads KV head h / (H / Kh).  When lse is not
+// null the block also writes each row's logsumexp of the scaled scores,
+// m + log l (+inf where l is 0), which the backward (flash_attention_bwd.cu)
+// recomputes P from.
 //
 // Layout: 8 threads per query row (block_q * 8 threads).  Thread t8 of row
 // r keeps acc[r][t8 + 8j] (hd/8 fp32 values) and a copy of the row's m and
@@ -54,7 +57,7 @@ struct Strides {
 template <typename T, int HD>
 __global__ void __launch_bounds__(1024)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             T* __restrict__ o, int H, int Kh, int Skv, Strides qs, Strides ks, Strides vs,
+             T* __restrict__ o, float* __restrict__ lse, int H, int Kh, int Skv, Strides qs, Strides ks, Strides vs,
              Strides os, int block_q, int block_kv, int causal, float scale) {
   constexpr int ACC = HD / TPR;
   constexpr int LDQ = HD + 1;
@@ -146,6 +149,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   }
 
   const float denom = l == 0.f ? 1.f : l;  // fully masked rows give 0
+  if (lse != nullptr && t8 == 0)
+    lse[(static_cast<long long>(bb) * H + h) * (gridDim.x * block_q) + q_start + r] =
+        l == 0.f ? __int_as_float(0x7f800000) : m + logf(l);
   T* orow = ob + (q_start + r) * os.s;
 #pragma unroll
   for (int j = 0; j < ACC; ++j) orow[t8 + TPR * j] = from_float<T>(acc[j] / denom);
@@ -158,7 +164,7 @@ size_t smem_bytes(int hd, int block_q, int block_kv) {
 }
 
 template <typename T, int HD>
-int launch_hd(const void* q, const void* k, const void* v, void* o, int B, int H, int Kh, int Sq,
+int launch_hd(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H, int Kh, int Sq,
               int Skv, Strides qs, Strides ks, Strides vs, Strides os, int block_q, int block_kv,
               int causal, float scale, void* stream) {
   const size_t smem = smem_bytes<T>(HD, block_q, block_kv);
@@ -171,12 +177,12 @@ int launch_hd(const void* q, const void* k, const void* v, void* o, int B, int H
   dim3 block(block_q * TPR);
   flash_kernel<T, HD><<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(o),
-      H, Kh, Skv, qs, ks, vs, os, block_q, block_kv, causal, scale);
+      lse, H, Kh, Skv, qs, ks, vs, os, block_q, block_kv, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int Kh, int Sq,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H, int Kh, int Sq,
            int Skv, int hd, const long long* strides, int block_q, int block_kv, int causal,
            float scale, void* stream) {
   if (block_q <= 0 || block_kv <= 0 || Sq % block_q || Skv % block_kv || Kh <= 0 || H % Kh ||
@@ -185,10 +191,10 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H, i
   const Strides qs{strides[0], strides[1], strides[2]}, ks{strides[3], strides[4], strides[5]},
       vs{strides[6], strides[7], strides[8]}, os{strides[9], strides[10], strides[11]};
   switch (hd) {
-    case 16: return launch_hd<T, 16>(q, k, v, o, B, H, Kh, Sq, Skv, qs, ks, vs, os, block_q, block_kv, causal, scale, stream);
-    case 32: return launch_hd<T, 32>(q, k, v, o, B, H, Kh, Sq, Skv, qs, ks, vs, os, block_q, block_kv, causal, scale, stream);
-    case 64: return launch_hd<T, 64>(q, k, v, o, B, H, Kh, Sq, Skv, qs, ks, vs, os, block_q, block_kv, causal, scale, stream);
-    case 128: return launch_hd<T, 128>(q, k, v, o, B, H, Kh, Sq, Skv, qs, ks, vs, os, block_q, block_kv, causal, scale, stream);
+    case 16: return launch_hd<T, 16>(q, k, v, o, lse, B, H, Kh, Sq, Skv, qs, ks, vs, os, block_q, block_kv, causal, scale, stream);
+    case 32: return launch_hd<T, 32>(q, k, v, o, lse, B, H, Kh, Sq, Skv, qs, ks, vs, os, block_q, block_kv, causal, scale, stream);
+    case 64: return launch_hd<T, 64>(q, k, v, o, lse, B, H, Kh, Sq, Skv, qs, ks, vs, os, block_q, block_kv, causal, scale, stream);
+    case 128: return launch_hd<T, 128>(q, k, v, o, lse, B, H, Kh, Sq, Skv, qs, ks, vs, os, block_q, block_kv, causal, scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -198,16 +204,17 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H, i
 extern "C" {
 
 // strides: 12 int64 values, (batch, head, seq) for q, k, v and o in turn.
-int repro_flash_attention_f32(const void* q, const void* k, const void* v, void* o, int B, int H,
+// lse: (B, H, Sq) fp32, written when not null.
+int repro_flash_attention_f32(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
                               int Kh, int Sq, int Skv, int hd, const long long* strides,
                               int block_q, int block_kv, int causal, float scale, void* stream) {
-  return launch<float>(q, k, v, o, B, H, Kh, Sq, Skv, hd, strides, block_q, block_kv, causal, scale, stream);
+  return launch<float>(q, k, v, o, lse, B, H, Kh, Sq, Skv, hd, strides, block_q, block_kv, causal, scale, stream);
 }
 
-int repro_flash_attention_bf16(const void* q, const void* k, const void* v, void* o, int B, int H,
+int repro_flash_attention_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
                                int Kh, int Sq, int Skv, int hd, const long long* strides,
                                int block_q, int block_kv, int causal, float scale, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, o, B, H, Kh, Sq, Skv, hd, strides, block_q, block_kv, causal,
+  return launch<__nv_bfloat16>(q, k, v, o, lse, B, H, Kh, Sq, Skv, hd, strides, block_q, block_kv, causal,
                                scale, stream);
 }
 

@@ -32,7 +32,10 @@
 //   next S product made ptxas serialize every wgmma, C7515); the two
 //   warpgroups' products and softmaxes interleave on the SM instead.  A
 //   stage is released once both products that read it are done.
-// - the output is written from registers in q's layout (any strides).
+// - the output is written from registers in q's layout (any strides);
+//   when lse is not null, each row's logsumexp of the scaled scores too
+//   (m carries log2 units here: m ln 2 + log l; +inf where l is 0), for
+//   the backward (flash_attention_bwd.cu).
 //
 // P in bf16 is the one numerical change against the plain version, whose
 // P V is fp32 (l sums the unrounded p).  One rounding of P (2^-9) moves
@@ -61,6 +64,7 @@ using bf16 = __nv_bfloat16;
 
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 constexpr int CONSUMER_REGS = 240;
 constexpr int PRODUCER_REGS = 24;
 
@@ -71,7 +75,8 @@ struct Strides {
 template <int HD, int BKV>
 __global__ void __launch_bounds__(384, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
-                   const __grid_constant__ CUtensorMap map_v, bf16* __restrict__ o, Strides os, int H,
+                   const __grid_constant__ CUtensorMap map_v, bf16* __restrict__ o, float* __restrict__ lse,
+                   Strides os, int H,
                    int Kh, int Skv, int block_q, int stages, int causal, float scale_log2) {
   constexpr int SW = hopper::swizzle_bytes(HD), CC = SW / 2;
   constexpr int KV_BYTES = hopper::round_up(BKV * HD * 2, 1024);
@@ -240,6 +245,12 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_const
     float inv[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) inv[r] = 1.f / (l[r] == 0.f ? 1.f : l[r]);  // fully masked rows give 0
+    if (lse != nullptr && t_id % 4 == 0) {
+      float* lrow = lse + (static_cast<long long>(b) * H + h) * (gridDim.x * block_q) + row_base;
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        lrow[hopper::acc_row(t_id, 2 * r)] = l[r] == 0.f ? __int_as_float(0x7f800000) : fmaf(m[r], LN2, logf(l[r]));
+    }
     bf16* ob = o + b * os.b + h * os.h;
 #pragma unroll
     for (int i = 0; i < HD / 2; i += 2) {
@@ -252,7 +263,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_const
 }
 
 template <int HD, int BKV>
-int launch_tile(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv, void* o, Strides os,
+int launch_tile(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv, void* o, float* lse, Strides os,
                 int B, int H, int Kh, int Sq, int Skv, int block_q, int stages, int causal, float scale_log2,
                 void* stream) {
   auto kernel = flash_wgmma_kernel<HD, BKV>;
@@ -265,20 +276,20 @@ int launch_tile(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap&
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(Sq / block_q, H, B);
   dim3 block((block_q / 64 + 1) * 128);
-  kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(mq, mk, mv, static_cast<bf16*>(o), os, H, Kh,
+  kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(mq, mk, mv, static_cast<bf16*>(o), lse, os, H, Kh,
                                                                     Skv, block_q, stages, causal, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int HD>
-int launch_hd(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv, void* o, Strides os, int B,
+int launch_hd(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv, void* o, float* lse, Strides os, int B,
               int H, int Kh, int Sq, int Skv, int block_q, int block_kv, int stages, int causal,
               float scale_log2, void* stream) {
   switch (block_kv) {
-    case 16: return launch_tile<HD, 16>(mq, mk, mv, o, os, B, H, Kh, Sq, Skv, block_q, stages, causal, scale_log2, stream);
-    case 32: return launch_tile<HD, 32>(mq, mk, mv, o, os, B, H, Kh, Sq, Skv, block_q, stages, causal, scale_log2, stream);
-    case 64: return launch_tile<HD, 64>(mq, mk, mv, o, os, B, H, Kh, Sq, Skv, block_q, stages, causal, scale_log2, stream);
-    case 128: return launch_tile<HD, 128>(mq, mk, mv, o, os, B, H, Kh, Sq, Skv, block_q, stages, causal, scale_log2, stream);
+    case 16: return launch_tile<HD, 16>(mq, mk, mv, o, lse, os, B, H, Kh, Sq, Skv, block_q, stages, causal, scale_log2, stream);
+    case 32: return launch_tile<HD, 32>(mq, mk, mv, o, lse, os, B, H, Kh, Sq, Skv, block_q, stages, causal, scale_log2, stream);
+    case 64: return launch_tile<HD, 64>(mq, mk, mv, o, lse, os, B, H, Kh, Sq, Skv, block_q, stages, causal, scale_log2, stream);
+    case 128: return launch_tile<HD, 128>(mq, mk, mv, o, lse, os, B, H, Kh, Sq, Skv, block_q, stages, causal, scale_log2, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -290,8 +301,9 @@ extern "C" {
 // q, o: (B, H, Sq, hd); k, v: (B, Kh, Skv, hd), bf16.  strides: 12 int64
 // values, (batch, head, seq) for q, k, v and o in turn, each a multiple of
 // 8 elements.  block_q 64 or 128, block_kv 16, 32, 64 or 128, hd 16, 32,
-// 64 or 128; `stages` ring stages of K and V tiles.
-int repro_flash_attention_wgmma_bf16(const void* q, const void* k, const void* v, void* o, int B, int H,
+// 64 or 128; `stages` ring stages of K and V tiles.  lse: (B, H, Sq) fp32,
+// written when not null.
+int repro_flash_attention_wgmma_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
                                      int Kh, int Sq, int Skv, int hd, const long long* strides, int block_q,
                                      int block_kv, int stages, int causal, float scale,
                                      void* stream) {
@@ -313,10 +325,10 @@ int repro_flash_attention_wgmma_bf16(const void* q, const void* k, const void* v
   if (rc) return rc;
   const float scale_log2 = scale * LOG2E;
   switch (hd) {
-    case 16: return launch_hd<16>(mq, mk, mv, o, os, B, H, Kh, Sq, Skv, block_q, block_kv, stages, causal, scale_log2, stream);
-    case 32: return launch_hd<32>(mq, mk, mv, o, os, B, H, Kh, Sq, Skv, block_q, block_kv, stages, causal, scale_log2, stream);
-    case 64: return launch_hd<64>(mq, mk, mv, o, os, B, H, Kh, Sq, Skv, block_q, block_kv, stages, causal, scale_log2, stream);
-    case 128: return launch_hd<128>(mq, mk, mv, o, os, B, H, Kh, Sq, Skv, block_q, block_kv, stages, causal, scale_log2, stream);
+    case 16: return launch_hd<16>(mq, mk, mv, o, lse, os, B, H, Kh, Sq, Skv, block_q, block_kv, stages, causal, scale_log2, stream);
+    case 32: return launch_hd<32>(mq, mk, mv, o, lse, os, B, H, Kh, Sq, Skv, block_q, block_kv, stages, causal, scale_log2, stream);
+    case 64: return launch_hd<64>(mq, mk, mv, o, lse, os, B, H, Kh, Sq, Skv, block_q, block_kv, stages, causal, scale_log2, stream);
+    case 128: return launch_hd<128>(mq, mk, mv, o, lse, os, B, H, Kh, Sq, Skv, block_q, block_kv, stages, causal, scale_log2, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

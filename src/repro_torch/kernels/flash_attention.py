@@ -1,5 +1,5 @@
-"""Flash-attention forward: online softmax over KV tiles, as a hand-written
-CUDA kernel for Hopper.
+"""Flash attention as hand-written CUDA kernels for Hopper: the forward
+(online softmax over KV tiles) and its backward.
 
 Replaces the JAX package's ``kernels/flash_attention.py::flash_attention_fwd``
 (Pallas TPU kernel ``_kernel``) with two designs, chosen before launch by
@@ -30,6 +30,24 @@ query head h reads KV head h // (H // Kh).
 can run raise ``ValueError`` before any launch (:func:`check_blocks`).
 :func:`flash_attention_plain` repeats the kernel's arithmetic in plain
 PyTorch; the wrapper takes it only for CPU tensors with ``interpret=True``.
+On request (``return_lse``) both designs and the plain version also write
+each row's logsumexp of the scaled scores, which the backward reads.
+
+The backward (:func:`flash_attention_bwd`, ``csrc/flash_attention_bwd.cu``;
+the JAX package has no Pallas kernel for it: its ``custom_vjp`` takes
+``jax.vjp`` of the oracle) is FlashAttention-2's recompute without the S²
+buffer, in two launches whose sums are deterministic: one block per (query
+tile, query head, batch row) computes D = rowsum(dO ⊙ O) and dQ, then one
+block per (KV tile, KV head, batch row) walks its group's query heads and
+tiles for dK and dV, writing each once (GQA needs no atomics).  P is
+recomputed as exp(S·scale − lse).  Two designs, chosen by the pure
+function :func:`bwd_design`: ``"mma"`` (bf16, sequences that are multiples
+of 64, strides of 16-byte rows) runs its five products per tile on the
+tensor cores with ``mma.sync`` m16n8k16 and fp32 accumulators, P and dS
+rounded to bf16 as operands; ``"simt"`` (fp32, and every other shape) runs
+the same arithmetic on the CUDA cores.  Its tiles follow from the head
+dim; ``block_q`` / ``block_kv`` only order the plain version's sums.
+:func:`flash_attention_bwd_plain` is its arithmetic in plain PyTorch.
 """
 from __future__ import annotations
 
@@ -44,12 +62,17 @@ from . import _cuda
 __all__ = [
     "flash_attention_fwd",
     "flash_attention_plain",
+    "flash_attention_bwd",
+    "flash_attention_bwd_plain",
+    "bwd_design",
+    "bwd_flops_bytes",
     "design",
     "ring_stages",
     "check_blocks",
     "legal_blocks",
     "flops_bytes",
     "launches",
+    "bwd_launches",
     "launches_by_design",
 ]
 
@@ -69,9 +92,18 @@ MAX_STAGES = 4
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
-#: kernel launches so far, in total and by design (the plain version does not count)
+#: the backward's tiles (csrc/flash_attention_bwd.cu): its tensor-core
+#: design takes sequences that are multiples of this
+BWD_TILE = 64
+#: lse of a row whose softmax sum is 0: its recomputed P is 0
+LSE_EMPTY = math.inf
+
+#: kernel launches so far: the forward's in total, the backward's (one a
+#: call, two kernels) in total, and both by design (the plain versions do
+#: not count)
 launches = 0
-launches_by_design = {"wgmma": 0, "simt": 0}
+bwd_launches = 0
+launches_by_design = {"wgmma": 0, "simt": 0, "bwd_mma": 0, "bwd_simt": 0}
 _count_lock = threading.Lock()
 
 
@@ -169,18 +201,33 @@ def flops_bytes(q, k, v, causal: bool = True) -> tuple:
     v once and write o once."""
     B, H, Sq, hd = q.shape
     Skv = k.shape[2]
-    if causal:
-        pairs = sum(min(i + 1, Skv) for i in range(Sq))
-    else:
-        pairs = Sq * Skv
-    flops = 4.0 * B * H * pairs * hd
+    flops = 4.0 * B * H * _pairs(Sq, Skv, causal) * hd
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     return flops, float(nbytes)
 
 
-def flash_attention_plain(q, k, v, *, causal: bool = True, block_q: int = 128, block_kv: int = 128):
+def _pairs(Sq: int, Skv: int, causal: bool) -> int:
+    return sum(min(i + 1, Skv) for i in range(Sq)) if causal else Sq * Skv
+
+
+def bwd_flops_bytes(q, k, v, causal: bool = True) -> tuple:
+    """(FLOP, bytes) of one backward call, shapes as :func:`flops_bytes`.
+
+    FLOP count FlashAttention-2's five products (S, dP, dV, dQ, dK) over
+    the pairs the causal mask keeps, 10·hd per pair (the kernel's split
+    recomputes S and dP once more: seven); bytes read q, k, v, o, dO and
+    lse once and write dq, dk and dv once."""
+    B, H, Sq, hd = q.shape
+    flops = 10.0 * B * H * _pairs(Sq, k.shape[2], causal) * hd
+    nbytes = (4 * q.numel() + 2 * (k.numel() + v.numel())) * q.element_size() + 4 * B * H * Sq
+    return flops, float(nbytes)
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True, block_q: int = 128, block_kv: int = 128,
+                          return_lse: bool = False):
     """The kernel's arithmetic in plain PyTorch, tile by tile: fp32 m/l/acc
-    carry, -1e30 in masked slots, causal tiles in the future skipped."""
+    carry, -1e30 in masked slots, causal tiles in the future skipped.  With
+    ``return_lse`` also each row's m + log l, (B,H,Sq) fp32."""
     B, H, Sq, hd = q.shape
     Kh, Skv = k.shape[1], k.shape[2]
     g = H // Kh
@@ -190,6 +237,7 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, block_q: int = 128, b
     kf = k.float().repeat_interleave(g, dim=1)  # query head h reads KV head h // g
     vf = v.float().repeat_interleave(g, dim=1)
     out = torch.empty_like(q)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     for q0 in range(0, Sq, block_q):
         qt = qf[:, :, q0:q0 + block_q]
         m = torch.full((B, H, block_q, 1), NEG_INF, dtype=torch.float32, device=q.device)
@@ -209,26 +257,26 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, block_q: int = 128, b
             l = l * alpha + p.sum(dim=-1, keepdim=True)
             acc = acc * alpha + p @ vf[:, :, kv0:kv0 + block_kv]
             m = m_new
+        lse[:, :, q0:q0 + block_q] = torch.where(l == 0.0, LSE_EMPTY, m + torch.log(l))[..., 0]
         l = torch.where(l == 0.0, torch.ones_like(l), l)  # fully masked rows -> 0
         out[:, :, q0:q0 + block_q] = (acc / l).to(q.dtype)
-    return out
+    return (out, lse) if return_lse else out
 
 
-def _check_cuda(q, k, v) -> None:
-    for name, t in (("q", q), ("k", k), ("v", v)):
+def _check_cuda(what: str, **named) -> None:
+    q = named["q"]
+    for name, t in named.items():
         if not t.is_cuda:
             raise ValueError(
-                f"flash_attention_fwd: {name} is on {t.device}; the CUDA kernel needs "
+                f"{what}: {name} is on {t.device}; the CUDA kernel needs "
                 "CUDA tensors (interpret=True runs the plain version on CPU tensors)"
             )
         if t.dtype not in _SUFFIX:
-            raise ValueError(
-                f"flash_attention_fwd: {name} has dtype {t.dtype}; supported: {list(_SUFFIX)}"
-            )
+            raise ValueError(f"{what}: {name} has dtype {t.dtype}; supported: {list(_SUFFIX)}")
         if t.stride(-1) != 1:
-            raise ValueError(f"flash_attention_fwd: {name} must be contiguous in its last dim")
+            raise ValueError(f"{what}: {name} must be contiguous in its last dim")
         if t.device != q.device or t.dtype != q.dtype:
-            raise ValueError("flash_attention_fwd: q, k and v must share device and dtype")
+            raise ValueError(f"{what}: {', '.join(named)} must share device and dtype")
 
 
 def _strides(q, k, v, out) -> tuple:
@@ -236,7 +284,7 @@ def _strides(q, k, v, out) -> tuple:
     return tuple(t.stride(i) for t in (q, k, v, out) for i in range(3))
 
 
-def _launch(q, k, v, out, causal: bool, block_q: int, block_kv: int, kind: str) -> None:
+def _launch(q, k, v, out, lse, causal: bool, block_q: int, block_kv: int, kind: str) -> None:
     global launches
     B, H, Sq, hd = q.shape
     Kh, Skv = k.shape[1], k.shape[2]
@@ -249,7 +297,7 @@ def _launch(q, k, v, out, causal: bool, block_q: int, block_kv: int, kind: str) 
     lib = _cuda.load(source)
     fn = getattr(lib, fn_name)
     fn.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         + [ctypes.c_int] * (3 + len(extra)) + [ctypes.c_float, ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
@@ -257,7 +305,8 @@ def _launch(q, k, v, out, causal: bool, block_q: int, block_kv: int, kind: str) 
     scale = float(torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, Kh, Sq, Skv, hd,
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                None if lse is None else lse.data_ptr(), B, H, Kh, Sq, Skv, hd,
                 ctypes.cast(strides, ctypes.c_void_p), block_q, block_kv, *extra, int(causal), scale,
                 stream)
     if rc != 0:
@@ -274,9 +323,11 @@ def _launch(q, k, v, out, causal: bool, block_q: int, block_kv: int, kind: str) 
 
 def flash_attention_fwd(
     q, k, v, *, causal: bool = True, block_q: int = 128, block_kv: int = 128,
-    interpret: bool = False,
+    interpret: bool = False, return_lse: bool = False,
 ):
-    """q: (B,H,Sq,hd); k/v: (B,Kh,Skv,hd) -> o: (B,H,Sq,hd) in ``q.dtype``.
+    """q: (B,H,Sq,hd); k/v: (B,Kh,Skv,hd) -> o: (B,H,Sq,hd) in ``q.dtype``,
+    and with ``return_lse`` (o, lse (B,H,Sq) fp32), lse the natural log of
+    each row's softmax sum of the scaled scores (``LSE_EMPTY`` where it is 0).
 
     Any strides are taken as long as the last dim is contiguous; the output
     has q's layout.  CUDA tensors launch the kernel; ``interpret=True`` runs
@@ -295,10 +346,140 @@ def flash_attention_fwd(
             raise ValueError(
                 "flash_attention_fwd: interpret=True runs the plain version on CPU tensors only"
             )
-        return flash_attention_plain(q, k, v, causal=causal, block_q=block_q, block_kv=block_kv)
-    _check_cuda(q, k, v)
+        return flash_attention_plain(q, k, v, causal=causal, block_q=block_q, block_kv=block_kv,
+                                     return_lse=return_lse)
+    _check_cuda("flash_attention_fwd", q=q, k=k, v=v)
     out = torch.empty_like(q)  # keeps q's strides when q is a transposed view
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) if return_lse else None
     kind = design(q.element_size(), hd, block_q, block_kv, _strides(q, k, v, out),
                   aligned=all(t.data_ptr() % 16 == 0 for t in (q, k, v, out)))
-    _launch(q, k, v, out, causal, block_q, block_kv, kind)
-    return out
+    _launch(q, k, v, out, lse, causal, block_q, block_kv, kind)
+    return (out, lse) if return_lse else out
+
+
+# ---------------------------------------------------------------- backward
+def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True, block_q: int = 128,
+                              block_kv: int = 128):
+    """The backward kernel's arithmetic in plain PyTorch, tile by tile, fp32
+    accumulation: D = rowsum(dO ⊙ O); P = exp(S·scale − lse) (0 in masked
+    slots, top-left causal); dV = Pᵀ dO with P rounded to the input dtype
+    (as the oracle rounds p before P·V); dP = dO Vᵀ; dS = P ⊙ (dP − D),
+    rounded to the input dtype as the kernel's operand; dQ = dS K · scale
+    and dK = dSᵀ Q · scale.  GQA: dK and dV sum over each group's heads.
+
+    q, o, do: (B,H,Sq,hd); k, v: (B,Kh,Skv,hd); lse: (B,H,Sq) fp32 ->
+    (dq, dk, dv) in the dtypes and layouts of (q, k, v)."""
+    B, H, Sq, hd = q.shape
+    Kh, Skv = k.shape[1], k.shape[2]
+    g = H // Kh
+    block_q, block_kv = _blocks(Sq, Skv, block_q, block_kv)
+    scale = torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32)
+    qf, dof = q.float(), do.float()
+    kf = k.float().repeat_interleave(g, dim=1)
+    vf = v.float().repeat_interleave(g, dim=1)
+    D = (dof * o.float()).sum(dim=-1)
+    lsef = lse.float()
+    dq = torch.zeros((B, H, Sq, hd), dtype=torch.float32, device=q.device)
+    dk = torch.zeros((B, H, Skv, hd), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for q0 in range(0, Sq, block_q):
+        qs = slice(q0, q0 + block_q)
+        for kv0 in range(0, Skv, block_kv):
+            if causal and kv0 > q0 + block_q - 1:
+                break  # this and every later tile lie wholly in the future
+            ks = slice(kv0, kv0 + block_kv)
+            s = (qf[:, :, qs] @ kf[:, :, ks].transpose(-1, -2)) * scale
+            p = torch.exp(s - lsef[:, :, qs, None])
+            if causal:
+                qi = q0 + torch.arange(block_q, device=q.device)[:, None]
+                kj = kv0 + torch.arange(block_kv, device=q.device)[None, :]
+                p = torch.where(qi >= kj, p, torch.zeros_like(p))
+            dv[:, :, ks] += p.to(q.dtype).float().transpose(-1, -2) @ dof[:, :, qs]
+            dp = dof[:, :, qs] @ vf[:, :, ks].transpose(-1, -2)
+            ds = (p * (dp - D[:, :, qs, None])).to(q.dtype).float()
+            dq[:, :, qs] += ds @ kf[:, :, ks]
+            dk[:, :, ks] += ds.transpose(-1, -2) @ qf[:, :, qs]
+    dk = dk.reshape(B, Kh, g, Skv, hd).sum(dim=2) * scale
+    dv = dv.reshape(B, Kh, g, Skv, hd).sum(dim=2)
+    return tuple(torch.empty_like(like).copy_(grad) for grad, like in ((dq * scale, q), (dk, k), (dv, v)))
+
+
+def bwd_design(itemsize: int, hd: int, Sq: int, Skv: int, strides=(), aligned: bool = True) -> str:
+    """``"mma"`` when the tensor-core backward runs this call, else
+    ``"simt"``: a pure function of the dtype (``itemsize`` 2: bf16), the
+    head dim, the sequence lengths (multiples of ``BWD_TILE``), the
+    batch/head/sequence strides in elements of every tensor it reads or
+    writes (16-byte rows: multiples of 8) and whether they start on 16-byte
+    boundaries."""
+    if itemsize != 2 or not aligned or hd not in HEAD_DIMS:
+        return "simt"
+    if Sq % BWD_TILE or Skv % BWD_TILE or any(st % 8 for st in strides):
+        return "simt"
+    return "mma"
+
+
+def _bwd_launch(q, k, v, o, lse, do, D, dq, dk, dv, causal: bool, kind: str) -> None:
+    global bwd_launches
+    B, H, Sq, hd = q.shape
+    Kh, Skv = k.shape[1], k.shape[2]
+    lib = _cuda.load("flash_attention_bwd")
+    fn = getattr(lib, f"repro_flash_attention_bwd_{_SUFFIX[q.dtype]}")
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    ptrs = (ctypes.c_void_p * 10)(*[t.data_ptr() for t in (q, k, v, o, do, lse, D, dq, dk, dv)])
+    strides = (ctypes.c_longlong * 24)(*(t.stride(i) for t in (q, k, v, o, do, dq, dk, dv)
+                                         for i in range(3)))
+    scale = float(torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(ctypes.addressof(ptrs), ctypes.addressof(strides), B, H, Kh, Sq, Skv, hd, int(causal),
+                int(kind == "mma"), scale, stream)
+    if rc != 0:
+        err = lib.repro_flash_attention_bwd_error_string
+        err.restype = ctypes.c_char_p
+        raise RuntimeError(f"flash_attention_bwd kernel ({kind}) launch failed (hd {hd}, Sq {Sq}, "
+                           f"Skv {Skv}): CUDA error {rc}: {err(rc).decode()}")
+    with _count_lock:
+        bwd_launches += 1
+        launches_by_design[f"bwd_{kind}"] += 1
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, block_q: int = 128,
+                        block_kv: int = 128, interpret: bool = False):
+    """The gradient of :func:`flash_attention_fwd`: q, k, v as it took them,
+    its output o and lse (``return_lse``), do = dL/do (o's shape) ->
+    (dq, dk, dv) in the dtypes and layouts of (q, k, v).
+
+    CUDA tensors launch the backward kernel (its design from
+    :func:`bwd_design`; any strides with the last dim contiguous);
+    ``interpret=True`` runs the plain version, which takes CPU tensors only.
+    Anything else raises.  ``block_q`` / ``block_kv`` must divide the
+    sequences, as the forward's did; they order the plain version's sums."""
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape or o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"flash_attention_bwd: bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)} o {tuple(o.shape)} do {tuple(do.shape)}")
+    B, H, Sq, hd = q.shape
+    Kh, Skv = k.shape[1], k.shape[2]
+    if k.shape[0] != B or k.shape[3] != hd or H % Kh or lse.shape != (B, H, Sq):
+        raise ValueError(f"flash_attention_bwd: q {tuple(q.shape)}, k {tuple(k.shape)} and lse "
+                         f"{tuple(lse.shape)} do not match")
+    block_q, block_kv = _blocks(Sq, Skv, block_q, block_kv)
+    if interpret:
+        if any(t.is_cuda for t in (q, k, v, o, lse, do)):
+            raise ValueError(
+                "flash_attention_bwd: interpret=True runs the plain version on CPU tensors only"
+            )
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal, block_q=block_q,
+                                         block_kv=block_kv)
+    _check_cuda("flash_attention_bwd", q=q, k=k, v=v, o=o, do=do)
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd: head dim {hd} not instantiated (have {HEAD_DIMS})")
+    if not lse.is_cuda or lse.device != q.device or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError("flash_attention_bwd: lse must be a contiguous fp32 CUDA tensor on q's device")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    D = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    tensors = (q, k, v, o, do, dq, dk, dv)
+    kind = bwd_design(q.element_size(), hd, Sq, Skv, [t.stride(i) for t in tensors for i in range(3)],
+                      aligned=all(t.data_ptr() % 16 == 0 for t in (*tensors, lse, D)))
+    _bwd_launch(q, k, v, o, lse, do, D, dq, dk, dv, causal, kind)
+    return dq, dk, dv

@@ -6,9 +6,12 @@ inference-only and has none, as in the JAX package).  The two scans'
 backward passes are kernels too (``linear_scan.lru_scan_bwd`` and
 ``rwkv_scan_bwd``: a fixed number of launches whatever T, where the JAX
 package takes ``jax.vjp`` of its per-token ``lax.scan``); on CPU tensors with
-``interpret=True`` they run their plain versions.  Flash attention's
-backward recomputes through the plain oracle in :mod:`ref`, exactly like
-the JAX package's ``_flash_bwd``; a fused kernel for it is future work.
+``interpret=True`` they run their plain versions.  So is flash attention's
+(``flash_attention.flash_attention_bwd``: two launches a call, P recomputed
+from the row logsumexp the forward saves, no S² buffer), where the JAX
+package's ``_flash_bwd`` takes ``jax.vjp`` of its oracle; it is the same
+gradient for every call the models make (self-attention, Sq == Skv).  No
+backward here runs an oracle of :mod:`ref`.
 
 All wrappers accept ``interpret=True``, which runs each kernel's plain
 PyTorch version on CPU tensors (the CPU tests' path).  CUDA tensors launch
@@ -18,9 +21,8 @@ from __future__ import annotations
 
 import torch
 
-from . import ref
 from .decode_attention import decode_attention_fwd
-from .flash_attention import flash_attention_fwd
+from .flash_attention import flash_attention_bwd, flash_attention_fwd
 from . import linear_scan
 from .linear_scan import LRU_BLOCK_D, lru_scan_chunked, rwkv_scan_chunked
 from .matmul import matmul_tiled
@@ -31,30 +33,33 @@ __all__ = ["flash_attention", "decode_attention", "rwkv_scan", "lru_scan", "matm
 # ---------------------------------------------------------- flash attention
 class _Flash(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, block_q, block_kv, interpret):
+    def forward(ctx, q, k, v, causal, block_q, block_kv, interpret, grad):
         # q: (B,Sq,H,hd) layout; the kernel takes (B,H,Sq,hd) — a transposed
-        # view, no copy: the kernel reads strides and writes o in q's layout
-        o = flash_attention_fwd(
-            q.transpose(1, 2), k, v, causal=causal, block_q=block_q, block_kv=block_kv,
-            interpret=interpret,
-        )
-        ctx.save_for_backward(q, k, v)
-        ctx.causal = causal
+        # view, no copy: the kernel reads strides and writes o in q's layout.
+        # The row logsumexp is asked for only when a gradient will be taken
+        # (``grad``: forward runs with grad mode off, so the caller decides),
+        # so inference launches what it launched before.
+        knobs = {"causal": causal, "block_q": block_q, "block_kv": block_kv, "interpret": interpret}
+        if not grad:
+            return flash_attention_fwd(q.transpose(1, 2), k, v, **knobs).transpose(1, 2)
+        o, lse = flash_attention_fwd(q.transpose(1, 2), k, v, return_lse=True, **knobs)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.knobs = knobs
         return o.transpose(1, 2)
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v = ctx.saved_tensors
-        with torch.enable_grad():
-            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
-            o = ref.flash_attention_ref(*leaves, causal=ctx.causal)
-            dq, dk, dv = torch.autograd.grad(o, leaves, g)
-        return dq, dk, dv, None, None, None, None
+        q, k, v, o, lse = ctx.saved_tensors
+        if g.stride(-1) != 1:
+            g = g.contiguous()
+        dq, dk, dv = flash_attention_bwd(q.transpose(1, 2), k, v, o, lse, g.transpose(1, 2), **ctx.knobs)
+        return dq.transpose(1, 2), dk, dv, None, None, None, None, None
 
 
 def flash_attention(q, k, v, *, causal=True, block_q=128, block_kv=128, interpret=False):
     """q: (B,Sq,H,hd); k/v: (B,Kh,Skv,hd) -> (B,Sq,H,hd)."""
-    return _Flash.apply(q, k, v, causal, block_q, block_kv, interpret)
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    return _Flash.apply(q, k, v, causal, block_q, block_kv, interpret, grad)
 
 
 # ---------------------------------------------------------- decode attention

@@ -12,7 +12,11 @@ flash-attention cases also assert which design ran (``launches_by_design``:
 the tensor-core ``wgmma`` kernel or the SIMT one); the ``wgmma`` cases cover
 every swizzle width, one and two consumer warpgroups, several turns of the
 ring, every instantiated head dim and ``block_kv``, Sq != Skv, GQA and the
-strided q that ``ops.flash_attention`` passes.
+strided q that ``ops.flash_attention`` passes.  The backward kernels (the
+scans' and flash attention's) are held against their plain versions by
+||kernel - plain|| / ||plain||; flash's also for two bit-identical calls, a
+fixed kernel count, no S² allocation and a train step that never reaches
+the oracle.
 """
 import json
 import math
@@ -602,6 +606,144 @@ def test_scan_backward_under_autograd_calls_no_oracle():
         _bwd_close(leaf.grad, w_, name)
     for name, leaf, w_ in zip(("dr", "dk", "dv", "dlw", "du", "ds0"), rwkv_leaves, rwkv_want):
         _bwd_close(leaf.grad, w_, name)
+
+
+# (B, Sq, Skv, H, Kh, hd): every head dim, MHA, GQA (g = 7, qwen2-7b's) and
+# MQA, Sq < Skv and Sq > Skv, and two shapes the tensor-core design does not
+# take (not multiples of 64), which run the CUDA-core design in bf16 too
+FLASH_BWD_SHAPES = [(1, 128, 128, 4, 2, 16), (2, 128, 128, 4, 4, 32), (1, 256, 256, 8, 1, 64),
+                    (1, 128, 128, 14, 2, 128), (1, 128, 256, 4, 2, 64), (1, 256, 128, 4, 2, 128),
+                    (1, 96, 96, 4, 2, 64), (1, 48, 80, 2, 2, 16)]
+
+
+def _flash_bwd_inputs(B, Sq, Skv, H, Kh, hd, dtype, dev, causal, seed=110):
+    """q and dO as (B,H,Sq,hd) views of (B,Sq,H,hd) tensors and k, v as views
+    of (B,Skv,Kh,hd) ones, as ``ops.flash_attention`` and ``attn_apply``
+    hand them in; o and lse from the forward kernel."""
+    q = _randn(seed, (B, Sq, H, hd), dtype, dev).transpose(1, 2)
+    k = _randn(seed + 1, (B, Skv, Kh, hd), dtype, dev).transpose(1, 2)
+    v = _randn(seed + 2, (B, Skv, Kh, hd), dtype, dev).transpose(1, 2)
+    do = _randn(seed + 3, (B, Sq, H, hd), dtype, dev).transpose(1, 2)
+    blocks = {"block_q": 64, "block_kv": 64} if Sq % 64 == 0 and Skv % 64 == 0 else \
+        {"block_q": 16, "block_kv": 16}
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=causal, return_lse=True, **blocks)
+    return q, k, v, o, lse, do, blocks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Skv,H,Kh,hd", FLASH_BWD_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_kernel_matches_plain(dtype, causal, B, Sq, Skv, H, Kh, hd):
+    """dq, dk and dv against ``flash_attention_bwd_plain`` on the same o and
+    lse (norm-wise, ``BWD_REL``), the design that ran (tensor cores for bf16
+    at multiples of 64), the forward's lse against the plain version's, the
+    outputs in the layouts of q, k and v, and two calls bit-identical."""
+    dev = _card()
+    q, k, v, o, lse, do, blocks = _flash_bwd_inputs(B, Sq, Skv, H, Kh, hd, dtype, dev, causal)
+    _, lse_plain = tfa.flash_attention_plain(q, k, v, causal=causal, return_lse=True, **blocks)
+    torch.testing.assert_close(lse.cpu(), lse_plain.cpu(), atol=1e-5, rtol=1e-5)
+    before, by_design = tfa.bwd_launches, dict(tfa.launches_by_design)
+    got = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, **blocks)
+    assert tfa.bwd_launches == before + 1
+    want_design = "bwd_mma" if dtype == torch.bfloat16 and Sq % 64 == 0 and Skv % 64 == 0 else "bwd_simt"
+    assert _ran(tfa.launches_by_design, by_design) == want_design
+    want = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal, **blocks)
+    again = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, **blocks)
+    for name, g_, w_, t_, a_ in zip(("dq", "dk", "dv"), got, want, (q, k, v), again):
+        assert g_.dtype == t_.dtype and g_.shape == t_.shape and g_.stride() == t_.stride(), name
+        assert bool(torch.isfinite(g_.float()).all()), name
+        _bwd_close(g_, w_, name)
+        assert torch.equal(g_, a_), f"{name}: two calls on the same inputs differ"
+
+
+@pytest.mark.cuda
+def test_flash_backward_limit_rejects_a_dropped_d_term():
+    """The limit that holds the backward kernel rejects dq and dk computed
+    without D (dS = P dP, the planted fault chip_smoke.py also rejects)."""
+    dev = _card()
+    q, k, v, o, lse, do, blocks = _flash_bwd_inputs(1, 256, 256, 4, 2, 64, torch.bfloat16, dev, True)
+    got = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal=True, **blocks)
+    no_d = tfa.flash_attention_bwd_plain(q, k, v, torch.zeros_like(o), lse, do, causal=True, **blocks)
+    for name, g_, f_ in zip(("dq", "dk"), got, no_d):
+        assert _bwd_rel(f_, g_) > BWD_REL[torch.bfloat16], name
+
+
+@pytest.mark.cuda
+def test_flash_backward_kernels_a_call_fixed_in_s():
+    """One backward call under ``torch.profiler`` launches the same device
+    kernels at 512 and 2048 tokens (two: the dq pass with D, the dkdv pass)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = _card()
+    seen = {}
+    for S in (512, 2048):
+        q, k, v, o, lse, do, blocks = _flash_bwd_inputs(1, S, S, 8, 2, 128, torch.bfloat16, dev, True)
+        tfa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            tfa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+            torch.cuda.synchronize()
+        seen[S] = sorted(e.name for e in prof.events() if e.device_type.name == "CUDA"
+                         and "memcpy" not in e.name.lower() and "memset" not in e.name.lower())
+    assert seen[512] == seen[2048] and len(seen[512]) == 2, seen
+
+
+@pytest.mark.cuda
+def test_flash_backward_allocates_no_score_matrix():
+    """The backward at (1, 4096, 8, 64) allocates its outputs and D, far
+    under one (B, H, S, S) fp32 tensor (537 MB), which the oracle it
+    replaced made several of."""
+    dev = _card()
+    B, S, H, hd = 1, 4096, 8, 64
+    q, k, v, o, lse, do, _ = _flash_bwd_inputs(B, S, S, H, H, hd, torch.bfloat16, dev, False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    grads = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal=False)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    assert peak < B * H * S * S * 4, peak
+    assert peak < 4 * sum(g.numel() * g.element_size() for g in grads), peak
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [("float32", (1e-5, 1e-5)), ("bfloat16", (1e-3, 1e-2))])
+def test_flash_train_step_on_the_kernel_path_runs_no_oracle(dtype, tol):
+    """One ``make_train_step`` update of tiny qwen2-7b at 64 tokens on the
+    card with ``ref.flash_attention_ref`` replaced by a function that
+    raises: the backward launches its kernel once per layer (the tensor-core
+    design in bf16, the CUDA-core one in fp32), and the loss and gradient
+    norm match the plain path's from the same weights (relative tol)."""
+    from repro_torch.data import make_batch_for
+    from repro_torch.kernels import ref as tref
+    from repro_torch.optim import AdamW
+    from repro_torch.train import make_train_step
+
+    def refuse(*a_, **k_):
+        raise AssertionError("the flash backward ran the oracle")
+
+    dev = _card()
+    metrics, oracle = {}, tref.flash_attention_ref
+    tref.flash_attention_ref = refuse
+    try:
+        for impl in ("cuda", "xla"):
+            before, by_design = tfa.bwd_launches, dict(tfa.launches_by_design)
+            model = _tiny_train("qwen2_7b", dev, impl, dtype)
+            batch = make_batch_for(model.cfg, 2, 64, step=0, seed=0, device=dev)
+            opt = AdamW(lr=1e-3)
+            params = model.params()
+            _, _, metrics[impl] = make_train_step(model, opt)(params, opt.init(params), batch)
+            torch.cuda.synchronize()
+            n_layers = model.cfg.n_layers if impl == "cuda" else 0
+            design = "bwd_mma" if dtype == "bfloat16" else "bwd_simt"
+            assert tfa.bwd_launches - before == n_layers
+            assert tfa.launches_by_design[design] - by_design[design] == n_layers
+    finally:
+        tref.flash_attention_ref = oracle
+    for k_, t_ in zip(("loss", "grad_norm"), tol):
+        got, want = metrics["cuda"][k_].item(), metrics["xla"][k_].item()
+        assert abs(got - want) <= t_ * abs(want), (k_, got, want)
 
 
 def _decode_inputs(B, H, Kh, S, hd, dtype, dev, valid):

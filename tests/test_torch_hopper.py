@@ -257,10 +257,15 @@ def test_build_key_covers_the_shared_header(tmp_path, name):
 
 
 def test_plain_path_counts_no_launch_of_either_design():
-    before = (tmm.launches, dict(tmm.launches_by_design), tfa.launches, dict(tfa.launches_by_design))
+    before = (tmm.launches, dict(tmm.launches_by_design), tfa.launches, tfa.bwd_launches,
+              dict(tfa.launches_by_design))
     a = torch.randn(128, 64).bfloat16()
     tmm.matmul_tiled(a, a.t().contiguous(), interpret=True)
     q = torch.randn(1, 2, 64, 32).bfloat16()
-    tfa.flash_attention_fwd(q, q, q, block_q=64, block_kv=64, interpret=True)
-    assert (tmm.launches, tmm.launches_by_design, tfa.launches, tfa.launches_by_design) == before
-    assert set(tmm.launches_by_design) == set(tfa.launches_by_design) == {"wgmma", "simt"}
+    o, lse = tfa.flash_attention_fwd(q, q, q, block_q=64, block_kv=64, interpret=True, return_lse=True)
+    tfa.flash_attention_bwd(q, q, q, o, lse, q, block_q=64, block_kv=64, interpret=True)
+    assert (tmm.launches, tmm.launches_by_design, tfa.launches, tfa.bwd_launches,
+            tfa.launches_by_design) == before
+    assert set(tmm.launches_by_design) == {"wgmma", "simt"}
+    # flash attention's forward designs, and its backward's under their own keys
+    assert set(tfa.launches_by_design) == {"wgmma", "simt", "bwd_mma", "bwd_simt"}
