@@ -31,7 +31,8 @@ Phases, each printing its numbers on lines of its own:
    scan with its segment count, against the exact scan and against its own
    segmented arithmetic (``lru_scan_segmented_plain``); then the scans'
    backward kernels at the trained shapes (lru a, b, g (4, 256, 2560) fp32
-   at ``rec_chunk`` 8; rwkv r, k, v, gy (1, 2048, 64, 64) bf16), with the
+   at ``rec_chunk`` 8; rwkv r, k, v, gy (1, 2048, 64, 64) bf16, its state
+   rows split over ``linear_scan.rwkv_bwd_slices`` blocks a cluster), with the
    final-state cotangents nonzero, against their plain versions
    (``lru_scan_bwd_plain``, ``rwkv_scan_bwd_plain``; each output by
    ||kernel - plain|| / ||plain||, ``BWD_REL``), a planted fault (the rwkv
@@ -40,8 +41,10 @@ Phases, each printing its numbers on lines of its own:
    the same kernel count; then flash attention's backward kernel at the
    trained shapes (``FA_BWD_CASES``: seamless-m4t-large-v2's encoder layer
    q (3, 4096, 16, 64) non-causal and qwen2-7b's layer q (1, 2048, 28, 128),
-   k/v 4 heads, causal, both bf16 on the tensor-core design; (1, 512, 8, 64)
-   fp32 on the CUDA-core design; q, k, v and dO strided views) against
+   k/v 4 heads, causal, both bf16 on the tensor-core ``wgmma`` design, whose
+   dK/dV pass splits qwen2-7b's 7 query heads a group over blocks
+   (``flash_attention.bwd_head_splits``); (1, 512, 8, 64) fp32 on the
+   CUDA-core design; q, k, v and dO strided views) against
    ``flash_attention_bwd_plain`` on the forward kernel's o and lse (the lse
    held against the plain forward's), two calls bit-identical, a planted
    fault (dq and dk without the -D term) the same limit must reject, and
@@ -118,7 +121,7 @@ Phases, each printing its numbers on lines of its own:
 11. qwen2-7b at full width with 2 layers through ``make_train_step``, batch 1
    x 2048 tokens: one step and a second on the kernel path (2 flash
    launches a step, all of the ``wgmma`` design, under autograd, and 2
-   backward launches of the ``mma`` design) and on the plain path from the
+   backward launches of the ``wgmma`` design) and on the plain path from the
    same weights; loss and gradient norm before the update (1e-3 / 1e-2
    relative), step wall times, tokens/s, peak memory and the flash
    backward's device ms a step (CUDA events around each call);
@@ -204,7 +207,7 @@ Phases, each printing its numbers on lines of its own:
    loss per step (finite, the last below the first), step ms, tokens/s, the
    peak, the flash launches per step (the 24 encoder layers non-causal and
    the 24 decoder self-attentions causal, all of the ``wgmma`` design, the
-   count taken from the config), as many backward launches of the ``mma``
+   count taken from the config), as many backward launches of the ``wgmma``
    design and their device ms a step; the same job at batch 3 for 2 steps,
    for its peak; then the kernel path against the plain path on one
    sequence, no update (loss 1e-3, gradient norm 1e-2 relative);
@@ -418,15 +421,17 @@ def bwd_rel(got, want) -> float:
 
 
 @contextlib.contextmanager
-def flash_bwd_events():
-    """CUDA events around each call of ``ops._Flash.backward`` while the
-    block runs: yields the list of (start, end) pairs, to be read after a
-    synchronize (the flash backward's device time, launches included)."""
+def backward_events(fn_name: str = "_Flash"):
+    """CUDA events around each call of ``ops.<fn_name>.backward`` (flash
+    attention's, or ``_Rwkv``'s) while the block runs: yields the list of
+    (start, end) pairs, to be read after a synchronize (the backward's
+    device time, launches included)."""
     import torch
 
     from repro_torch.kernels import ops
 
-    pairs, backward = [], ops._Flash.backward
+    fn_cls = getattr(ops, fn_name)
+    pairs, backward = [], fn_cls.backward
 
     def timed(ctx, *grads):
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -436,11 +441,11 @@ def flash_bwd_events():
         pairs.append((e0, e1))
         return got
 
-    ops._Flash.backward = staticmethod(timed)
+    fn_cls.backward = staticmethod(timed)
     try:
         yield pairs
     finally:
-        ops._Flash.backward = backward
+        fn_cls.backward = backward
 
 
 def events_total_ms(pairs) -> float:
@@ -1320,8 +1325,8 @@ def train_phases(out: Path, smi: str) -> dict:
         opt_state = opt.init(params)
         step_fn = make_train_step(model, opt)
         walls, mets = [], []
-        mma0 = fa.launches_by_design["bwd_mma"]
-        with flash_bwd_events() as fb_events:
+        bwd0 = fa.launches_by_design["bwd_wgmma"]
+        with backward_events() as fb_events:
             for i in range(2):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -1332,7 +1337,7 @@ def train_phases(out: Path, smi: str) -> dict:
                 mets.append({k_: v_.item() for k_, v_ in met.items()})
         launched = counts()
         wgmma = fa.launches_by_design["wgmma"] - wgmma0
-        bwd_mma = fa.launches_by_design["bwd_mma"] - mma0
+        bwd_wgmma = fa.launches_by_design["bwd_wgmma"] - bwd0
         bwd_ms = events_total_ms(fb_events) / 2
         if impl == "cuda":
             add_train_launches(launched)
@@ -1341,7 +1346,7 @@ def train_phases(out: Path, smi: str) -> dict:
                          "grad_norm": mets[0]["grad_norm"], "step_ms": walls, "peak_gb": peak,
                          "tokens_per_s": QWEN_SEQ / (walls[1] / 1e3),
                          "flash_launches": launched["flash_attention"], "wgmma": wgmma,
-                         "flash_bwd_launches": launched["flash_attention_bwd"], "bwd_mma": bwd_mma,
+                         "flash_bwd_launches": launched["flash_attention_bwd"], "bwd_wgmma": bwd_wgmma,
                          "flash_bwd_device_ms_per_step": bwd_ms}
         print(f"[11] qwen2-7b 2 layers (d_model {q_cfg.d_model}, {q_cfg.n_heads}/{q_cfg.n_kv_heads} "
               f"heads of {q_cfg.d_head}, d_ff {q_cfg.d_ff}, vocab {q_cfg.vocab_size}; "
@@ -1350,7 +1355,7 @@ def train_phases(out: Path, smi: str) -> dict:
               f"grad norm {mets[0]['grad_norm']:.6f} (before the update); step wall {walls[0]:.1f} ms "
               f"(first), {walls[1]:.1f} ms (second), {QWEN_SEQ / (walls[1] / 1e3):.1f} tokens/s (second); "
               f"peak {peak:.2f} GB; flash_attention launches {launched['flash_attention']} ({wgmma} wgmma), "
-              f"flash_attention_bwd launches {launched['flash_attention_bwd']} ({bwd_mma} mma), the flash "
+              f"flash_attention_bwd launches {launched['flash_attention_bwd']} ({bwd_wgmma} wgmma), the flash "
               f"backward {bwd_ms:.3f} device ms a step (CUDA events around each call, "
               f"{len(fb_events)} calls); weights fingerprint {fingerprint:.6e}; {smi}")
         check(all(math.isfinite(v_) for m_ in mets for v_ in m_.values()), f"qwen2-7b {impl}: non-finite")
@@ -1368,10 +1373,10 @@ def train_phases(out: Path, smi: str) -> dict:
           and qp["flash_launches"] == 0,
           f"qwen2-7b: flash launches {qk['flash_launches']} ({qk['wgmma']} wgmma) over two steps, "
           f"expected {2 * QWEN_LAYERS} of the wgmma design; plain path {qp['flash_launches']}")
-    check(qk["flash_bwd_launches"] == 2 * QWEN_LAYERS and qk["bwd_mma"] == 2 * QWEN_LAYERS
+    check(qk["flash_bwd_launches"] == 2 * QWEN_LAYERS and qk["bwd_wgmma"] == 2 * QWEN_LAYERS
           and qp["flash_bwd_launches"] == 0,
-          f"qwen2-7b: flash backward launches {qk['flash_bwd_launches']} ({qk['bwd_mma']} mma) over two "
-          f"steps, expected {2 * QWEN_LAYERS} of the mma design; plain path {qp['flash_bwd_launches']}")
+          f"qwen2-7b: flash backward launches {qk['flash_bwd_launches']} ({qk['bwd_wgmma']} wgmma) over two "
+          f"steps, expected {2 * QWEN_LAYERS} of the wgmma design; plain path {qp['flash_bwd_launches']}")
     train_report["qwen2_7b_2_layers"] = q_paths
     del q_batch
     gc.collect()
@@ -1423,14 +1428,16 @@ def rwkv_train_phase(smi: str) -> tuple:
     opt = AdamW(lr=cosine_schedule(1e-3, 10, 50))
     opt_state = opt.init(params)
     step_fn = make_train_step(model, opt)
-    walls, mets = [], []
+    walls, mets, bwd_ms = [], [], []
     for i in range(RWKV_TRAIN_STEPS):
         batch = make_batch_for(cfg, B, T, step=i, seed=0, device=dev)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        params, opt_state, met = step_fn(params, opt_state, batch)
+        with backward_events("_Rwkv") as rb_events:
+            params, opt_state, met = step_fn(params, opt_state, batch)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
+        bwd_ms.append(events_total_ms(rb_events))
         mets.append({k_: v_.item() for k_, v_ in met.items()})
     launched = counts()
     by_design = {d_: n_ - by_design[d_] for d_, n_ in ls.launches_by_design.items()}
@@ -1443,8 +1450,10 @@ def rwkv_train_phase(smi: str) -> tuple:
           f"rec_chunk {TRAIN_REC_CHUNK}, kernel path: loss per step {[round(x_, 6) for x_ in losses]}, "
           f"grad norm {[round(m_['grad_norm'], 6) for m_ in mets]}; step wall ms {[round(w_, 1) for w_ in walls]} "
           f"(median after the first {steady:.1f} ms, {B * T / steady * 1e3:.1f} tokens/s); "
-          f"torch.cuda.max_memory_allocated {peak:.2f} GB; launches {launched}, rwkv_scan by design "
-          f"{by_design}; {smi}")
+          f"torch.cuda.max_memory_allocated {peak:.2f} GB; the rwkv backward {[round(b_, 2) for b_ in bwd_ms]} "
+          f"device ms a step (CUDA events around each of its {RWKV_TRAIN_LAYERS} calls a step, "
+          f"{ls.rwkv_bwd_slices(B, cfg.n_heads, cfg.d_head, torch.cuda.get_device_properties(dev).multi_processor_count)} "
+          f"row slices a head); launches {launched}, rwkv_scan by design {by_design}; {smi}")
     check(all(math.isfinite(v_) for m_ in mets for v_ in m_.values()), "rwkv6-7b: a metric is not finite")
     check(peak < 80.0, f"rwkv6-7b: peak memory {peak:.2f} GB")
     per_run = RWKV_TRAIN_LAYERS * RWKV_TRAIN_STEPS
@@ -1525,6 +1534,7 @@ def rwkv_train_phase(smi: str) -> tuple:
     report = {"layers": RWKV_TRAIN_LAYERS, "of_layers": full.n_layers, "parameters": n_params,
               "batch": [B, T], "rec_chunk": TRAIN_REC_CHUNK, "loss": losses, "step_ms": walls,
               "median_step_ms": steady, "tokens_per_s": B * T / steady * 1e3, "peak_gb": peak,
+              "bwd_device_ms_per_step": bwd_ms,
               "forward_by_layer": fwd,
               "paths_bf16": {"loss": [lk, lp], "grad_norm": [gk, gp], "exact_forward": [le, ge],
                              "forward_backward_ms": [paths["cuda_fb_ms"], paths["xla_fb_ms"]],
@@ -1706,7 +1716,7 @@ def family_train_phases(out: Path, smi: str) -> tuple:
     free()
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counts()
-    wgmma0, mma0 = fa.launches_by_design["wgmma"], fa.launches_by_design["bwd_mma"]
+    wgmma0, bwd0 = fa.launches_by_design["wgmma"], fa.launches_by_design["bwd_wgmma"]
     per_step, bwd_per_step = [], []
     flags, restore = flash_spy()
 
@@ -1717,7 +1727,7 @@ def family_train_phases(out: Path, smi: str) -> tuple:
     job = TrainJob(arch=SEAMLESS, tiny=False, steps=SEAMLESS_TRAIN_STEPS, global_batch=SEAMLESS_TRAIN[0],
                    seq_len=SEAMLESS_TRAIN[1], warmup=0, seed=0, device="cuda")
     try:
-        with flash_bwd_events() as fb_events:
+        with backward_events() as fb_events:
             t0 = time.perf_counter()
             hist = job.run(on_step=on_step)
             wall = time.perf_counter() - t0
@@ -1729,7 +1739,7 @@ def family_train_phases(out: Path, smi: str) -> tuple:
     for n_, c_ in launched.items():
         launched_total[n_] += c_
     wgmma = fa.launches_by_design["wgmma"] - wgmma0
-    bwd_mma = fa.launches_by_design["bwd_mma"] - mma0
+    bwd_wgmma = fa.launches_by_design["bwd_wgmma"] - bwd0
     peak = torch.cuda.max_memory_allocated(dev) / 1e9
     del job
     free()
@@ -1743,7 +1753,7 @@ def family_train_phases(out: Path, smi: str) -> tuple:
           f"torch.cuda.max_memory_allocated {peak:.2f} GB; flash launches per step {per_step} "
           f"({wgmma} wgmma; {sum(flags)} causal, {len(flags) - sum(flags)} non-causal; the model implies "
           f"{causal} causal + {noncausal} non-causal a step), flash backward launches per step "
-          f"{bwd_per_step} ({bwd_mma} mma), the flash backward {bwd_ms:.2f} device ms a step (CUDA events "
+          f"{bwd_per_step} ({bwd_wgmma} wgmma), the flash backward {bwd_ms:.2f} device ms a step (CUDA events "
           f"around each call); launches {launched}; {smi}")
     check(all(math.isfinite(x_) for x_ in losses) and losses[-1] < losses[0],
           f"{SEAMLESS}: the loss is not finite and falling: {losses}")
@@ -1751,9 +1761,9 @@ def family_train_phases(out: Path, smi: str) -> tuple:
           and sum(flags) == causal * len(losses) and len(flags) == sum(per_step),
           f"{SEAMLESS}: flash launches per step {per_step} ({wgmma} wgmma, {sum(flags)} causal), "
           f"expected {causal} causal + {noncausal} non-causal wgmma launches a step")
-    check(bwd_per_step == per_step and bwd_mma == sum(bwd_per_step),
-          f"{SEAMLESS}: flash backward launches per step {bwd_per_step} ({bwd_mma} mma), expected one "
-          f"of the mma design per forward launch {per_step}")
+    check(bwd_per_step == per_step and bwd_wgmma == sum(bwd_per_step),
+          f"{SEAMLESS}: flash backward launches per step {bwd_per_step} ({bwd_wgmma} wgmma), expected one "
+          f"of the wgmma design per forward launch {per_step}")
     check(all(n_ == 0 for k_, n_ in launched.items() if k_ not in ("flash_attention", "flash_attention_bwd")),
           f"{SEAMLESS}: unexpected launches {launched}")
     check(peak < 80.0, f"{SEAMLESS}: peak memory {peak:.2f} GB")
@@ -1785,7 +1795,7 @@ def family_train_phases(out: Path, smi: str) -> tuple:
     report[SEAMLESS] = {"batch": [B, S], "loss": losses, "step_ms": [t_ * 1e3 for t_ in times_],
                         "median_step_ms": med * 1e3, "tokens_per_s": B * S / med, "peak_gb": peak,
                         "flash_per_step": per_step, "wgmma": wgmma, "paths": paths,
-                        "flash_bwd_per_step": bwd_per_step, "bwd_mma": bwd_mma,
+                        "flash_bwd_per_step": bwd_per_step, "bwd_wgmma": bwd_wgmma,
                         "flash_bwd_device_ms_per_step": bwd_ms, "batch3": batch3,
                         "params": sum(p_.numel() for p_ in model.params().values())}
     del model, batch
@@ -1797,7 +1807,7 @@ def family_train_phases(out: Path, smi: str) -> tuple:
     causal, noncausal = flash_per_forward(cfg)
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counts()
-    wgmma0, mma0 = fa.launches_by_design["wgmma"], fa.launches_by_design["bwd_mma"]
+    wgmma0, bwd0 = fa.launches_by_design["wgmma"], fa.launches_by_design["bwd_wgmma"]
     model = TrainModel(cfg, ExecConfig(attn_impl="cuda"), device=dev, seed=0)
     params = model.params()
     n_params = sum(p_.numel() for p_ in params.values())
@@ -1815,7 +1825,7 @@ def family_train_phases(out: Path, smi: str) -> tuple:
     blocks.moe_apply = moe_spy
     walls, mets, per_step, bwd_per_step = [], [], [], []
     try:
-        with flash_bwd_events() as fb_events:
+        with backward_events() as fb_events:
             for i in range(MOONSHOT_TRAIN_STEPS):
                 batch = make_batch_for(cfg, 1, QWEN_SEQ, step=i, seed=0, device=dev)
                 torch.cuda.synchronize()
@@ -1834,7 +1844,7 @@ def family_train_phases(out: Path, smi: str) -> tuple:
     for n_, c_ in launched.items():
         launched_total[n_] += c_
     wgmma = fa.launches_by_design["wgmma"] - wgmma0
-    bwd_mma = fa.launches_by_design["bwd_mma"] - mma0
+    bwd_wgmma = fa.launches_by_design["bwd_wgmma"] - bwd0
     peak = torch.cuda.max_memory_allocated(dev) / 1e9
     losses = [m_["loss"] for m_ in mets]
     T, K = stats[0][0], cfg.top_k
@@ -1846,7 +1856,7 @@ def family_train_phases(out: Path, smi: str) -> tuple:
           f"step wall ms {[round(w_, 1) for w_ in walls]}, {QWEN_SEQ / (sorted(walls)[len(walls) // 2] / 1e3):.1f} "
           f"tokens/s (median step); torch.cuda.max_memory_allocated {peak:.2f} GB; flash launches per "
           f"step {per_step} ({wgmma} wgmma, causal {sorted(set(flags))}), flash backward launches per step "
-          f"{bwd_per_step} ({bwd_mma} mma), the flash backward {bwd_ms:.3f} device ms a step; MoE dispatch: "
+          f"{bwd_per_step} ({bwd_wgmma} wgmma), the flash backward {bwd_ms:.3f} device ms a step; MoE dispatch: "
           f"T = {T} tokens, "
           f"T*K = {T * K} assignments (> {moe.DROP_FREE_ASSIGNMENTS}: the capacity branch), C = "
           f"{sorted({c_ for _, c_, _ in stats})} slots per expert, dropped per layer in step 1 "
@@ -1858,9 +1868,9 @@ def family_train_phases(out: Path, smi: str) -> tuple:
           f"expected {causal} causal wgmma launches a step")
     check(T * K > moe.DROP_FREE_ASSIGNMENTS and all(c_ == moe.capacity(cfg, T) for _, c_, _ in stats),
           f"{MOONSHOT}: training did not take the capacity branch: {stats[:2]}")
-    check(bwd_per_step == per_step and bwd_mma == sum(bwd_per_step),
-          f"{MOONSHOT}: flash backward launches per step {bwd_per_step} ({bwd_mma} mma), expected one of "
-          f"the mma design per forward launch {per_step}")
+    check(bwd_per_step == per_step and bwd_wgmma == sum(bwd_per_step),
+          f"{MOONSHOT}: flash backward launches per step {bwd_per_step} ({bwd_wgmma} wgmma), expected one of "
+          f"the wgmma design per forward launch {per_step}")
     check(all(n_ == 0 for k_, n_ in launched.items() if k_ not in ("flash_attention", "flash_attention_bwd")),
           f"{MOONSHOT}: unexpected launches {launched}")
     check(peak < 80.0, f"{MOONSHOT}: peak memory {peak:.2f} GB")
@@ -1871,13 +1881,13 @@ def family_train_phases(out: Path, smi: str) -> tuple:
     paths = paths_agree(23, MOONSHOT, model, batch)
     report[MOONSHOT] = {"layers": cfg.n_layers, "params": n_params, "loss": losses, "step_ms": walls,
                         "peak_gb": peak, "flash_per_step": per_step, "wgmma": wgmma, "paths": paths,
-                        "flash_bwd_per_step": bwd_per_step, "bwd_mma": bwd_mma,
+                        "flash_bwd_per_step": bwd_per_step, "bwd_wgmma": bwd_wgmma,
                         "flash_bwd_device_ms_per_step": bwd_ms,
                         "capacity": stats[0][1], "drops_step1": [d_ for _, _, d_ in first]}
     del model, batch
     free()
     report["flash_launches"] = {SEAMLESS: report[SEAMLESS]["wgmma"], MOONSHOT: report[MOONSHOT]["wgmma"]}
-    report["flash_bwd_launches"] = {SEAMLESS: report[SEAMLESS]["bwd_mma"], MOONSHOT: report[MOONSHOT]["bwd_mma"]}
+    report["flash_bwd_launches"] = {SEAMLESS: report[SEAMLESS]["bwd_wgmma"], MOONSHOT: report[MOONSHOT]["bwd_wgmma"]}
     return launched_total, report
 
 
@@ -2741,13 +2751,19 @@ def main(argv=None) -> int:
     compare_bwd(f"lru_scan_bwd fp32 a,b,g{LRU_BWD_SHAPE} g_T nonzero {lb_knobs} ({lb_nseg} segments)",
                 "lru_scan_bwd", bwd_calls["lru_scan_bwd"](lb_args),
                 ls.lru_scan_bwd_plain(*lb_args, **lb_knobs), ("da", "db", "dh0"))
-    rb_chunk = ls.rwkv_bwd_chunk(RWKV_BWD_SHAPE[1], RWKV_BWD_SHAPE[3])
+    rb_slices = ls.rwkv_bwd_slices(RWKV_BWD_SHAPE[0], RWKV_BWD_SHAPE[2], RWKV_BWD_SHAPE[3], n_sm)
+    rb_chunk = ls.rwkv_bwd_chunk(RWKV_BWD_SHAPE[1], RWKV_BWD_SHAPE[3], rb_slices)
     rb_seg = ls.rwkv_bwd_segment(RWKV_BWD_SHAPE[1], rb_chunk)
     rb_outputs = ("dr", "dk", "dv", "dlw", "du", "ds0")
     rb_want = ls.rwkv_scan_bwd_plain(*rb_args)
     compare_bwd(f"rwkv_scan_bwd bf16 r,k,v,gy{RWKV_BWD_SHAPE} lw,u,s0 fp32 gs_T nonzero (chunk {rb_chunk}, "
-                f"checkpoints every {rb_seg} tokens, {RWKV_BWD_SHAPE[0] * RWKV_BWD_SHAPE[2]} blocks)", "rwkv_scan_bwd",
-                bwd_calls["rwkv_scan_bwd"](rb_args), rb_want, rb_outputs)
+                f"checkpoints every {rb_seg} tokens, {rb_slices} row slices a (head, batch row) in a "
+                f"cluster: {RWKV_BWD_SHAPE[0] * RWKV_BWD_SHAPE[2] * rb_slices} blocks)", "rwkv_scan_bwd",
+                rb_got := bwd_calls["rwkv_scan_bwd"](rb_args), rb_want, rb_outputs)
+    rb_same = all(torch.equal(g_, a_) for g_, a_ in zip(rb_got, bwd_calls["rwkv_scan_bwd"](rb_args)))
+    print(f"[2] rwkv_scan_bwd: two calls on the same inputs bit-identical: {rb_same}")
+    check(rb_same, "rwkv_scan_bwd: two calls differ")
+    del rb_got
     # a planted fault the limit must reject: dk or dv without its u term
     # (u (r_t . gy_t)-weighted terms, computed by the plain version at u = 0)
     rb_no_u = ls.rwkv_scan_bwd_plain(*rb_args[:4], torch.zeros_like(rb_args[4]), *rb_args[5:])
@@ -2794,6 +2810,9 @@ def main(argv=None) -> int:
         o_, lse_ = fa.flash_attention_fwd(q_, k_, v_, causal=causal, return_lse=True, block_q=64, block_kv=64)
         return q_, k_, v_, o_, lse_, do_
 
+    def fa_splits(q_, k_):
+        return fa.bwd_head_splits(k_.shape[0], k_.shape[1], q_.shape[1] // k_.shape[1], k_.shape[2], n_sm)
+
     fb_args = {}
     for label, shape, dtype, causal in FA_BWD_CASES:
         args_ = fa_bwd_args(shape, dtype, causal)
@@ -2807,10 +2826,13 @@ def main(argv=None) -> int:
         del lse_plain
         got, design = ran(fa, lambda: fa.flash_attention_bwd(*args_, causal=causal))
         want = fa.flash_attention_bwd_plain(*args_, causal=causal)
-        check(design == ("bwd_mma" if dtype == "bfloat16" else "bwd_simt"),
+        check(design == ("bwd_wgmma" if dtype == "bfloat16" else "bwd_simt"),
               f"flash_attention_bwd {dtype} at the {label} shape ran {design}")
+        splits_ = fa_splits(q_, k_) if design == "bwd_wgmma" else 1
         compare_bwd(f"flash_attention_bwd {dtype} {label} q{tuple(q_.shape)} kv{tuple(k_.shape)} causal={causal} "
-                    f"({design}; q, k, v, dO strided)", "flash_attention_bwd", got, want, ("dq", "dk", "dv"))
+                    f"({design}, {splits_} head splits: {fa.bwd_scratch_bytes(k_.shape[0], k_.shape[1], k_.shape[2], k_.shape[3], splits_) / 1e6:.1f} MB "
+                    f"of fp32 dK/dV partials; q, k, v, dO strided)", "flash_attention_bwd", got, want,
+                    ("dq", "dk", "dv"))
         again = fa.flash_attention_bwd(*args_, causal=causal)
         same = all(torch.equal(g_, a_) for g_, a_ in zip(got, again))
         print(f"[2] flash_attention_bwd {label}: two calls on the same inputs bit-identical: {same}")
@@ -3184,7 +3206,7 @@ def main(argv=None) -> int:
         row["default"] = row["tuned"]
         times[name] = row
         bound_ms = terms.bound_s * 1e3
-        print(f"[7] {name} {'fp32 ' + str(LRU_BWD_SHAPE) if name == 'lru_scan_bwd' else 'bf16 ' + str(RWKV_BWD_SHAPE)}: "
+        print(f"[7] {name} {'fp32 ' + str(LRU_BWD_SHAPE) if name == 'lru_scan_bwd' else f'bf16 {RWKV_BWD_SHAPE}, {rb_slices} slices'}: "
               f"{row['tuned']:.4f} / {row['tuned_again']:.4f} ms, plain {row['plain']:.2f} ms, eager "
               f"oracle (autograd through ref) {row['oracle']:.2f} ms, library none, bound {bound_ms:.4f} ms "
               f"by {terms.dominant} ({terms.flops / 1e9:.2f} GFLOP fp32, {terms.bytes_accessed / 1e6:.1f} "
@@ -3213,12 +3235,15 @@ def main(argv=None) -> int:
                "main_path": None, "terms": terms, "shape": list(shape), "causal": causal}
         row["tuned_again"] = cuda_ms(kernel, 5)
         row["default"] = row["tuned"]
+        _, row["design"] = ran(fa, kernel)
+        row["head_splits"] = fa_splits(q_, k_) if row["design"] == "bwd_wgmma" else 1
         del sq_, sk_, sv_, so_
         fb_rows[label] = row
         bound_ms = terms.bound_s * 1e3
         best = min(row["tuned"], row["tuned_again"])
         print(f"[7] flash_attention_bwd bf16 {label} q{tuple(q_.shape)} kv{tuple(k_.shape)} causal={causal} "
-              f"(mma design): {row['tuned']:.4f} / {row['tuned_again']:.4f} ms, plain {row['plain']:.2f} ms, "
+              f"({row['design']} design, {row['head_splits']} head splits): {row['tuned']:.4f} / "
+              f"{row['tuned_again']:.4f} ms, plain {row['plain']:.2f} ms, "
               f"eager oracle (autograd through ref) {row['oracle']:.2f} ms, SDPA backward {row['library']:.4f} ms, "
               f"bound {bound_ms:.4f} ms by {terms.dominant} ({terms.flops / 1e9:.1f} GFLOP in five products, "
               f"{terms.bytes_accessed / 1e6:.1f} MB; {bound_ms / best:.4f} of the roofline, "
@@ -3580,23 +3605,28 @@ def main(argv=None) -> int:
                          per_token_ms={str(c): t for c, t in row["per_token"].items()},
                          per_token_source="src/repro_torch/kernels/csrc/linear_scan.cu")
         if name in ("lru_scan_bwd", "rwkv_scan_bwd"):
-            entry.update(design="reverse_segmented" if name == "lru_scan_bwd" else "chunk_checkpoints",
+            entry.update(design="reverse_segmented" if name == "lru_scan_bwd" else "row_slices_cluster",
                          shape=list(LRU_BWD_SHAPE if name == "lru_scan_bwd" else RWKV_BWD_SHAPE),
                          ms=min(row["tuned"], row["tuned_again"]), ms_default=None,
                          oracle_ms=row["oracle"], kernels_per_call_by_T=bwd_kernel_counts[name],
                          pallas_counterpart=None)
+            if name == "rwkv_scan_bwd":
+                entry["slices"] = rb_slices
         if name == "flash_attention_bwd":  # seamless's encoder shape; qwen2-7b's layer beside it
             qrow = row["qwen2_7b"]
-            entry.update(design="mma", shape=row["shape"], causal=row["causal"],
+            entry.update(design=row["design"].removeprefix("bwd_"), head_splits=row["head_splits"],
+                         shape=row["shape"], causal=row["causal"],
                          ms=min(row["tuned"], row["tuned_again"]), ms_default=None, oracle_ms=row["oracle"],
                          kernels_per_call_by_S=bwd_kernel_counts[name], pallas_counterpart=None,
-                         train_by_family={"qwen2_7b_2_layers": train_report["qwen2_7b_2_layers"]["cuda"]["bwd_mma"],
+                         train_by_family={"qwen2_7b_2_layers": train_report["qwen2_7b_2_layers"]["cuda"]["bwd_wgmma"],
                                           **train_report["families"]["flash_bwd_launches"]},
                          qwen2_7b_shape={"shape": qrow["shape"], "causal": qrow["causal"],
                                          "ms": min(qrow["tuned"], qrow["tuned_again"]), "plain_ms": qrow["plain"],
                                          "oracle_ms": qrow["oracle"], "library_ms": qrow["library"],
                                          "bound_ms": qrow["terms"].bound_s * 1e3,
-                                         "bound_by": qrow["terms"].dominant})
+                                         "bound_by": qrow["terms"].dominant,
+                                         "design": qrow["design"].removeprefix("bwd_"),
+                                         "head_splits": qrow["head_splits"]})
         if name == "decode_attention":
             entry.update(design="split_kv", splits=row["splits_tuned"], grid=row["grid_tuned"],
                          splits_default=row["splits_default"], grid_default=row["grid_default"])

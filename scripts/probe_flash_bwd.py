@@ -16,8 +16,11 @@ Unless ``--no-times``, it times (CUDA events, one warm-up, 5 repetitions)
 the backward at the trained shapes (seamless-m4t-large-v2's encoder and
 decoder, qwen2-7b's layer) beside the eager oracle it replaced (autograd
 through ``ref.flash_attention_ref``), SDPA's backward and the bound (five
-products at 989 TFLOP/s against the bytes at 3.35 TB/s).  Inputs come from
-seed 0.  Exits 1 without a card or when a case disagrees.
+products at 989 TFLOP/s against the bytes at 3.35 TB/s), with the design
+that ran, the dK/dV pass's head split and its fp32 scratch, and each pass
+apart: the dq pass, the dK/dV pass and the sum of the split's partials,
+each its mean device time over 5 calls from a ``torch.profiler`` trace.
+Inputs come from seed 0.  Exits 1 without a card or when a case disagrees.
 """
 import argparse
 import math
@@ -59,6 +62,29 @@ def cuda_ms(fn, reps: int) -> float:
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def pass_ms(fn, reps: int) -> dict:
+    """Mean device ms a call of each kernel ``fn`` launches, by pass, from a
+    ``torch.profiler`` trace of ``reps`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    names = (("dkdv_sum", "sum"), ("dkdv", "dK/dV"), ("dq_", "dq"))
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = e.cuda_time_total
+        label = next((lab for key, lab in names if key in e.key), None)
+        if label is not None and us > 0:
+            out[label] = out.get(label, 0.0) + us / 1e3 / reps
+    return out
 
 
 def rel(got, want) -> float:
@@ -129,6 +155,12 @@ def main() -> int:
         o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, return_lse=True)
         kernel = lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)  # noqa: E731
         terms = roofline_terms(*fa.bwd_flops_bytes(q, k, v, causal), "bfloat16", H100_SXM)
+        before = dict(fa.launches_by_design)
+        kernel()
+        torch.cuda.synchronize()
+        design = [d for d, n in fa.launches_by_design.items() if n > before[d]]
+        splits = fa.bwd_head_splits(B, Kh, H // Kh, Skv, torch.cuda.get_device_properties(dev).multi_processor_count)
+        passes = pass_ms(kernel, 5)
         ms = cuda_ms(kernel, 5)
         leaves = [t.detach().transpose(1, 2) if i == 0 else t.detach() for i, t in enumerate((q, k, v))]
         leaves = [t.requires_grad_(True) for t in leaves]
@@ -149,6 +181,9 @@ def main() -> int:
                       (q, k.repeat_interleave(H // Kh, 1), v.repeat_interleave(H // Kh, 1)))
         so = F.scaled_dot_product_attention(sq, sk, sv, is_causal=causal)
         sdpa_ms = cuda_ms(lambda: torch.autograd.grad(so, (sq, sk, sv), do, retain_graph=True), 5)
+        print(f"{label}: design {design}, {splits} head splits ({fa.bwd_scratch_bytes(B, Kh, Skv, hd, splits) / 1e6:.1f} "
+              f"MB of fp32 dK/dV partials); device ms a call by pass: "
+              f"{', '.join(f'{n_} {t_:.4f}' for n_, t_ in passes.items())}")
         print(f"{label} q{tuple(q.shape)} kv{tuple(k.shape)} causal={causal}: kernel {ms:.4f} ms "
               f"({min(ms, cuda_ms(kernel, 5)):.4f} best of two), eager oracle {oracle_ms:.2f} ms, SDPA "
               f"backward {sdpa_ms:.4f} ms, bound {terms.bound_s * 1e3:.4f} ms by {terms.dominant} "

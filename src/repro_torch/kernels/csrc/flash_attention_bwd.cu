@@ -11,17 +11,17 @@
 //   dV = P^T dO                         dP = dO V^T
 //   dS = P * (dP - D)                   dQ = dS K * scale,  dK = dS^T Q * scale
 //
-// Two launches a call, each writing every output element once, so two
-// calls on the same inputs give bit-identical gradients:
+// Every output element is written once, so two calls on the same inputs
+// give bit-identical gradients (no atomics):
 //
 // - dq pass: one block per (query tile, query head, batch row).  Its
 //   prologue computes D for its rows (written to a scratch buffer for the
 //   next pass); it walks the KV tiles up to the causal bound, recomputing S
 //   and dP, and accumulates dQ.
-// - dkdv pass: one block per (KV tile, KV head, batch row).  It walks the
-//   g query heads of its group and the query tiles the causal mask lets
-//   reach the tile, recomputing S^T and dP^T, and accumulates dK and dV for
-//   all g heads at once (GQA without atomics or per-head partials).
+// - dK/dV pass: one block per (KV tile, KV head, batch row, head split).
+//   It walks its split's query heads of the group and the query tiles the
+//   causal mask lets reach the tile, recomputing S^T and dP^T, and
+//   accumulates dK and dV over those heads.
 //
 // That recomputes S and dP twice: 7 products per (query, key) pair against
 // the 5 of FA-2 with an atomic dQ.  Causal masking keeps qi >= kj aligned
@@ -29,41 +29,57 @@
 // the two agree for Sq == Skv, which is every call the models make.
 //
 // Two designs (flash_attention.py::bwd_design):
-// - "mma" (bf16, Sq and Skv multiples of 64, 16-byte rows): four warps a
-//   block, each owning 16 rows; the five products run on the tensor cores
-//   with mma.sync m16n8k16 (bf16 operands, fp32 accumulators), operands
-//   read from padded shared memory with ldmatrix (row stride hd + 8: the 8
-//   row addresses of one 8x8 matrix fall on distinct banks); the product
-//   results are turned into the next product's A operand in registers (P
-//   and dS rounded to bf16 there, which the plain version repeats).  The
-//   streamed tiles (K/V in the dq pass, Q/dO/lse/D in the dkdv pass) are
-//   double-buffered with cp.async.  Tiles: 64 query rows x 64 keys in the
-//   dq pass; 64 keys x 64 query rows (32 at hd 128, to keep dK, dV, S^T
-//   and dP^T in registers) in the dkdv pass.
+// - "wgmma" (bf16, Sq and Skv multiples of 64, 16-byte rows and starts):
+//   three launches a call.  Both passes are warp-specialised like the
+//   forward (flash_attention_wgmma.cu): the last warpgroup's first thread
+//   loads the block's fixed tiles once and streams the others through a
+//   ring of shared-memory stages with TMA (4-D tensor maps that carry the
+//   strides; "full" mbarriers count the landed bytes, "empty" ones the
+//   consumer warps done with a stage); one or two consumer warpgroups of 64
+//   rows each run every product on wgmma with fp32 accumulators:
+//     dq pass (Q and dO fixed, K and V streamed, 64 keys a stage):
+//       S = Q K^T, dP = dO V^T (A and B K-major from shared memory);
+//       dS = P * (dP - D) in registers, rounded to bf16 as the A fragment;
+//       dQ += dS K (B = K MN-major).
+//     dK/dV pass (K and V fixed, Q, dO and the tile's lse and D streamed,
+//     64 queries a stage, lse and D by a 1-D bulk copy):
+//       S^T = K Q^T, dP^T = V dO^T; P^T and dS^T in registers;
+//       dV += P^T dO and dK += dS^T Q (A from registers, B MN-major).
+//   P and dS are rounded to bf16 once, as the plain version repeats.  A
+//   consumer skips the products of a streamed tile that the causal mask
+//   hides from all its rows (it still releases the stage).  Under the
+//   causal mask the KV tiles with the most query tiles, and the query
+//   tiles with the most KV tiles, start first.
+//   Head split: when B * Kh * (Skv / tile) blocks do not fill the SMs,
+//   the g query heads of a group are split over `splits` blocks
+//   (flash_attention.py::bwd_head_splits).  Every dK/dV block writes fp32
+//   partials (splits, B, Kh, Skv, hd); the third launch sums them in split
+//   order, scales dK and writes dk and dv in their dtype and strides.  It
+//   runs at every split count, so a call is always three kernels.
 // - "simt" (fp32, and every other shape): 8 threads a row, the dot
 //   products reduced over them with shuffles, the streamed rows staged in
-//   shared memory as fp32; bf16 inputs round P and dS as the "mma" design
-//   does.  Any Sq and Skv.
+//   shared memory as fp32; bf16 inputs round P and dS as the "wgmma" design
+//   does.  Any Sq and Skv.  Two launches a call.
 //
 // What bounds it: five products of 2 hd FLOP per pair make it compute-bound
-// at every trained shape; mma.sync reaches a fraction of wgmma's rate, and
-// the split pays two extra products.  wgmma, TMA rings and warp
-// specialisation are later work.
+// at every trained shape (the split pays two extra products).  Not done
+// here (later work): overlapping one warpgroup's elementwise work with its
+// own next products, a persistent grid.
 //
 // C interface (bound with ctypes): every function returns a cudaError_t
 // code, 0 on success.  Strides are in elements; the last dim is contiguous.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int BLOCK_SMEM = 232448;  // shared memory one block may use on Hopper (227 KB)
+constexpr int BLOCK_SMEM = hopper::BLOCK_SMEM;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int THREADS = 128;
-constexpr int TILE = 64;  // the mma design's tile of the sequences (flash_attention.py BWD_TILE)
+constexpr int TILE = 64;  // rows of a streamed tile (flash_attention.py BWD_TILE)
+constexpr int CONSUMER_REGS = 240;
+constexpr int PRODUCER_REGS = 24;
 
 struct Strides {
   long long b, h, s;
@@ -76,12 +92,14 @@ struct Args {
   const void* o;
   const void* dO;
   const float* lse;  // (B, H, Sq)
-  float* D;          // (B, H, Sq) scratch: the dq pass writes it, the dkdv pass reads it
+  float* D;          // (B, H, Sq) scratch: the dq pass writes it, the dK/dV pass reads it
   void* dq;
   void* dk;
   void* dv;
+  float* dk_part;    // (splits, B, Kh, Skv, hd) fp32 scratch of the wgmma design
+  float* dv_part;
   Strides qs, ks, vs, os, dos, dqs, dks, dvs;
-  int H, Kh, Sq, Skv, causal;
+  int B, H, Kh, Sq, Skv, causal, splits;
   float scale;
 };
 
@@ -93,357 +111,385 @@ template <> __device__ __forceinline__ bf16 from_float<bf16>(float x) { return _
 // x rounded to T, as a tensor-core operand of type T would hold it
 template <typename T> __device__ __forceinline__ float round_to(float x) { return to_float(from_float<T>(x)); }
 
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// ------------------------------------------------------------------ mma helpers
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src));
-}
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N> __device__ __forceinline__ void cp_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-// d += a b, m16n8k16, bf16 operands, fp32 accumulators
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Fragment addresses in a row-major shared tile of row stride LD (elements),
-// for the 32 lanes of one ldmatrix.x4:
-// A operand, 16 x 16 at (r0, c0): registers a0..a3 of mma's A fragment.
-template <int LD> __device__ __forceinline__ const bf16* frag_a(const bf16* t, int r0, int c0, int lane) {
-  return t + (r0 + (lane & 15)) * LD + c0 + (lane >> 4) * 8;
-}
-// B operand from a tile stored N x K (B = tile^T): two n8 tiles at rows n0
-// and n0 + 8, k16 at column k0 -> {b0, b1} of n-tile n0, {b0, b1} of n0 + 8.
-template <int LD> __device__ __forceinline__ const bf16* frag_b(const bf16* t, int n0, int k0, int lane) {
-  return t + (n0 + (lane & 7) + ((lane >> 4) << 3)) * LD + k0 + ((lane >> 3) & 1) * 8;
-}
-// B operand from a tile stored K x N (ldmatrix.trans): k16 at row k0, two
-// n8 tiles at columns n0 and n0 + 8.
-template <int LD> __device__ __forceinline__ const bf16* frag_bt(const bf16* t, int k0, int n0, int lane) {
-  return t + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + n0 + (lane >> 4) * 8;
-}
-
-// rows x HD bf16 from global (row stride rs) into a shared tile of stride HD + 8
+// =========================================================== "wgmma" design
+// Shared memory: `fixed` tiles of `rows` x HD loaded once, then `stages`
+// stages of two streamed TILE x HD tiles, each rounded up to the 128-byte
+// swizzle's 1024-byte period (hopper.cuh), then (dK/dV pass) each stage's
+// lse and D rows, then the mbarriers; 1024 bytes to align the start.
 template <int HD>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long long rs, int rows) {
-  constexpr int CPR = HD / 8;  // 16-byte chunks a row
-  for (int idx = threadIdx.x; idx < rows * CPR; idx += THREADS) {
-    const int r = idx / CPR, c = (idx % CPR) * 8;
-    cp_async16(dst + r * (HD + 8) + c, src + r * rs + c);
-  }
-}
+__host__ __device__ constexpr int tile_bytes(int rows) { return hopper::round_up(rows * HD * 2, 1024); }
 
-// C fragments of two adjacent n8 tiles (columns 16c .. 16c + 15) as the A
-// fragment of the k16 chunk c of the next product, rounded to bf16
-__device__ __forceinline__ void to_a(uint32_t (&a)[4], const float (&c0)[4], const float (&c1)[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
-}
-
-// the 16 x (HD) accumulator of a warp, scaled, as bf16 pairs into dst (row stride rs)
+// D and lse (log2 units) of this thread's two rows (row_base + r_lo and
+// + 8; the 4 threads of a quad share them): each thread sums HD / 4
+// columns of dO * O, then two shuffles.  The quad's first thread writes D.
 template <int HD>
-__device__ __forceinline__ void store_rows(bf16* dst, long long rs, const float (&acc)[HD / 8][4], float mult,
-                                           int lane) {
-  const int g = lane >> 2, t4 = lane & 3;
+__device__ __forceinline__ void rows_d_lse(const Args& a, int b, int h, int row_base, int t_id, float (&Dr)[2],
+                                           float (&L2)[2]) {
+  const int r_lo = hopper::acc_row(t_id, 0), c0 = (t_id % 4) * (HD / 4);
 #pragma unroll
-  for (int n = 0; n < HD / 8; ++n) {
-    const int col = n * 8 + 2 * t4;
-    *reinterpret_cast<uint32_t*>(dst + g * rs + col) = pack_bf16(acc[n][0] * mult, acc[n][1] * mult);
-    *reinterpret_cast<uint32_t*>(dst + (g + 8) * rs + col) = pack_bf16(acc[n][2] * mult, acc[n][3] * mult);
+  for (int r = 0; r < 2; ++r) {
+    const long long row = row_base + r_lo + 8 * r;
+    const __nv_bfloat162* orow = reinterpret_cast<const __nv_bfloat162*>(
+        static_cast<const bf16*>(a.o) + b * a.os.b + h * a.os.h + row * a.os.s + c0);
+    const __nv_bfloat162* drow = reinterpret_cast<const __nv_bfloat162*>(
+        static_cast<const bf16*>(a.dO) + b * a.dos.b + h * a.dos.h + row * a.dos.s + c0);
+    float d = 0.f;
+#pragma unroll
+    for (int c = 0; c < HD / 8; ++c) {
+      const float2 of = __bfloat1622float2(orow[c]), df = __bfloat1622float2(drow[c]);
+      d = fmaf(df.x, of.x, d);
+      d = fmaf(df.y, of.y, d);
+    }
+    d += __shfl_xor_sync(0xffffffffu, d, 1);
+    d += __shfl_xor_sync(0xffffffffu, d, 2);
+    const long long gi = (static_cast<long long>(b) * a.H + h) * a.Sq + row;
+    if (t_id % 4 == 0) a.D[gi] = d;
+    Dr[r] = d;
+    L2[r] = a.lse[gi] * LOG2E;
   }
 }
 
-// D for the 64 rows of O and dO a block owns, two threads a row, into D
-// (global) and Ds (shared)
-template <int HD>
-__device__ __forceinline__ void rowsum_do_o(const bf16* ob, long long os_s, const bf16* dob, long long dos_s,
-                                            float* Dg, float* Ds) {
-  const int r = threadIdx.x / 2, half = threadIdx.x % 2;
-  float d = 0.f;
-  {  // THREADS / 2 == TILE rows
-    const bf16* orow = ob + r * os_s + half * (HD / 2);
-    const bf16* drow = dob + r * dos_s + half * (HD / 2);
-#pragma unroll 8
-    for (int c = 0; c < HD / 2; ++c) d = fmaf(to_float(drow[c]), to_float(orow[c]), d);
-  }
-  d += __shfl_xor_sync(0xffffffffu, d, 1);
-  if (half == 0) {
-    Dg[r] = d;
-    Ds[r] = d;
+// The accumulator fragment (fp32, m64nNk16 layout) as the A fragments of
+// the next product's k16 chunks, rounded to bf16 pairs.
+template <int N>
+__device__ __forceinline__ void to_a(uint32_t (&dst)[N / 16][4], const float (&acc)[N / 2]) {
+#pragma unroll
+  for (int c = 0; c < N / 16; ++c) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dst[c][j] = hopper::pack_bf16(acc[8 * c + 2 * j], acc[8 * c + 2 * j + 1]);
+    hopper::fence_regs(dst[c]);
   }
 }
 
-// ============================================================ "mma" design
+// One block per (query tile of block_q = 64 n_consumers rows, query head,
+// batch row); block index order puts the query tiles that read the most KV
+// tiles first under the causal mask.
 template <int HD>
-__global__ void __launch_bounds__(THREADS) dq_mma_kernel(Args a) {
-  constexpr int LD = HD + 8, BQ = TILE, BKV = TILE;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dOs = Qs + BQ * LD;
-  bf16* Ks = dOs + BQ * LD;    // 2 stages
-  bf16* Vs = Ks + 2 * BKV * LD;  // 2 stages
-  float* Ds = reinterpret_cast<float*>(Vs + 2 * BKV * LD);
-  float* Ls = Ds + BQ;
+__global__ void __launch_bounds__(384, 1)
+dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_do,
+                const __grid_constant__ CUtensorMap map_k, const __grid_constant__ CUtensorMap map_v,
+                const Args a, int block_q, int stages) {
+  constexpr int SW = hopper::swizzle_bytes(HD), CC = SW / 2, BKV = TILE;
+  constexpr int KV_BYTES = tile_bytes<HD>(BKV);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
+  const int q_bytes = tile_bytes<HD>(block_q);
+  unsigned char* qs = smem;
+  unsigned char* dos = qs + q_bytes;
+  unsigned char* ring = dos + q_bytes;  // stage s: K at ring + 2 s KV_BYTES, V after it
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(ring + stages * 2 * KV_BYTES);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + stages;
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t4 = lane & 3;
-  const int n_q = a.Sq / BQ;
-  const int q0 = (a.causal ? n_q - 1 - blockIdx.x : blockIdx.x) * BQ;  // heaviest tiles first
-  const int h = blockIdx.y, b = blockIdx.z, kvh = h / (a.H / a.Kh);
-  const bf16* qb = static_cast<const bf16*>(a.q) + b * a.qs.b + h * a.qs.h + q0 * a.qs.s;
-  const bf16* dob = static_cast<const bf16*>(a.dO) + b * a.dos.b + h * a.dos.h + q0 * a.dos.s;
-  const bf16* ob = static_cast<const bf16*>(a.o) + b * a.os.b + h * a.os.h + q0 * a.os.s;
-  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.ks.b + kvh * a.ks.h;
-  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.vs.b + kvh * a.vs.h;
-  const long long row0 = (static_cast<long long>(b) * a.H + h) * a.Sq + q0;
-  const int n_kv = a.causal ? min(a.Skv / BKV, (q0 + BQ - 1) / BKV + 1) : a.Skv / BKV;
+  const int wg = threadIdx.x / 128;
+  const int n_consumers = blockDim.x / 128 - 1;
+  const int n_qt = a.Sq / block_q, rest = a.H * a.B;
+  const int qt = a.causal ? n_qt - 1 - static_cast<int>(blockIdx.x) / rest : static_cast<int>(blockIdx.x) / rest;
+  const int h = blockIdx.x % rest % a.H, b = blockIdx.x % rest / a.H;
+  const int q0 = qt * block_q, kvh = h / (a.H / a.Kh);
+  const int n_kv = a.causal ? min(a.Skv / BKV, (q0 + block_q - 1) / BKV + 1) : a.Skv / BKV;
 
-  load_tile<HD>(Qs, qb, a.qs.s, BQ);
-  load_tile<HD>(dOs, dob, a.dos.s, BQ);
-  if (n_kv > 0) {
-    load_tile<HD>(Ks, kb, a.ks.s, BKV);
-    load_tile<HD>(Vs, vb, a.vs.s, BKV);
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < stages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 4 * n_consumers);  // one arrival per consumer warp
+    }
+    hopper::mbar_fence_init();
   }
-  cp_commit();
-  rowsum_do_o<HD>(ob, a.os.s, dob, a.dos.s, a.D + row0, Ds);
-  if (threadIdx.x < BQ) Ls[threadIdx.x] = a.lse[row0 + threadIdx.x] * LOG2E;
   __syncthreads();
-  const int r_lo = warp * 16 + g;  // this thread's two rows: r_lo and r_lo + 8
-  const float lse2[2] = {Ls[r_lo], Ls[r_lo + 8]};
-  const float Dr[2] = {Ds[r_lo], Ds[r_lo + 8]};
-  const float c = a.scale * LOG2E;
 
-  float dq[HD / 8][4];
+  if (wg == n_consumers) {
+    // ------------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(PRODUCER_REGS));
+    if (threadIdx.x == n_consumers * 128) {
+      hopper::prefetch_map(&map_q);
+      hopper::prefetch_map(&map_do);
+      hopper::prefetch_map(&map_k);
+      hopper::prefetch_map(&map_v);
+      hopper::mbar_expect_tx(q_full, static_cast<uint32_t>(2 * block_q * HD * 2));
 #pragma unroll
-  for (int n = 0; n < HD / 8; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
-
-  for (int t = 0; t < n_kv; ++t) {
-    const int kv0 = t * BKV;
-    if (t + 1 < n_kv) {  // the other stage was last read in iteration t - 1
-      load_tile<HD>(Ks + ((t + 1) & 1) * BKV * LD, kb + (kv0 + BKV) * a.ks.s, a.ks.s, BKV);
-      load_tile<HD>(Vs + ((t + 1) & 1) * BKV * LD, vb + (kv0 + BKV) * a.vs.s, a.vs.s, BKV);
-      cp_commit();
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
-    }
-    __syncthreads();
-    const bf16* Kt = Ks + (t & 1) * BKV * LD;
-    const bf16* Vt = Vs + (t & 1) * BKV * LD;
-
-    // S = Q K^T and dP = dO V^T for this warp's 16 rows
-    float s[BKV / 8][4], dp[BKV / 8][4];
+      for (int ch = 0; ch < HD / CC; ++ch) {
+        hopper::tma_load_4d(qs + ch * block_q * SW, &map_q, q_full, ch * CC, q0, h, b);
+        hopper::tma_load_4d(dos + ch * block_q * SW, &map_do, q_full, ch * CC, q0, h, b);
+      }
+      for (int t = 0; t < n_kv; ++t) {
+        const int s = t % stages;
+        if (t >= stages) hopper::mbar_wait(&empty[s], ((t / stages) - 1) & 1);
+        unsigned char* ks = ring + s * 2 * KV_BYTES;
+        unsigned char* vs = ks + KV_BYTES;
+        hopper::mbar_expect_tx(&full[s], static_cast<uint32_t>(2 * BKV * HD * 2));
 #pragma unroll
-    for (int n = 0; n < BKV / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      uint32_t aq[4], ado[4];
-      ldsm_x4(aq, frag_a<LD>(Qs, warp * 16, kk * 16, lane));
-      ldsm_x4(ado, frag_a<LD>(dOs, warp * 16, kk * 16, lane));
-#pragma unroll
-      for (int n = 0; n < BKV / 16; ++n) {
-        uint32_t bk[4], bv[4];
-        ldsm_x4(bk, frag_b<LD>(Kt, n * 16, kk * 16, lane));
-        ldsm_x4(bv, frag_b<LD>(Vt, n * 16, kk * 16, lane));
-        mma(s[2 * n], aq, bk[0], bk[1]);
-        mma(s[2 * n + 1], aq, bk[2], bk[3]);
-        mma(dp[2 * n], ado, bv[0], bv[1]);
-        mma(dp[2 * n + 1], ado, bv[2], bv[3]);
+        for (int ch = 0; ch < HD / CC; ++ch) {
+          hopper::tma_load_4d(ks + ch * BKV * SW, &map_k, &full[s], ch * CC, t * BKV, kvh, b);
+          hopper::tma_load_4d(vs + ch * BKV * SW, &map_v, &full[s], ch * CC, t * BKV, kvh, b);
+        }
       }
     }
-    // P = exp(S scale - lse), dS = P (dP - D), into s
-    const bool mask = a.causal && kv0 + BKV - 1 > q0 + warp * 16;
+  } else {
+    // ----------------------------------------------------------- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(CONSUMER_REGS));
+    const int t_id = threadIdx.x % 128;
+    const int lane = threadIdx.x % 32;
+    const int row_base = q0 + wg * 64;  // this warpgroup's first query row
+    const float c = a.scale * LOG2E;
+    float Dr[2], L2[2];
+    rows_d_lse<HD>(a, b, h, row_base, t_id, Dr, L2);
+    float dq[HD / 2];
 #pragma unroll
-    for (int n = 0; n < BKV / 8; ++n)
+    for (int i = 0; i < HD / 2; ++i) dq[i] = 0.f;
+
+    hopper::mbar_wait(q_full, 0);
+    for (int t = 0; t < n_kv; ++t) {
+      const int s = t % stages;
+      const int kv0 = t * BKV;
+      const unsigned char* ks = ring + s * 2 * KV_BYTES;
+      const unsigned char* vs = ks + KV_BYTES;
+      hopper::mbar_wait(&full[s], (t / stages) & 1);
+      if (!(a.causal && kv0 > row_base + 63)) {  // else every key of the tile is in this warpgroup's future
+        // S = Q K^T and dP = dO V^T
+        float sacc[BKV / 2], dp[BKV / 2];
+        hopper::wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float p = exp2_approx(fmaf(s[n][e], c, -lse2[e >> 1]));
-        if (mask && kv0 + n * 8 + 2 * t4 + (e & 1) > q0 + r_lo + 8 * (e >> 1)) p = 0.f;
-        s[n][e] = p * (dp[n][e] - Dr[e >> 1]);
+        for (int kk = 0; kk < HD / 16; ++kk) {
+          const int chunk = kk * 16 / CC, inner = (kk * 16 % CC) * 2;
+          const uint64_t dq_ = hopper::desc(qs + chunk * block_q * SW + wg * 64 * SW + inner, 16, 8 * SW, SW);
+          const uint64_t dk_ = hopper::desc(ks + chunk * BKV * SW + inner, 16, 8 * SW, SW);
+          if (kk == 0) hopper::Wgmma<BKV>::template ss_overwrite<0>(sacc, dq_, dk_);
+          else hopper::Wgmma<BKV>::template ss<0>(sacc, dq_, dk_, 1);
+        }
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) {
+          const int chunk = kk * 16 / CC, inner = (kk * 16 % CC) * 2;
+          const uint64_t ddo = hopper::desc(dos + chunk * block_q * SW + wg * 64 * SW + inner, 16, 8 * SW, SW);
+          const uint64_t dv_ = hopper::desc(vs + chunk * BKV * SW + inner, 16, 8 * SW, SW);
+          if (kk == 0) hopper::Wgmma<BKV>::template ss_overwrite<0>(dp, ddo, dv_);
+          else hopper::Wgmma<BKV>::template ss<0>(dp, ddo, dv_, 1);
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(sacc);
+        hopper::fence_regs(dp);
+        // P = exp(S scale - lse) (0 where qi < kj), dS = P (dP - D), into sacc
+        const bool mask = a.causal && kv0 + BKV - 1 > row_base;
+#pragma unroll
+        for (int i = 0; i < BKV / 2; ++i) {
+          const int r = (i >> 1) & 1;
+          float p = hopper::exp2_approx(fmaf(sacc[i], c, -L2[r]));
+          if (mask && row_base + hopper::acc_row(t_id, i) < kv0 + hopper::acc_col(t_id, i)) p = 0.f;
+          sacc[i] = p * (dp[i] - Dr[r]);
+        }
+        // dQ += dS K, dS from registers
+        uint32_t da[BKV / 16][4];
+        to_a<BKV>(da, sacc);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int ck = 0; ck < BKV / 16; ++ck)
+          hopper::Wgmma<HD>::template rs<1>(dq, da[ck], hopper::desc(ks + ck * 16 * SW, BKV * SW, 8 * SW, SW), 1);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(dq);
       }
-    // dQ += dS K
-#pragma unroll
-    for (int ck = 0; ck < BKV / 16; ++ck) {
-      uint32_t ads[4];
-      to_a(ads, s[2 * ck], s[2 * ck + 1]);
-#pragma unroll
-      for (int n = 0; n < HD / 16; ++n) {
-        uint32_t bk[4];
-        ldsm_x4_t(bk, frag_bt<LD>(Kt, ck * 16, n * 16, lane));
-        mma(dq[2 * n], ads, bk[0], bk[1]);
-        mma(dq[2 * n + 1], ads, bk[2], bk[3]);
-      }
+      if (lane == 0) hopper::mbar_arrive(&empty[s]);  // every product that read this stage is done
     }
-    __syncthreads();  // this stage is free for iteration t + 2's load
+    bf16* dqb = static_cast<bf16*>(a.dq) + b * a.dqs.b + h * a.dqs.h;
+#pragma unroll
+    for (int i = 0; i < HD / 2; i += 2) {
+      const long long row = row_base + hopper::acc_row(t_id, i);
+      const int col = hopper::acc_col(t_id, i);
+      *reinterpret_cast<uint32_t*>(dqb + row * a.dqs.s + col) = hopper::pack_bf16(dq[i] * a.scale, dq[i + 1] * a.scale);
+    }
   }
-  bf16* dqb = static_cast<bf16*>(a.dq) + b * a.dqs.b + h * a.dqs.h + (q0 + warp * 16) * a.dqs.s;
-  store_rows<HD>(dqb, a.dqs.s, dq, a.scale, lane);
 }
 
-template <int HD, int BQ>
-__global__ void __launch_bounds__(THREADS) dkdv_mma_kernel(Args a) {
-  constexpr int LD = HD + 8, BKV = TILE;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = Ks + BKV * LD;
-  bf16* Qs = Vs + BKV * LD;      // 2 stages
-  bf16* dOs = Qs + 2 * BQ * LD;  // 2 stages
-  float* Ls = reinterpret_cast<float*>(dOs + 2 * BQ * LD);  // 2 stages
-  float* Ds = Ls + 2 * BQ;                                   // 2 stages
+// One block per (KV tile of block_kv = 64 n_consumers keys, KV head, head
+// split, batch row); block index order puts the KV tiles that the most query
+// tiles reach first under the causal mask.  Writes fp32 partials.
+template <int HD>
+__global__ void __launch_bounds__(384, 1)
+dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_k, const __grid_constant__ CUtensorMap map_v,
+                  const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_do,
+                  const Args a, int block_kv, int stages) {
+  constexpr int SW = hopper::swizzle_bytes(HD), CC = SW / 2, BQ = TILE;
+  constexpr int QT_BYTES = tile_bytes<HD>(BQ);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
+  const int kv_bytes = tile_bytes<HD>(block_kv);
+  unsigned char* ks = smem;
+  unsigned char* vs = ks + kv_bytes;
+  unsigned char* ring = vs + kv_bytes;  // stage s: Q at ring + 2 s QT_BYTES, dO after it
+  float* lsd = reinterpret_cast<float*>(ring + stages * 2 * QT_BYTES);  // stage s: lse at lsd + 2 s BQ, D after it
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(lsd + stages * 2 * BQ);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + stages;
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t4 = lane & 3;
-  const int kv0 = blockIdx.x * BKV, kvh = blockIdx.y, b = blockIdx.z;
-  const int group = a.H / a.Kh;
+  const int wg = threadIdx.x / 128;
+  const int n_consumers = blockDim.x / 128 - 1;
+  const int rest = a.Kh * a.splits * a.B;
+  const int kt = blockIdx.x / rest, r2 = blockIdx.x % rest;
+  const int kvh = r2 % a.Kh, split = r2 / a.Kh % a.splits, b = r2 / (a.Kh * a.splits);
+  const int kv0 = kt * block_kv;
+  const int gs = a.H / a.Kh / a.splits;  // query heads this block walks
+  const int h_first = kvh * (a.H / a.Kh) + split * gs;
   const int n_qt = a.Sq / BQ;
   // query tiles with a row qi >= kv0 (top-left causal); none when kv0 >= Sq
   const int q_first = a.causal ? min(kv0 / BQ, n_qt) : 0;
   const int per_head = n_qt - q_first;
-  const int total = group * per_head;
+  const int total = gs * per_head;
 
-  auto load = [&](int it, int stage) {
-    const int hh = kvh * group + it / per_head;
-    const int q0 = (q_first + it % per_head) * BQ;
-    load_tile<HD>(Qs + stage * BQ * LD,
-                  static_cast<const bf16*>(a.q) + b * a.qs.b + hh * a.qs.h + q0 * a.qs.s, a.qs.s, BQ);
-    load_tile<HD>(dOs + stage * BQ * LD,
-                  static_cast<const bf16*>(a.dO) + b * a.dos.b + hh * a.dos.h + q0 * a.dos.s, a.dos.s, BQ);
-    const long long row0 = (static_cast<long long>(b) * a.H + hh) * a.Sq + q0;
-    for (int i = threadIdx.x; i < BQ; i += THREADS) {
-      cp_async4(Ls + stage * BQ + i, a.lse + row0 + i);
-      cp_async4(Ds + stage * BQ + i, a.D + row0 + i);
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kv_full, 1);
+    for (int s = 0; s < stages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 4 * n_consumers);
     }
-  };
-
-  load_tile<HD>(Ks, static_cast<const bf16*>(a.k) + b * a.ks.b + kvh * a.ks.h + kv0 * a.ks.s, a.ks.s, BKV);
-  load_tile<HD>(Vs, static_cast<const bf16*>(a.v) + b * a.vs.b + kvh * a.vs.h + kv0 * a.vs.s, a.vs.s, BKV);
-  if (total > 0) load(0, 0);
-  cp_commit();
-
-  const float c = a.scale * LOG2E;
-  const int j_lo = warp * 16 + g;  // this thread's two key rows: j_lo and j_lo + 8
-  float dk[HD / 8][4], dv[HD / 8][4];
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-
-  for (int it = 0; it < total; ++it) {
-    const int q0 = (q_first + it % per_head) * BQ;
-    if (it + 1 < total) {  // the other stage was last read in iteration it - 1
-      load(it + 1, (it + 1) & 1);
-      cp_commit();
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
-    }
-    __syncthreads();
-    const bf16* Qt = Qs + (it & 1) * BQ * LD;
-    const bf16* dOt = dOs + (it & 1) * BQ * LD;
-    const float* Lt = Ls + (it & 1) * BQ;
-    const float* Dt = Ds + (it & 1) * BQ;
-
-    // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys
-    float s[BQ / 8][4], dp[BQ / 8][4];
-#pragma unroll
-    for (int n = 0; n < BQ / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      uint32_t ak[4], av[4];
-      ldsm_x4(ak, frag_a<LD>(Ks, warp * 16, kk * 16, lane));
-      ldsm_x4(av, frag_a<LD>(Vs, warp * 16, kk * 16, lane));
-#pragma unroll
-      for (int n = 0; n < BQ / 16; ++n) {
-        uint32_t bq[4], bdo[4];
-        ldsm_x4(bq, frag_b<LD>(Qt, n * 16, kk * 16, lane));
-        ldsm_x4(bdo, frag_b<LD>(dOt, n * 16, kk * 16, lane));
-        mma(s[2 * n], ak, bq[0], bq[1]);
-        mma(s[2 * n + 1], ak, bq[2], bq[3]);
-        mma(dp[2 * n], av, bdo[0], bdo[1]);
-        mma(dp[2 * n + 1], av, bdo[2], bdo[3]);
-      }
-    }
-    // P^T = exp(S^T scale - lse) (0 where qi < kj)
-    const bool mask = a.causal && q0 < kv0 + warp * 16 + 15;
-#pragma unroll
-    for (int n = 0; n < BQ / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = n * 8 + 2 * t4 + (e & 1);
-        float p = exp2_approx(fmaf(s[n][e], c, -Lt[col] * LOG2E));
-        if (mask && q0 + col < kv0 + j_lo + 8 * (e >> 1)) p = 0.f;
-        s[n][e] = p;
-      }
-    // dV += P^T dO (P^T rounded to bf16 as the A operand)
-#pragma unroll
-    for (int ck = 0; ck < BQ / 16; ++ck) {
-      uint32_t ap[4];
-      to_a(ap, s[2 * ck], s[2 * ck + 1]);
-#pragma unroll
-      for (int n = 0; n < HD / 16; ++n) {
-        uint32_t bdo[4];
-        ldsm_x4_t(bdo, frag_bt<LD>(dOt, ck * 16, n * 16, lane));
-        mma(dv[2 * n], ap, bdo[0], bdo[1]);
-        mma(dv[2 * n + 1], ap, bdo[2], bdo[3]);
-      }
-    }
-    // dS^T = P^T (dP^T - D), then dK += dS^T Q
-#pragma unroll
-    for (int n = 0; n < BQ / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] *= dp[n][e] - Dt[n * 8 + 2 * t4 + (e & 1)];
-#pragma unroll
-    for (int ck = 0; ck < BQ / 16; ++ck) {
-      uint32_t ads[4];
-      to_a(ads, s[2 * ck], s[2 * ck + 1]);
-#pragma unroll
-      for (int n = 0; n < HD / 16; ++n) {
-        uint32_t bq[4];
-        ldsm_x4_t(bq, frag_bt<LD>(Qt, ck * 16, n * 16, lane));
-        mma(dk[2 * n], ads, bq[0], bq[1]);
-        mma(dk[2 * n + 1], ads, bq[2], bq[3]);
-      }
-    }
-    __syncthreads();  // this stage is free for iteration it + 2's load
+    hopper::mbar_fence_init();
   }
-  cp_wait<0>();  // nothing in flight at exit (total == 0 still loaded K and V)
-  bf16* dkb = static_cast<bf16*>(a.dk) + b * a.dks.b + kvh * a.dks.h + (kv0 + warp * 16) * a.dks.s;
-  bf16* dvb = static_cast<bf16*>(a.dv) + b * a.dvs.b + kvh * a.dvs.h + (kv0 + warp * 16) * a.dvs.s;
-  store_rows<HD>(dkb, a.dks.s, dk, a.scale, lane);
-  store_rows<HD>(dvb, a.dvs.s, dv, 1.f, lane);
+  __syncthreads();
+
+  if (wg == n_consumers) {
+    // ------------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(PRODUCER_REGS));
+    if (threadIdx.x == n_consumers * 128) {
+      hopper::prefetch_map(&map_k);
+      hopper::prefetch_map(&map_v);
+      hopper::prefetch_map(&map_q);
+      hopper::prefetch_map(&map_do);
+      hopper::mbar_expect_tx(kv_full, static_cast<uint32_t>(2 * block_kv * HD * 2));
+#pragma unroll
+      for (int ch = 0; ch < HD / CC; ++ch) {
+        hopper::tma_load_4d(ks + ch * block_kv * SW, &map_k, kv_full, ch * CC, kv0, kvh, b);
+        hopper::tma_load_4d(vs + ch * block_kv * SW, &map_v, kv_full, ch * CC, kv0, kvh, b);
+      }
+      for (int it = 0; it < total; ++it) {
+        const int s = it % stages;
+        if (it >= stages) hopper::mbar_wait(&empty[s], ((it / stages) - 1) & 1);
+        const int hh = h_first + it / per_head;
+        const int q0 = (q_first + it % per_head) * BQ;
+        unsigned char* qst = ring + s * 2 * QT_BYTES;
+        unsigned char* dost = qst + QT_BYTES;
+        hopper::mbar_expect_tx(&full[s], static_cast<uint32_t>(2 * BQ * HD * 2 + 2 * BQ * 4));
+#pragma unroll
+        for (int ch = 0; ch < HD / CC; ++ch) {
+          hopper::tma_load_4d(qst + ch * BQ * SW, &map_q, &full[s], ch * CC, q0, hh, b);
+          hopper::tma_load_4d(dost + ch * BQ * SW, &map_do, &full[s], ch * CC, q0, hh, b);
+        }
+        const long long row0 = (static_cast<long long>(b) * a.H + hh) * a.Sq + q0;
+        hopper::bulk_load(lsd + s * 2 * BQ, a.lse + row0, BQ * 4, &full[s]);
+        hopper::bulk_load(lsd + s * 2 * BQ + BQ, a.D + row0, BQ * 4, &full[s]);
+      }
+    }
+  } else {
+    // ----------------------------------------------------------- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(CONSUMER_REGS));
+    const int t_id = threadIdx.x % 128;
+    const int lane = threadIdx.x % 32;
+    const int kw = kv0 + wg * 64;  // this warpgroup's first key
+    const float c = a.scale * LOG2E;
+    float dk[HD / 2], dv[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.f;
+
+    hopper::mbar_wait(kv_full, 0);
+    for (int it = 0; it < total; ++it) {
+      const int s = it % stages;
+      const int q0 = (q_first + it % per_head) * BQ;
+      const unsigned char* qst = ring + s * 2 * QT_BYTES;
+      const unsigned char* dost = qst + QT_BYTES;
+      const float* Ls = lsd + s * 2 * BQ;
+      const float* Ds = Ls + BQ;
+      hopper::mbar_wait(&full[s], (it / stages) & 1);
+      if (!(a.causal && q0 + BQ - 1 < kw)) {  // else every query of the tile precedes this warpgroup's keys
+        // S^T = K Q^T and dP^T = V dO^T
+        float st[BQ / 2], dpt[BQ / 2];
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) {
+          const int chunk = kk * 16 / CC, inner = (kk * 16 % CC) * 2;
+          const uint64_t dk_ = hopper::desc(ks + chunk * block_kv * SW + wg * 64 * SW + inner, 16, 8 * SW, SW);
+          const uint64_t dq_ = hopper::desc(qst + chunk * BQ * SW + inner, 16, 8 * SW, SW);
+          if (kk == 0) hopper::Wgmma<BQ>::template ss_overwrite<0>(st, dk_, dq_);
+          else hopper::Wgmma<BQ>::template ss<0>(st, dk_, dq_, 1);
+        }
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) {
+          const int chunk = kk * 16 / CC, inner = (kk * 16 % CC) * 2;
+          const uint64_t dv_ = hopper::desc(vs + chunk * block_kv * SW + wg * 64 * SW + inner, 16, 8 * SW, SW);
+          const uint64_t ddo = hopper::desc(dost + chunk * BQ * SW + inner, 16, 8 * SW, SW);
+          if (kk == 0) hopper::Wgmma<BQ>::template ss_overwrite<0>(dpt, dv_, ddo);
+          else hopper::Wgmma<BQ>::template ss<0>(dpt, dv_, ddo, 1);
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(st);
+        hopper::fence_regs(dpt);
+        // P^T = exp(S^T scale - lse) (0 where qi < kj) into st, dS^T = P^T (dP^T - D) into dpt;
+        // register i holds query column 8 (i / 4) + 2 (t % 4) + i % 2
+        const bool mask = a.causal && q0 < kw + 63;
+#pragma unroll
+        for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = 8 * j + 2 * (t_id % 4) + e;
+            const float l2 = Ls[col] * LOG2E, dd = Ds[col];
+#pragma unroll
+            for (int rr = 0; rr < 2; ++rr) {
+              const int i = 4 * j + 2 * rr + e;
+              float p = hopper::exp2_approx(fmaf(st[i], c, -l2));
+              if (mask && q0 + col < kw + hopper::acc_row(t_id, i)) p = 0.f;
+              st[i] = p;
+              dpt[i] = p * (dpt[i] - dd);
+            }
+          }
+        // dV += P^T dO, dK += dS^T Q: A from registers, B MN-major
+        uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+        to_a<BQ>(pa, st);
+        to_a<BQ>(da, dpt);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int ck = 0; ck < BQ / 16; ++ck) {
+          hopper::Wgmma<HD>::template rs<1>(dv, pa[ck], hopper::desc(dost + ck * 16 * SW, BQ * SW, 8 * SW, SW), 1);
+          hopper::Wgmma<HD>::template rs<1>(dk, da[ck], hopper::desc(qst + ck * 16 * SW, BQ * SW, 8 * SW, SW), 1);
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(dv);
+        hopper::fence_regs(dk);
+      }
+      if (lane == 0) hopper::mbar_arrive(&empty[s]);
+    }
+    const long long base = ((static_cast<long long>(split) * a.B + b) * a.Kh + kvh) * a.Skv;
+#pragma unroll
+    for (int i = 0; i < HD / 2; i += 2) {
+      const long long off = (base + kw + hopper::acc_row(t_id, i)) * HD + hopper::acc_col(t_id, i);
+      *reinterpret_cast<float2*>(a.dk_part + off) = make_float2(dk[i], dk[i + 1]);
+      *reinterpret_cast<float2*>(a.dv_part + off) = make_float2(dv[i], dv[i + 1]);
+    }
+  }
+}
+
+// dk = scale * sum of the splits' dK partials, dv = sum of the dV partials,
+// in split order; four elements a thread, written in bf16 with dk's and
+// dv's strides.
+__global__ void __launch_bounds__(256) dkdv_sum_kernel(const Args a, int hd) {
+  const long long n4 = static_cast<long long>(a.B) * a.Kh * a.Skv * hd / 4;
+  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= n4) return;
+  const long long e = idx * 4, per = n4 * 4;
+  const int col = static_cast<int>(e % hd);
+  const long long row = e / hd % a.Skv, kvh = e / hd / a.Skv % a.Kh, b = e / hd / a.Skv / a.Kh;
+  float4 sk = make_float4(0.f, 0.f, 0.f, 0.f), sv = sk;
+  for (int s = 0; s < a.splits; ++s) {
+    const float4 pk = *reinterpret_cast<const float4*>(a.dk_part + s * per + e);
+    const float4 pv = *reinterpret_cast<const float4*>(a.dv_part + s * per + e);
+    sk.x += pk.x; sk.y += pk.y; sk.z += pk.z; sk.w += pk.w;
+    sv.x += pv.x; sv.y += pv.y; sv.z += pv.z; sv.w += pv.w;
+  }
+  bf16* dkp = static_cast<bf16*>(a.dk) + b * a.dks.b + kvh * a.dks.h + row * a.dks.s + col;
+  bf16* dvp = static_cast<bf16*>(a.dv) + b * a.dvs.b + kvh * a.dvs.h + row * a.dvs.s + col;
+  *reinterpret_cast<uint2*>(dkp) = make_uint2(hopper::pack_bf16(sk.x * a.scale, sk.y * a.scale),
+                                              hopper::pack_bf16(sk.z * a.scale, sk.w * a.scale));
+  *reinterpret_cast<uint2*>(dvp) = make_uint2(hopper::pack_bf16(sv.x, sv.y), hopper::pack_bf16(sv.z, sv.w));
 }
 
 // =========================================================== "simt" design
@@ -592,37 +638,63 @@ __global__ void __launch_bounds__(THREADS) dkdv_simt_kernel(Args a) {
 }
 
 // ================================================================ launches
-template <int HD> constexpr int dkdv_bq() { return HD == 128 ? 32 : 64; }
-
 template <int HD>
-int launch_mma(const Args& a, int B, cudaStream_t stream) {
-  constexpr int LD = HD + 8, BQ2 = dkdv_bq<HD>();
-  const size_t smem_dq = sizeof(bf16) * (2 * TILE + 4 * TILE) * LD + sizeof(float) * 2 * TILE;
-  const size_t smem_kv = sizeof(bf16) * (2 * TILE + 4 * BQ2) * LD + sizeof(float) * 4 * BQ2;
-  // The attributes are the block's limit, not this launch's need (as in flash_attention.cu).
-  cudaError_t err = cudaFuncSetAttribute(dq_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, BLOCK_SMEM);
+int launch_wgmma(const Args& a, const CUtensorMap* maps, int block_q, int block_kv, int dq_stages, int kv_stages,
+                 cudaStream_t stream) {
+  const size_t smem_dq = 1024 + 2 * tile_bytes<HD>(block_q) + static_cast<size_t>(dq_stages) * 2 * tile_bytes<HD>(TILE) +
+                         8 * (1 + 2 * dq_stages);
+  const size_t smem_kv = 1024 + 2 * tile_bytes<HD>(block_kv) +
+                         static_cast<size_t>(kv_stages) * (2 * tile_bytes<HD>(TILE) + 2 * TILE * 4) +
+                         8 * (1 + 2 * kv_stages);
+  if (smem_dq > static_cast<size_t>(BLOCK_SMEM) || smem_kv > static_cast<size_t>(BLOCK_SMEM))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // The attributes are the block's limit, not this launch's need (as in flash_attention_wgmma.cu).
+  cudaError_t err = cudaFuncSetAttribute(dq_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, BLOCK_SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(dkdv_mma_kernel<HD, BQ2>, cudaFuncAttributeMaxDynamicSharedMemorySize, BLOCK_SMEM);
+  err = cudaFuncSetAttribute(dkdv_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, BLOCK_SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dq_mma_kernel<HD><<<dim3(a.Sq / TILE, a.H, B), THREADS, smem_dq, stream>>>(a);
+  dq_wgmma_kernel<HD><<<(a.Sq / block_q) * a.H * a.B, (block_q / 64 + 1) * 128, smem_dq, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], a, block_q, dq_stages);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  dkdv_mma_kernel<HD, BQ2><<<dim3(a.Skv / TILE, a.Kh, B), THREADS, smem_kv, stream>>>(a);
+  dkdv_wgmma_kernel<HD><<<(a.Skv / block_kv) * a.Kh * a.splits * a.B, (block_kv / 64 + 1) * 128, smem_kv, stream>>>(
+      maps[4], maps[5], maps[6], maps[7], a, block_kv, kv_stages);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long n4 = static_cast<long long>(a.B) * a.Kh * a.Skv * HD / 4;
+  dkdv_sum_kernel<<<static_cast<unsigned>((n4 + 255) / 256), 256, 0, stream>>>(a, HD);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The eight tensor maps of the wgmma design: the dq pass's Q and dO (boxes
+// of block_q rows), K and V (TILE rows); the dK/dV pass's K and V (block_kv
+// rows), Q and dO (TILE rows).  One box is one column chunk of a tile.
+int make_maps(CUtensorMap* maps, const Args& a, int hd, int block_q, int block_kv) {
+  const int sw = hopper::swizzle_bytes(hd);
+  const long long q_dims[4] = {hd, a.Sq, a.H, a.B}, k_dims[4] = {hd, a.Skv, a.Kh, a.B};
+  const long long q_st[3] = {a.qs.s, a.qs.h, a.qs.b}, do_st[3] = {a.dos.s, a.dos.h, a.dos.b};
+  const long long k_st[3] = {a.ks.s, a.ks.h, a.ks.b}, v_st[3] = {a.vs.s, a.vs.h, a.vs.b};
+  const void* base[8] = {a.q, a.dO, a.k, a.v, a.k, a.v, a.q, a.dO};
+  const long long* dims[8] = {q_dims, q_dims, k_dims, k_dims, k_dims, k_dims, q_dims, q_dims};
+  const long long* st[8] = {q_st, do_st, k_st, v_st, k_st, v_st, q_st, do_st};
+  const int rows[8] = {block_q, block_q, TILE, TILE, block_kv, block_kv, TILE, TILE};
+  for (int i = 0; i < 8; ++i)
+    if (int rc = hopper::make_map(&maps[i], base[i], 4, dims[i], st[i], sw / 2, rows[i], sw)) return rc;
+  return 0;
+}
+
 template <typename T, int HD>
-int launch_simt(const Args& a, int B, cudaStream_t stream) {
-  dq_simt_kernel<T, HD><<<dim3((a.Sq + ROWS - 1) / ROWS, a.H, B), THREADS, 0, stream>>>(a);
+int launch_simt(const Args& a, cudaStream_t stream) {
+  dq_simt_kernel<T, HD><<<dim3((a.Sq + ROWS - 1) / ROWS, a.H, a.B), THREADS, 0, stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  dkdv_simt_kernel<T, HD><<<dim3((a.Skv + ROWS - 1) / ROWS, a.Kh, B), THREADS, 0, stream>>>(a);
+  dkdv_simt_kernel<T, HD><<<dim3((a.Skv + ROWS - 1) / ROWS, a.Kh, a.B), THREADS, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch(void* const* ptrs, const long long* st, int B, int H, int Kh, int Sq, int Skv, int hd, int causal,
-           int use_mma, float scale, void* stream_) {
+           const int* plan, float scale, void* stream_) {
   if (B <= 0 || Kh <= 0 || H % Kh || Sq <= 0 || Skv <= 0) return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.q = ptrs[0];
@@ -635,30 +707,42 @@ int launch(void* const* ptrs, const long long* st, int B, int H, int Kh, int Sq,
   a.dq = ptrs[7];
   a.dk = ptrs[8];
   a.dv = ptrs[9];
+  a.dk_part = static_cast<float*>(ptrs[10]);
+  a.dv_part = static_cast<float*>(ptrs[11]);
   Strides* s[8] = {&a.qs, &a.ks, &a.vs, &a.os, &a.dos, &a.dqs, &a.dks, &a.dvs};
   for (int i = 0; i < 8; ++i) *s[i] = Strides{st[3 * i], st[3 * i + 1], st[3 * i + 2]};
+  a.B = B;
   a.H = H;
   a.Kh = Kh;
   a.Sq = Sq;
   a.Skv = Skv;
   a.causal = causal;
+  a.splits = 1;
   a.scale = scale;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  if (use_mma) {
-    if (sizeof(T) != 2 || Sq % TILE || Skv % TILE) return static_cast<int>(cudaErrorInvalidValue);
+  if (plan != nullptr) {  // the wgmma design: block_q, block_kv, splits, dq stages, dK/dV stages
+    const int block_q = plan[0], block_kv = plan[1], dq_stages = plan[3], kv_stages = plan[4];
+    a.splits = plan[2];
+    if (sizeof(T) != 2 || (block_q != 64 && block_q != 128) || (block_kv != 64 && block_kv != 128) ||
+        Sq % block_q || Skv % block_kv || a.splits <= 0 || (H / Kh) % a.splits || dq_stages < 2 || kv_stages < 2 ||
+        a.dk_part == nullptr || a.dv_part == nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (int rc = hopper::bind_context()) return rc;
+    CUtensorMap maps[8];
+    if (int rc = make_maps(maps, a, hd, block_q, block_kv)) return rc;
     switch (hd) {
-      case 16: return launch_mma<16>(a, B, stream);
-      case 32: return launch_mma<32>(a, B, stream);
-      case 64: return launch_mma<64>(a, B, stream);
-      case 128: return launch_mma<128>(a, B, stream);
+      case 16: return launch_wgmma<16>(a, maps, block_q, block_kv, dq_stages, kv_stages, stream);
+      case 32: return launch_wgmma<32>(a, maps, block_q, block_kv, dq_stages, kv_stages, stream);
+      case 64: return launch_wgmma<64>(a, maps, block_q, block_kv, dq_stages, kv_stages, stream);
+      case 128: return launch_wgmma<128>(a, maps, block_q, block_kv, dq_stages, kv_stages, stream);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
   switch (hd) {
-    case 16: return launch_simt<T, 16>(a, B, stream);
-    case 32: return launch_simt<T, 32>(a, B, stream);
-    case 64: return launch_simt<T, 64>(a, B, stream);
-    case 128: return launch_simt<T, 128>(a, B, stream);
+    case 16: return launch_simt<T, 16>(a, stream);
+    case 32: return launch_simt<T, 32>(a, stream);
+    case 64: return launch_simt<T, 64>(a, stream);
+    case 128: return launch_simt<T, 128>(a, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -667,20 +751,24 @@ int launch(void* const* ptrs, const long long* st, int B, int H, int Kh, int Sq,
 
 extern "C" {
 
-// ptrs: 10 device pointers, q, k, v, o, dO (the input dtype), lse (fp32,
-// (B, H, Sq)), D (fp32 scratch, (B, H, Sq)), dq, dk, dv (the input dtype).
-// strides: 24 int64 values, (batch, head, seq) for q, k, v, o, dO, dq, dk
-// and dv in turn.  use_mma: the tensor-core design (bf16 only; Sq and Skv
-// multiples of 64, every stride a multiple of 8, 16-byte aligned tensors).
+// ptrs: 12 device pointers, q, k, v, o, dO (the input dtype), lse (fp32,
+// (B, H, Sq)), D (fp32 scratch, (B, H, Sq)), dq, dk, dv (the input dtype),
+// dk_part, dv_part (fp32 scratch, (splits, B, Kh, Skv, hd); the wgmma design
+// only).  strides: 24 int64 values, (batch, head, seq) for q, k, v, o, dO,
+// dq, dk and dv in turn.  plan: null for the SIMT design, else the wgmma
+// design's 5 ints (bf16 only; every stride a multiple of 8, 16-byte aligned
+// tensors): block_q (dq pass rows, 64 or 128, dividing Sq), block_kv (dK/dV
+// pass rows, 64 or 128, dividing Skv), splits (dividing H / Kh), and the
+// two passes' ring stages (>= 2).
 int repro_flash_attention_bwd_f32(void* const* ptrs, const long long* strides, int B, int H, int Kh, int Sq,
-                                  int Skv, int hd, int causal, int use_mma, float scale, void* stream) {
-  if (use_mma) return static_cast<int>(cudaErrorInvalidValue);
-  return launch<float>(ptrs, strides, B, H, Kh, Sq, Skv, hd, causal, 0, scale, stream);
+                                  int Skv, int hd, int causal, const int* plan, float scale, void* stream) {
+  if (plan != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<float>(ptrs, strides, B, H, Kh, Sq, Skv, hd, causal, nullptr, scale, stream);
 }
 
 int repro_flash_attention_bwd_bf16(void* const* ptrs, const long long* strides, int B, int H, int Kh, int Sq,
-                                   int Skv, int hd, int causal, int use_mma, float scale, void* stream) {
-  return launch<bf16>(ptrs, strides, B, H, Kh, Sq, Skv, hd, causal, use_mma, scale, stream);
+                                   int Skv, int hd, int causal, const int* plan, float scale, void* stream) {
+  return launch<bf16>(ptrs, strides, B, H, Kh, Sq, Skv, hd, causal, plan, scale, stream);
 }
 
 const char* repro_flash_attention_bwd_error_string(int code) {

@@ -1,7 +1,8 @@
 // Shared Hopper (sm_90a) building blocks for the port's tensor-core kernels,
 // written as inline PTX: the TMA tensor map and tile load, the mbarrier ring,
 // the wgmma shared-memory descriptor, and wgmma itself with its fence,
-// commit and wait.  Used by matmul_wgmma.cu and flash_attention_wgmma.cu.
+// commit and wait.  Used by matmul_wgmma.cu, flash_attention_wgmma.cu and
+// flash_attention_bwd.cu.
 //
 // Shared-memory tiles.  A tile of R rows whose C columns are contiguous in
 // device memory (bf16) is stored as C / CC column chunks of CC = SW / 2
@@ -149,6 +150,15 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
       :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1),
          "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// `bytes` contiguous bytes from global to shared memory (both 16-byte
+// aligned, `bytes` a multiple of 16); completion counts on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
 }
 

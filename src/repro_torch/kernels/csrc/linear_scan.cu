@@ -54,6 +54,7 @@
 //
 // C interface (bound with ctypes): every function returns a cudaError_t
 // code, 0 on success.  Launches go on the stream the caller passes.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -430,29 +431,38 @@ int rwkv_launch(const void* r, const void* k, const void* v, const void* lw, con
 //     dr_t    = (S_{t-1} + diag(u) akv_t) gy_t      dk_t = dA v_t
 //     dv_t    = dA^T k_t                            dlw_t = w_t * rowsum(dS_t * S_{t-1})
 //     du     += r_t * k_t (v_t . gy_t)              dS_{t-1} = diag(w_t) dS_t + r_t gy_t^T
-// and ds0 = dS_{-1}.  One block per (head, batch row).  S_{t-1} cannot be
-// had from S_t by dividing by w (w underflows), so the block first runs the
-// recurrence forward and stores S at the start of every segment of `seg`
-// tokens in `ck` (global scratch), then takes the segments last first: it
-// runs the segment forward from its checkpoint, storing S at the start of
-// each of its chunks in `sub` (a scratch of seg / chunk states per block,
-// whatever T), then takes the segment's chunks last first: it reloads the
-// chunk's start, recomputes the chunk's states into shared memory and walks
-// the chunk backwards.  Layout: thread (i, q) owns row i of S and of dS, columns
-// q, q + 4, ..., so the row sums (dr, dk, dlw) are the thread's own plus two
-// shuffles among the row's 4 lanes; dv, a column sum, goes through a padded
-// [HD][HD + 4] array of partials in shared memory (double-buffered: one
-// barrier per token).  du is summed per block and written as a partial per
-// (batch row, head); the wrapper adds the batch rows.  What bounds it:
-// operations, about 26 HD^2 fp32 FLOP per (token, head) on the CUDA cores
-// (the forward three times and the step above; the gradient needs 14), against a
-// few bytes per (token, head, channel); the grid has only B * H blocks.
-// Shared memory: five [chunk][HD] fp32 rows (r, k, v, exp(lw), gy), the
-// chunk's states [chunk][HD][HD + 4] and the two partial arrays.
+// and ds0 = dS_{-1}.  The recurrences of S and dS are independent per state
+// row i (diag(w) scales rows), and so are dr, dk, dlw and du, the row sums;
+// only dv, a column sum, crosses rows.  So the NS = hd / NR blocks of one
+// (head, batch row) each own NR rows of S and dS for all hd columns
+// (linear_scan.py::rwkv_bwd_slices: up to one block per SM) and form a
+// thread-block cluster.  S_{t-1} cannot be had from S_t by dividing by w (w
+// underflows), so a block first runs its rows of the recurrence forward and
+// stores them at the start of every segment of `seg` tokens in `ck` (global
+// scratch), then takes the segments last first: it runs the segment
+// forward from its checkpoint, storing its rows at the start of each of the
+// segment's chunks in `sub` (seg / chunk - 1 states a block, whatever T),
+// then takes the segment's chunks last first: it reloads the chunk's
+// start, recomputes the chunk's states into shared memory and walks the
+// chunk backwards with no barrier a token.  Thread (i, q) owns row i and
+// columns q, q + 4, ..., so the row sums (dr, dk, dlw, v . gy) are the
+// thread's own plus two shuffles among the row's 4 lanes, written straight
+// out; each element's dA k_i (dv's term) overwrites the state it was
+// computed from.  At the chunk's end one cluster barrier, then each block
+// sums dv for its NR of the columns over all hd rows, in row order, reading
+// the other blocks' terms through distributed shared memory, and a second
+// barrier before the terms are overwritten.  Every sum runs in the order of
+// the one-block design (NS = 1), so the outputs are the same bits at every
+// NS, and two calls give the same bits.  What bounds it: operations,
+// about 26 hd^2 fp32 FLOP per (token, head) on the CUDA cores (the forward
+// three times and the step above; the gradient needs 14), against a few
+// bytes per (token, head, channel).  Shared memory: five [chunk][hd] fp32
+// rows (r, k, v, exp(lw), gy) and the chunk's states of its rows
+// [chunk][NR][hd + 4].
 constexpr int RWKV_BWD_TPR = 4;  // threads per state row
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(RWKV_BWD_TPR * HD)
+template <typename T, int HD, int NR>
+__global__ void __launch_bounds__(RWKV_BWD_TPR * NR)
 rwkv_bwd_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
                 const float* __restrict__ lw, const float* __restrict__ u,
                 const float* __restrict__ s0, const T* __restrict__ gy,
@@ -460,19 +470,24 @@ rwkv_bwd_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __res
                 T* __restrict__ dv, float* __restrict__ dlw, float* __restrict__ du_part,
                 float* __restrict__ ds0, float* __restrict__ ck, float* __restrict__ sub,
                 int T_len, int H, int chunk, int seg) {
-  constexpr int TPR = RWKV_BWD_TPR, CW = HD / TPR, RS = HD + 4;
+  namespace cg = cooperative_groups;
+  constexpr int TPR = RWKV_BWD_TPR, CW = HD / TPR, RS = HD + 4, NS = HD / NR;
+  constexpr int THREADS_ = TPR * NR;
+  cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ float rwkv_bwd_smem[];
   float* rs = rwkv_bwd_smem;
   float* ks = rs + chunk * HD;
   float* vs = ks + chunk * HD;
   float* ws = vs + chunk * HD;
   float* gs = ws + chunk * HD;
-  float* hist = gs + chunk * HD;                               // [chunk][HD][RS]
-  float* part = hist + static_cast<size_t>(chunk) * HD * RS;  // [2][HD][RS]
+  float* hist = gs + chunk * HD;  // [chunk][NR][RS]
   const int tid = threadIdx.x;
-  const int i = tid / TPR, q = tid % TPR;
-  const int h = blockIdx.x, bi = blockIdx.y;
+  const int il = tid / TPR, q = tid % TPR;
+  const int sl = static_cast<int>(cluster.block_rank());  // == blockIdx.x
+  const int i = sl * NR + il;  // this thread's state row
+  const int h = blockIdx.y, bi = blockIdx.z;
   const long long bh = static_cast<long long>(bi) * H + h;
+  const long long blk = bh * NS + sl;
   const int nsub = seg / chunk;  // chunks per segment
   const int nseg = T_len / seg;
   const float ui = u[h * HD + i];
@@ -482,13 +497,13 @@ rwkv_bwd_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __res
     return ((static_cast<long long>(bi) * T_len + t) * H + h) * HD;
   };
   // state n of this block's `slots` states in a scratch, this thread's
-  // first element (element cc lies cc * HD * TPR further): consecutive
+  // first element (element cc lies cc * NR * TPR further): consecutive
   // threads, consecutive words
   auto slot = [&](float* base, int slots, int n) -> float* {
-    return base + ((bh * slots + n) * CW) * (HD * TPR) + tid;
+    return base + ((blk * slots + n) * CW) * (NR * TPR) + tid;
   };
   auto load_rows = [&](int t0, bool all) {
-    for (int e = tid; e < chunk * HD; e += TPR * HD) {
+    for (int e = tid; e < chunk * HD; e += THREADS_) {
       const long long o = tok(t0 + e / HD) + e % HD;
       ks[e] = to_float(k[o]);
       vs[e] = to_float(v[o]);
@@ -504,11 +519,11 @@ rwkv_bwd_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __res
   // S from a scratch slot or into one; each thread reads back only what it wrote
   auto load_state = [&](const float* p) {
 #pragma unroll
-    for (int cc = 0; cc < CW; ++cc) S[cc] = p[cc * HD * TPR];
+    for (int cc = 0; cc < CW; ++cc) S[cc] = p[cc * NR * TPR];
   };
   auto store_state = [&](float* p) {
 #pragma unroll
-    for (int cc = 0; cc < CW; ++cc) p[cc * HD * TPR] = S[cc];
+    for (int cc = 0; cc < CW; ++cc) p[cc * NR * TPR] = S[cc];
   };
   auto load_s0 = [&]() {
 #pragma unroll
@@ -537,7 +552,6 @@ rwkv_bwd_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __res
 #pragma unroll
   for (int cc = 0; cc < CW; ++cc) dS[cc] = gsT[mat + TPR * cc];
   float du_acc = 0.f;
-  int buf = 0;
   for (int c = nseg * nsub - 1; c >= 0; --c) {
     const int t0 = c * chunk;
     const int sg = c / nsub, cs = c % nsub;
@@ -552,12 +566,11 @@ rwkv_bwd_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __res
     if (cs > 0) load_state(slot(sub, nsub - 1, cs - 1));
     else if (sg == 0) load_s0();
     else load_state(slot(ck, nseg - 1, sg - 1));
-    __syncthreads();  // every thread is done with the previous chunk's rows
-    load_rows(t0, true);
+    load_rows(t0, true);  // the previous chunk ended on a cluster barrier
     __syncthreads();
     // the chunk's states S_{t-1}; each thread reads back only what it wrote
     for (int t = 0; t < chunk; ++t) {
-      float* hrow = hist + (t * HD + i) * RS + q;
+      float* hrow = hist + (t * NR + il) * RS + q;
       const float wi = ws[t * HD + i], ki = ks[t * HD + i];
 #pragma unroll
       for (int cc = 0; cc < CW; ++cc) {
@@ -568,8 +581,7 @@ rwkv_bwd_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __res
     for (int t = chunk - 1; t >= 0; --t) {
       const float ri = rs[t * HD + i], ki = ks[t * HD + i], wi = ws[t * HD + i];
       const float ur = ui * ri, uk = ui * ki;
-      const float* hrow = hist + (t * HD + i) * RS + q;
-      float* prow = part + (buf * HD + i) * RS + q;
+      float* hrow = hist + (t * NR + il) * RS + q;
       float dr_ = 0.f, dk_ = 0.f, dl_ = 0.f, vg = 0.f;
 #pragma unroll
       for (int cc = 0; cc < CW; ++cc) {
@@ -578,7 +590,7 @@ rwkv_bwd_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __res
         dr_ = fmaf(fmaf(uk, vj, sj), gj, dr_);
         const float dA = fmaf(ur, gj, dS[cc]);
         dk_ = fmaf(dA, vj, dk_);
-        prow[TPR * cc] = dA * ki;
+        hrow[TPR * cc] = dA * ki;  // S_{t-1} is read; its slot takes the dv term
         dl_ = fmaf(dS[cc], sj, dl_);
         dS[cc] = fmaf(wi, dS[cc], ri * gj);
         vg = fmaf(vj, gj, vg);
@@ -590,61 +602,94 @@ rwkv_bwd_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __res
         dl_ += __shfl_xor_sync(0xffffffffu, dl_, off);
         vg += __shfl_xor_sync(0xffffffffu, vg, off);
       }
-      const long long o = tok(t0 + t);
       if (q == 0) {
-        dr[o + i] = from_float<T>(dr_);
-        dk[o + i] = from_float<T>(dk_);
-        dlw[o + i] = wi * dl_;
+        const long long o = tok(t0 + t) + i;
+        dr[o] = from_float<T>(dr_);
+        dk[o] = from_float<T>(dk_);
+        dlw[o] = wi * dl_;
         du_acc = fmaf(ri * ki, vg, du_acc);
       }
-      __syncthreads();  // the token's dv partials are complete
-      if (tid < HD) {
-        const float* pc = part + buf * HD * RS + tid;
-        float acc = 0.f;
-#pragma unroll 8
-        for (int ii = 0; ii < HD; ++ii) acc += pc[ii * RS];
-        dv[o + tid] = from_float<T>(acc);
-      }
-      buf ^= 1;
     }
+    cluster.sync();  // every block's dv terms of this chunk are in its shared memory
+    for (int e = tid; e < chunk * NR; e += THREADS_) {
+      const int t = e / NR, j = sl * NR + e % NR;  // this block sums columns sl * NR ..
+      float acc = 0.f;
+#pragma unroll
+      for (int b2 = 0; b2 < NS; ++b2) {  // rows in order: block b2 holds rows b2 * NR ..
+        const float* pc = cluster.map_shared_rank(hist, b2) + t * NR * RS + j;
+#pragma unroll 8
+        for (int ii = 0; ii < NR; ++ii) acc += pc[ii * RS];
+      }
+      dv[tok(t0 + t) + j] = from_float<T>(acc);
+    }
+    cluster.sync();  // the next chunk's states overwrite what other blocks have read
   }
 #pragma unroll
   for (int cc = 0; cc < CW; ++cc) ds0[mat + TPR * cc] = dS[cc];
   if (q == 0) du_part[bh * HD + i] = du_acc;
 }
 
+template <typename T, int HD, int NR>
+int rwkv_bwd_launch_nr(const void* const* in, void* const* out, void* ck, void* sub, int B, int T_len,
+                       int H, int chunk, int seg, void* stream) {
+  const size_t smem = (5 * static_cast<size_t>(chunk) * HD + static_cast<size_t>(chunk) * NR * (HD + 4)) *
+                      sizeof(float);
+  if (smem > static_cast<size_t>(BLOCK_SMEM)) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = rwkv_bwd_kernel<T, HD, NR>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, BLOCK_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(HD / NR, H, B);
+  cfg.blockDim = dim3(RWKV_BWD_TPR * NR);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = HD / NR;  // the slices of one (head, batch row)
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const T*>(in[0]), static_cast<const T*>(in[1]), static_cast<const T*>(in[2]),
+      static_cast<const float*>(in[3]), static_cast<const float*>(in[4]), static_cast<const float*>(in[5]),
+      static_cast<const T*>(in[6]), static_cast<const float*>(in[7]), static_cast<T*>(out[0]),
+      static_cast<T*>(out[1]), static_cast<T*>(out[2]), static_cast<float*>(out[3]), static_cast<float*>(out[4]),
+      static_cast<float*>(out[5]), static_cast<float*>(ck), static_cast<float*>(sub), T_len, H, chunk, seg);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// slices: blocks a (head, batch row), 1, 2, 4 or 8, each at least 8 rows
 template <typename T, int HD>
 int rwkv_bwd_launch_hd(const void* const* in, void* const* out, void* ck, void* sub, int B, int T_len,
-                       int H, int chunk, int seg, void* stream) {
-  constexpr int RS = HD + 4;
-  const size_t smem = (5 * static_cast<size_t>(chunk) * HD + static_cast<size_t>(chunk) * HD * RS +
-                       2 * static_cast<size_t>(HD) * RS) * sizeof(float);
-  if (smem > static_cast<size_t>(BLOCK_SMEM)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(rwkv_bwd_kernel<T, HD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, BLOCK_SMEM);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(H, B);
-  rwkv_bwd_kernel<T, HD><<<grid, RWKV_BWD_TPR * HD, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(in[0]), static_cast<const T*>(in[1]), static_cast<const T*>(in[2]),
-      static_cast<const float*>(in[3]), static_cast<const float*>(in[4]),
-      static_cast<const float*>(in[5]), static_cast<const T*>(in[6]),
-      static_cast<const float*>(in[7]), static_cast<T*>(out[0]), static_cast<T*>(out[1]),
-      static_cast<T*>(out[2]), static_cast<float*>(out[3]), static_cast<float*>(out[4]),
-      static_cast<float*>(out[5]), static_cast<float*>(ck), static_cast<float*>(sub), T_len, H,
-      chunk, seg);
-  return static_cast<int>(cudaGetLastError());
+                       int H, int chunk, int seg, int slices, void* stream) {
+  if (slices <= 0 || HD % slices || HD / slices < 8) return static_cast<int>(cudaErrorInvalidValue);
+  switch (HD / slices) {
+    case 8: return rwkv_bwd_launch_nr<T, HD, 8>(in, out, ck, sub, B, T_len, H, chunk, seg, stream);
+    case 16:
+      if constexpr (HD >= 16) return rwkv_bwd_launch_nr<T, HD, 16>(in, out, ck, sub, B, T_len, H, chunk, seg, stream);
+      break;
+    case 32:
+      if constexpr (HD >= 32) return rwkv_bwd_launch_nr<T, HD, 32>(in, out, ck, sub, B, T_len, H, chunk, seg, stream);
+      break;
+    case 64:
+      if constexpr (HD >= 64) return rwkv_bwd_launch_nr<T, HD, 64>(in, out, ck, sub, B, T_len, H, chunk, seg, stream);
+      break;
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T>
 int rwkv_bwd_launch(const void* const* in, void* const* out, void* ck, void* sub, int B, int T_len,
-                    int H, int hd, int chunk, int seg, void* stream) {
+                    int H, int hd, int chunk, int seg, int slices, void* stream) {
   if (B <= 0 || T_len <= 0 || H <= 0 || chunk <= 0 || seg <= 0 || seg % chunk || T_len % seg)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (hd) {
-    case 8: return rwkv_bwd_launch_hd<T, 8>(in, out, ck, sub, B, T_len, H, chunk, seg, stream);
-    case 16: return rwkv_bwd_launch_hd<T, 16>(in, out, ck, sub, B, T_len, H, chunk, seg, stream);
-    case 32: return rwkv_bwd_launch_hd<T, 32>(in, out, ck, sub, B, T_len, H, chunk, seg, stream);
-    case 64: return rwkv_bwd_launch_hd<T, 64>(in, out, ck, sub, B, T_len, H, chunk, seg, stream);
+    case 8: return rwkv_bwd_launch_hd<T, 8>(in, out, ck, sub, B, T_len, H, chunk, seg, slices, stream);
+    case 16: return rwkv_bwd_launch_hd<T, 16>(in, out, ck, sub, B, T_len, H, chunk, seg, slices, stream);
+    case 32: return rwkv_bwd_launch_hd<T, 32>(in, out, ck, sub, B, T_len, H, chunk, seg, slices, stream);
+    case 64: return rwkv_bwd_launch_hd<T, 64>(in, out, ck, sub, B, T_len, H, chunk, seg, slices, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -704,16 +749,17 @@ int repro_lru_scan_bwd_bf16(const void* a, const void* g, const void* gT, const 
 // The RWKV-6 backward: in = (r, k, v, lw, u, s0, gy, gsT), out = (dr, dk, dv,
 // dlw, du_part, ds0); r, k, v, gy, dr, dk, dv in the input dtype, the rest
 // fp32; du_part (B, H, hd); seg: tokens per checkpoint segment, a multiple of
-// chunk dividing T; ck: B * H * max(1, T / seg - 1) * hd * hd fp32, sub:
-// B * H * max(1, seg / chunk - 1) * hd * hd fp32.
+// chunk dividing T; slices: blocks (a cluster) per (batch row, head), each
+// owning hd / slices >= 8 state rows; ck: B * H * max(1, T / seg - 1) *
+// hd * hd fp32, sub: B * H * max(1, seg / chunk - 1) * hd * hd fp32.
 int repro_rwkv_scan_bwd_f32(const void* const* in, void* const* out, void* ck, void* sub, int B,
-                            int T, int H, int hd, int chunk, int seg, void* stream) {
-  return rwkv_bwd_launch<float>(in, out, ck, sub, B, T, H, hd, chunk, seg, stream);
+                            int T, int H, int hd, int chunk, int seg, int slices, void* stream) {
+  return rwkv_bwd_launch<float>(in, out, ck, sub, B, T, H, hd, chunk, seg, slices, stream);
 }
 
 int repro_rwkv_scan_bwd_bf16(const void* const* in, void* const* out, void* ck, void* sub, int B,
-                             int T, int H, int hd, int chunk, int seg, void* stream) {
-  return rwkv_bwd_launch<__nv_bfloat16>(in, out, ck, sub, B, T, H, hd, chunk, seg, stream);
+                             int T, int H, int hd, int chunk, int seg, int slices, void* stream) {
+  return rwkv_bwd_launch<__nv_bfloat16>(in, out, ck, sub, B, T, H, hd, chunk, seg, slices, stream);
 }
 
 const char* repro_linear_scan_error_string(int code) {

@@ -36,17 +36,21 @@ each row's logsumexp of the scaled scores, which the backward reads.
 The backward (:func:`flash_attention_bwd`, ``csrc/flash_attention_bwd.cu``;
 the JAX package has no Pallas kernel for it: its ``custom_vjp`` takes
 ``jax.vjp`` of the oracle) is FlashAttention-2's recompute without the S²
-buffer, in two launches whose sums are deterministic: one block per (query
-tile, query head, batch row) computes D = rowsum(dO ⊙ O) and dQ, then one
-block per (KV tile, KV head, batch row) walks its group's query heads and
-tiles for dK and dV, writing each once (GQA needs no atomics).  P is
-recomputed as exp(S·scale − lse).  Two designs, chosen by the pure
-function :func:`bwd_design`: ``"mma"`` (bf16, sequences that are multiples
-of 64, strides of 16-byte rows) runs its five products per tile on the
-tensor cores with ``mma.sync`` m16n8k16 and fp32 accumulators, P and dS
-rounded to bf16 as operands; ``"simt"`` (fp32, and every other shape) runs
-the same arithmetic on the CUDA cores.  Its tiles follow from the head
-dim; ``block_q`` / ``block_kv`` only order the plain version's sums.
+buffer, in passes whose sums are deterministic: one block per (query tile,
+query head, batch row) computes D = rowsum(dO ⊙ O) and dQ, then one block
+per (KV tile, KV head, batch row, head split) walks its split's query heads
+and tiles for dK and dV, writing each once (GQA needs no atomics).  P is
+recomputed as exp(S·scale − lse).  Two designs, chosen by the pure function
+:func:`bwd_design`: ``"wgmma"`` (bf16, sequences that are multiples of 64,
+strides of 16-byte rows) streams tiles through TMA rings to one or two
+consumer warpgroups that run every product on ``wgmma`` with fp32
+accumulators, P and dS rounded to bf16 as operands; its dK/dV pass splits a
+group's heads over :func:`bwd_head_splits` blocks when the KV tiles alone
+do not fill the SMs, writes fp32 partials, and a third launch sums them in
+split order (three kernels a call at every split); ``"simt"`` (fp32, and
+every other shape) runs the same arithmetic on the CUDA cores in two
+kernels.  Its tiles follow from the shape (:func:`bwd_blocks`);
+``block_q`` / ``block_kv`` only order the plain version's sums.
 :func:`flash_attention_bwd_plain` is its arithmetic in plain PyTorch.
 """
 from __future__ import annotations
@@ -58,6 +62,7 @@ import threading
 import torch
 
 from . import _cuda
+from .decode_attention import sm_count
 
 __all__ = [
     "flash_attention_fwd",
@@ -65,6 +70,10 @@ __all__ = [
     "flash_attention_bwd",
     "flash_attention_bwd_plain",
     "bwd_design",
+    "bwd_blocks",
+    "bwd_ring_stages",
+    "bwd_head_splits",
+    "bwd_scratch_bytes",
     "bwd_flops_bytes",
     "design",
     "ring_stages",
@@ -93,17 +102,21 @@ MAX_STAGES = 4
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 #: the backward's tiles (csrc/flash_attention_bwd.cu): its tensor-core
-#: design takes sequences that are multiples of this
+#: design takes sequences that are multiples of this, streams tiles of this
+#: many rows, and gives each consumer warpgroup this many rows
 BWD_TILE = 64
+#: device kernels a backward call launches, by design (the tensor-core
+#: design's third sums the head splits' partials, at every split count)
+BWD_KERNELS = {"wgmma": 3, "simt": 2}
 #: lse of a row whose softmax sum is 0: its recomputed P is 0
 LSE_EMPTY = math.inf
 
 #: kernel launches so far: the forward's in total, the backward's (one a
-#: call, two kernels) in total, and both by design (the plain versions do
-#: not count)
+#: call, ``BWD_KERNELS`` device kernels) in total, and both by design (the
+#: plain versions do not count)
 launches = 0
 bwd_launches = 0
-launches_by_design = {"wgmma": 0, "simt": 0, "bwd_mma": 0, "bwd_simt": 0}
+launches_by_design = {"wgmma": 0, "simt": 0, "bwd_wgmma": 0, "bwd_simt": 0}
 _count_lock = threading.Lock()
 
 
@@ -405,7 +418,7 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True, block
 
 
 def bwd_design(itemsize: int, hd: int, Sq: int, Skv: int, strides=(), aligned: bool = True) -> str:
-    """``"mma"`` when the tensor-core backward runs this call, else
+    """``"wgmma"`` when the tensor-core backward runs this call, else
     ``"simt"``: a pure function of the dtype (``itemsize`` 2: bf16), the
     head dim, the sequence lengths (multiples of ``BWD_TILE``), the
     batch/head/sequence strides in elements of every tensor it reads or
@@ -415,7 +428,58 @@ def bwd_design(itemsize: int, hd: int, Sq: int, Skv: int, strides=(), aligned: b
         return "simt"
     if Sq % BWD_TILE or Skv % BWD_TILE or any(st % 8 for st in strides):
         return "simt"
-    return "mma"
+    return "wgmma"
+
+
+def bwd_blocks(Sq: int, Skv: int) -> tuple:
+    """(block_q, block_kv) of the tensor-core backward: the rows of a dq
+    pass block and of a dK/dV pass block, two consumer warpgroups of
+    ``BWD_TILE`` rows (128) where the sequence is a multiple of 128, else
+    one (64).  A pure function of the shape, not a knob."""
+    return tuple(2 * BWD_TILE if n % (2 * BWD_TILE) == 0 else BWD_TILE for n in (Sq, Skv))
+
+
+def bwd_dq_smem_bytes(hd: int, block_q: int, stages: int) -> int:
+    """Shared memory of a dq pass block: the Q and dO tiles of ``block_q``
+    rows, ``stages`` ring stages of a K and a V tile of ``BWD_TILE`` rows
+    (bf16, each rounded up to the 128-byte swizzle's 1024-byte period), the
+    mbarriers, and 1024 bytes to align."""
+    return (1024 + 2 * _round1024(2 * block_q * hd) + stages * 2 * _round1024(2 * BWD_TILE * hd)
+            + 8 * (1 + 2 * stages))
+
+
+def bwd_dkdv_smem_bytes(hd: int, block_kv: int, stages: int) -> int:
+    """Shared memory of a dK/dV pass block: the K and V tiles of
+    ``block_kv`` rows, ``stages`` ring stages of a Q and a dO tile of
+    ``BWD_TILE`` rows and that tile's fp32 lse and D, the mbarriers, and
+    1024 bytes to align."""
+    return (1024 + 2 * _round1024(2 * block_kv * hd)
+            + stages * (2 * _round1024(2 * BWD_TILE * hd) + 2 * 4 * BWD_TILE) + 8 * (1 + 2 * stages))
+
+
+def bwd_ring_stages(hd: int, block_q: int, block_kv: int) -> tuple:
+    """(dq pass stages, dK/dV pass stages) of the tensor-core backward's
+    rings: the most, up to ``MAX_STAGES``, that fit ``SMEM_LIMIT`` (0 when
+    not even one does)."""
+    fits = (lambda n: bwd_dq_smem_bytes(hd, block_q, n), lambda n: bwd_dkdv_smem_bytes(hd, block_kv, n))
+    return tuple(next((n for n in range(MAX_STAGES, 0, -1) if f(n) <= SMEM_LIMIT), 0) for f in fits)
+
+
+def bwd_head_splits(B: int, Kh: int, g: int, Skv: int, sm_count: int) -> int:
+    """Blocks over which the tensor-core backward's dK/dV pass splits the g
+    query heads of a group: 1 when the B·Kh·(Skv / block_kv) KV tiles fill
+    the card's ``sm_count`` SMs, else the smallest divisor of g that does,
+    or g.  Each split writes fp32 partials that the third launch sums in
+    split order.  A pure function of the shape, not a knob."""
+    tiles = B * Kh * (Skv // bwd_blocks(Skv, Skv)[1])
+    return next((n for n in range(1, g + 1) if g % n == 0 and tiles * n >= sm_count), g)
+
+
+def bwd_scratch_bytes(B: int, Kh: int, Skv: int, hd: int, splits: int) -> int:
+    """Bytes of the tensor-core backward's fp32 dK and dV partials,
+    (splits, B, Kh, Skv, hd) each: at most two (B, H, Skv, hd) fp32 arrays,
+    since the split divides g = H / Kh."""
+    return 2 * 4 * splits * B * Kh * Skv * hd
 
 
 def _bwd_launch(q, k, v, o, lse, do, D, dq, dk, dv, causal: bool, kind: str) -> None:
@@ -424,21 +488,30 @@ def _bwd_launch(q, k, v, o, lse, do, D, dq, dk, dv, causal: bool, kind: str) -> 
     Kh, Skv = k.shape[1], k.shape[2]
     lib = _cuda.load("flash_attention_bwd")
     fn = getattr(lib, f"repro_flash_attention_bwd_{_SUFFIX[q.dtype]}")
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 7
+                   + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    ptrs = (ctypes.c_void_p * 10)(*[t.data_ptr() for t in (q, k, v, o, do, lse, D, dq, dk, dv)])
+    splits, plan, part = 1, None, None
+    if kind == "wgmma":
+        block_q, block_kv = bwd_blocks(Sq, Skv)
+        splits = bwd_head_splits(B, Kh, H // Kh, Skv, sm_count(q.device))
+        plan = (ctypes.c_int * 5)(block_q, block_kv, splits, *bwd_ring_stages(hd, block_q, block_kv))
+        part = torch.empty(bwd_scratch_bytes(B, Kh, Skv, hd, splits) // 4, dtype=torch.float32,
+                           device=q.device).view(2, -1)
+    scratch = (None, None) if part is None else (part[0].data_ptr(), part[1].data_ptr())
+    ptrs = (ctypes.c_void_p * 12)(*[t.data_ptr() for t in (q, k, v, o, do, lse, D, dq, dk, dv)], *scratch)
     strides = (ctypes.c_longlong * 24)(*(t.stride(i) for t in (q, k, v, o, do, dq, dk, dv)
                                          for i in range(3)))
     scale = float(torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(ctypes.addressof(ptrs), ctypes.addressof(strides), B, H, Kh, Sq, Skv, hd, int(causal),
-                int(kind == "mma"), scale, stream)
+                None if plan is None else ctypes.addressof(plan), scale, stream)
     if rc != 0:
         err = lib.repro_flash_attention_bwd_error_string
         err.restype = ctypes.c_char_p
         raise RuntimeError(f"flash_attention_bwd kernel ({kind}) launch failed (hd {hd}, Sq {Sq}, "
-                           f"Skv {Skv}): CUDA error {rc}: {err(rc).decode()}")
+                           f"Skv {Skv}, {splits} head splits): CUDA error {rc}: {err(rc).decode()}")
     with _count_lock:
         bwd_launches += 1
         launches_by_design[f"bwd_{kind}"] += 1

@@ -41,12 +41,19 @@ loop under ``jit``):
   db = G, da_t = G_t h_{t−1} and dh0 = a_0 G_0 as it goes, at the forward
   call's (chunk, block_d); :func:`lru_scan_bwd_plain` is the same reverse
   recurrence in plain PyTorch;
-* ``rwkv_scan_bwd`` (``csrc/linear_scan.cu``): one block per (head, batch
-  row) runs the recurrence forward storing the state at every chunk's
-  start, then walks the chunks last first, recomputing each chunk's states
-  in shared memory; fp32 state, no tensor cores; its chunk is derived from
-  the shape and shared memory (:func:`rwkv_bwd_chunk`), not a knob;
-  :func:`rwkv_scan_bwd_plain` is the same reverse recurrence in plain PyTorch.
+* ``rwkv_scan_bwd`` (``csrc/linear_scan.cu``): the recurrences of the
+  state and its gradient are independent per state row, so
+  :func:`rwkv_bwd_slices` blocks per (head, batch row), a thread-block
+  cluster, each own hd / slices rows for all columns.  Each runs its rows
+  of the recurrence forward storing the state at every checkpoint, then
+  walks the chunks last first, recomputing each chunk's states in shared
+  memory with no barrier a token, and writes the row gradients (dr, dk,
+  dlw, du) itself; at each chunk's end the blocks of a cluster sum dv over
+  all rows in row order through distributed shared memory, each output
+  written once and the same bits at every split.  fp32 state, no tensor
+  cores; its chunk is derived from the shape and shared memory
+  (:func:`rwkv_bwd_chunk`), not a knob; :func:`rwkv_scan_bwd_plain` is the
+  same reverse recurrence in plain PyTorch.
 
 Each is a fixed number of launches whatever T.  Knobs the kernels cannot
 run raise ``ValueError`` naming the knob before any launch (the tuner
@@ -85,6 +92,8 @@ __all__ = [
     "rwkv_bwd_chunk",
     "rwkv_bwd_segment",
     "rwkv_bwd_scratch",
+    "rwkv_bwd_slices",
+    "rwkv_bwd_slot_floats",
     "lru_bwd_flops_bytes",
     "rwkv_bwd_flops_bytes",
     "launches",
@@ -121,6 +130,10 @@ TC_FIXED_BYTES = 4 * (64 * 72 + 16 * 68 + 16 * 72 + 16 * 20 + 2 * 64)
 #: the chunk)
 RWKV_BWD_MAX_CHUNK = 64
 RWKV_BWD_SEGMENT = 64
+#: the RWKV backward's row slices: at most this many blocks (a portable
+#: cluster) per (head, batch row), each owning at least this many state rows
+RWKV_BWD_MAX_SLICES = 8
+RWKV_BWD_MIN_ROWS = 8
 
 #: kernel launches so far, per kernel (the backward kernels under ``_bwd``;
 #: the lru backward's recompute of hs counts as an ``lru_scan`` launch), and
@@ -193,20 +206,44 @@ def rwkv_smem_bytes(chunk: int, hd: int) -> int:
     return 5 * chunk * hd * 4
 
 
-def rwkv_bwd_smem_bytes(chunk: int, hd: int) -> int:
-    """Shared memory of one block of the rwkv backward: five fp32 (chunk, hd)
-    rows (r, k, v, exp(lw), gy), the chunk's states (chunk, hd, hd + 4) and
-    two (hd, hd + 4) arrays of dv partials."""
-    return 4 * (5 * chunk * hd + chunk * hd * (hd + 4) + 2 * hd * (hd + 4))
+def rwkv_bwd_smem_bytes(chunk: int, hd: int, slices: int = 1) -> int:
+    """Shared memory of one block of the rwkv backward that owns hd /
+    ``slices`` state rows: five fp32 (chunk, hd) rows (r, k, v, exp(lw),
+    gy) and the chunk's states of its rows (chunk, hd / slices, hd + 4),
+    which the walk overwrites with dv's terms."""
+    return 4 * (5 * chunk * hd + chunk * (hd // slices) * (hd + 4))
 
 
-def rwkv_bwd_chunk(T: int, hd: int) -> int:
+def rwkv_bwd_slices(B: int, H: int, hd: int, sm_count: int) -> int:
+    """Blocks, one thread-block cluster, over which the rwkv backward splits
+    each (head, batch row)'s state rows: the largest power of two with
+    B·H·slices ≤ ``sm_count`` (at most one block per SM), capped so that a
+    slice keeps at least ``RWKV_BWD_MIN_ROWS`` rows and a cluster at most
+    ``RWKV_BWD_MAX_SLICES`` blocks; 1 when B·H alone reaches the SMs (2 at
+    (1, ·, 64, 64) on 132 SMs: 128 blocks).  A pure function of the shape,
+    not a knob."""
+    cap = max(1, min(RWKV_BWD_MAX_SLICES, hd // RWKV_BWD_MIN_ROWS))
+    n = 1
+    while 2 * n <= cap and B * H * 2 * n <= sm_count:
+        n *= 2
+    return n
+
+
+def rwkv_bwd_slot_floats(hd: int, slices: int) -> int:
+    """fp32 values of one checkpoint state a block of the rwkv backward
+    keeps in global scratch (its hd / ``slices`` rows of the hd × hd
+    state): the slices of a (batch row, head) together hold hd², so the
+    scratch (:func:`rwkv_bwd_scratch`) has the same bytes at every split."""
+    return (hd // slices) * hd
+
+
+def rwkv_bwd_chunk(T: int, hd: int, slices: int = 1) -> int:
     """Tokens per chunk of the rwkv backward kernel: the largest divisor of T
-    up to ``RWKV_BWD_MAX_CHUNK`` whose block fits the shared memory (8 at
-    head dim 64 and T a multiple of 8).  A pure function of the shape, not
-    a knob."""
+    up to ``RWKV_BWD_MAX_CHUNK`` whose block of hd / ``slices`` state rows
+    fits the shared memory (at head dim 64 and T a multiple of 16: 8 for
+    one slice, 16 for two).  A pure function of the shape, not a knob."""
     return max(c for c in range(1, min(T, RWKV_BWD_MAX_CHUNK) + 1)
-               if T % c == 0 and rwkv_bwd_smem_bytes(c, hd) <= SMEM_LIMIT)
+               if T % c == 0 and rwkv_bwd_smem_bytes(c, hd, slices) <= SMEM_LIMIT)
 
 
 def rwkv_bwd_segment(T: int, chunk: int) -> int:
@@ -221,8 +258,10 @@ def rwkv_bwd_segment(T: int, chunk: int) -> int:
 def rwkv_bwd_scratch(T: int, chunk: int, seg: int) -> tuple:
     """(checkpoints, chunk starts): the fp32 (hd, hd) states per (batch row,
     head) the rwkv backward kernel keeps in global scratch, T / segment - 1
-    and segment / chunk - 1 (at least 1 each).  Bytes: 4 hd² B H times
-    their sum, 38 states (40 MB) at (1, 2048, 64, 64)."""
+    and segment / chunk - 1 (at least 1 each), divided among the slices by
+    state rows (:func:`rwkv_bwd_slot_floats`).  Bytes: 4 hd² B H times
+    their sum: at (1, 2048, 64, 64), 38 states (40 MB) at chunk 8, 34 (36 MB)
+    at chunk 16."""
     return max(1, T // seg - 1), max(1, seg // chunk - 1)
 
 
@@ -666,9 +705,10 @@ def _lru_bwd_launch(a, g, gT, hs, h0, chunk: int, block_d: int, nseg: int):
 def rwkv_scan_bwd(r, k, v, lw, u, s0, gy, gsT, *, interpret: bool = False):
     """The gradient of ``rwkv_scan_chunked``: its inputs, ``gy`` = dL/dy and
     ``gsT`` = dL/dsT (or None) -> (dr, dk, dv, dlw, du, ds0) in the inputs'
-    dtypes.  CUDA tensors launch the backward kernel (its chunk from
-    :func:`rwkv_bwd_chunk`); ``interpret=True`` runs the plain version,
-    which takes CPU tensors only.  Anything else raises."""
+    dtypes.  CUDA tensors launch the backward kernel (its slices from
+    :func:`rwkv_bwd_slices`, its chunk from :func:`rwkv_bwd_chunk`);
+    ``interpret=True`` runs the plain version, which takes CPU tensors only.
+    Anything else raises."""
     B, T, H, hd = r.shape
     if interpret:
         if any(x is not None and x.is_cuda for x in (r, k, v, lw, u, s0, gy, gsT)):
@@ -685,32 +725,36 @@ def rwkv_scan_bwd(r, k, v, lw, u, s0, gy, gsT, *, interpret: bool = False):
                                   "gsT": gS},
                 {"r": io, "k": (r.dtype,), "v": (r.dtype,), "lw": f32, "u": f32, "s0": f32,
                  "gy": (r.dtype,), "gsT": f32})
-    L = rwkv_bwd_chunk(T, hd)
-    dr, dk, dv, dlw, du, ds0 = _rwkv_bwd_launch(r, k, v, lwf, uf, s0f, g, gS, L, rwkv_bwd_segment(T, L))
+    slices = rwkv_bwd_slices(B, H, hd, sm_count(r.device))
+    L = rwkv_bwd_chunk(T, hd, slices)
+    dr, dk, dv, dlw, du, ds0 = _rwkv_bwd_launch(r, k, v, lwf, uf, s0f, g, gS, L, rwkv_bwd_segment(T, L),
+                                                slices)
     return (dr, dk, dv, dlw.to(lw.dtype), du.to(u.dtype), ds0.to(s0.dtype))
 
 
-def _rwkv_bwd_launch(r, k, v, lw, u, s0, gy, gsT, chunk: int, seg: int):
-    """Launch the rwkv backward kernel on checked CUDA tensors -> (dr, dk, dv
-    in ``r.dtype``; dlw, du, ds0 fp32)."""
+def _rwkv_bwd_launch(r, k, v, lw, u, s0, gy, gsT, chunk: int, seg: int, slices: int):
+    """Launch the rwkv backward kernel on checked CUDA tensors, ``slices``
+    blocks a (batch row, head) -> (dr, dk, dv in ``r.dtype``; dlw, du, ds0
+    fp32)."""
     B, T, H, hd = r.shape
     dr, dk, dv = (torch.empty_like(r) for _ in range(3))
     dlw = torch.empty(r.shape, dtype=torch.float32, device=r.device)
     du_part = torch.empty((B, H, hd), dtype=torch.float32, device=r.device)
     ds0 = torch.empty_like(s0)
-    ck, sub = (torch.empty(B * H * n * hd * hd, dtype=torch.float32, device=r.device)
+    ck, sub = (torch.empty(B * H * slices * n * rwkv_bwd_slot_floats(hd, slices), dtype=torch.float32,
+                           device=r.device)
                for n in rwkv_bwd_scratch(T, chunk, seg))
     ins = (ctypes.c_void_p * 8)(*[x.data_ptr() for x in (r, k, v, lw, u, s0, gy, gsT)])
     outs = (ctypes.c_void_p * 6)(*[x.data_ptr() for x in (dr, dk, dv, dlw, du_part, ds0)])
     lib = _cuda.load("linear_scan")
     fn = getattr(lib, f"repro_rwkv_scan_bwd_{_SUFFIX[r.dtype]}")
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
         rc = fn(ctypes.addressof(ins), ctypes.addressof(outs), ck.data_ptr(), sub.data_ptr(), B, T, H,
-                hd, chunk, seg, stream)
+                hd, chunk, seg, slices, stream)
     if rc != 0:
-        _raise_launch(lib, rc, f"rwkv_scan_bwd (chunk {chunk}, segment {seg}, hd {hd})")
+        _raise_launch(lib, rc, f"rwkv_scan_bwd (chunk {chunk}, segment {seg}, hd {hd}, {slices} slices)")
     _count("rwkv_scan_bwd")
     return dr, dk, dv, dlw, du_part.sum(0), ds0

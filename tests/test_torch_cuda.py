@@ -549,6 +549,36 @@ def test_rwkv_backward_kernel_matches_plain(dtype, B, T, H, hd):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("slices", [1, 2, 4, 8])
+@pytest.mark.parametrize("B", [1, 2])
+def test_rwkv_backward_kernel_at_every_slice_count(B, slices):
+    """The launch at 1, 2, 4 and 8 row slices a (head, batch row)
+    (clusters of that many blocks), bf16 at head dim 64 over two checkpoint
+    segments, gy and gs_T nonzero: all six outputs against the plain
+    version, two calls bit-identical, and the same bits as one block a
+    (head, batch row) (every sum runs in the one-block order)."""
+    dev = _card()
+    T, H, hd = 128, 2, 64
+    r, k, v = (_randn(120 + i, (B, T, H, hd), torch.bfloat16, dev) for i in range(3))
+    lw = -torch.exp(_randn(123, (B, T, H, hd), torch.float32, dev))
+    u = _randn(124, (H, hd), torch.float32, dev, 0.5)
+    s0 = _randn(125, (B, H, hd, hd), torch.float32, dev)
+    gy = _randn(126, (B, T, H, hd), torch.bfloat16, dev)
+    gsT = _randn(127, (B, H, hd, hd), torch.float32, dev)
+    L = tls.rwkv_bwd_chunk(T, hd)
+    args = (r, k, v, lw, u, s0, gy, gsT, L, tls.rwkv_bwd_segment(T, L), slices)
+    got = tls._rwkv_bwd_launch(*args)
+    again = tls._rwkv_bwd_launch(*args)
+    one = tls._rwkv_bwd_launch(*args[:-1], 1)
+    want = tls.rwkv_scan_bwd_plain(r, k, v, lw, u, s0, gy, gsT)
+    for name, g_, w_, a_, o_ in zip(("dr", "dk", "dv", "dlw", "du", "ds0"), got, want, again, one):
+        assert bool(torch.isfinite(g_.float()).all()), name
+        _bwd_close(g_, w_, name)
+        assert torch.equal(g_, a_), f"{name}: two calls on the same inputs differ"
+        assert torch.equal(g_, o_), f"{name}: {slices} slices differ from one"
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rwkv_backward_kernel_strong_decay(dtype):
     """lw = -14 (w underflows to ~8e-7): the states come from checkpoints,
@@ -646,13 +676,40 @@ def test_flash_backward_kernel_matches_plain(dtype, causal, B, Sq, Skv, H, Kh, h
     before, by_design = tfa.bwd_launches, dict(tfa.launches_by_design)
     got = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, **blocks)
     assert tfa.bwd_launches == before + 1
-    want_design = "bwd_mma" if dtype == torch.bfloat16 and Sq % 64 == 0 and Skv % 64 == 0 else "bwd_simt"
+    want_design = "bwd_wgmma" if dtype == torch.bfloat16 and Sq % 64 == 0 and Skv % 64 == 0 else "bwd_simt"
     assert _ran(tfa.launches_by_design, by_design) == want_design
     want = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal, **blocks)
     again = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, **blocks)
     for name, g_, w_, t_, a_ in zip(("dq", "dk", "dv"), got, want, (q, k, v), again):
         assert g_.dtype == t_.dtype and g_.shape == t_.shape and g_.stride() == t_.stride(), name
         assert bool(torch.isfinite(g_.float()).all()), name
+        _bwd_close(g_, w_, name)
+        assert torch.equal(g_, a_), f"{name}: two calls on the same inputs differ"
+
+
+# (B, S, H, Kh, hd) causal Sq == Skv where the dK/dV pass splits a group's
+# heads: qwen2-7b's layer at 512 tokens (g = 7 over 7 blocks), g = 2 over 2
+FLASH_BWD_SPLIT_SHAPES = [(1, 512, 28, 4, 128), (1, 1152, 16, 8, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,Kh,hd", FLASH_BWD_SPLIT_SHAPES)
+def test_flash_backward_head_split_matches_plain(B, S, H, Kh, hd):
+    """Causal bf16 at shapes whose KV tiles alone do not fill the SMs: the
+    head split is > 1, the three kernels' result holds against the plain
+    version, and two calls give the same bits (the partials are summed in
+    split order)."""
+    dev = _card()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = tfa.bwd_head_splits(B, Kh, H // Kh, S, sms)
+    assert splits > 1 and (H // Kh) % splits == 0
+    q, k, v, o, lse, do, blocks = _flash_bwd_inputs(B, S, S, H, Kh, hd, torch.bfloat16, dev, True)
+    by_design = dict(tfa.launches_by_design)
+    got = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal=True, **blocks)
+    assert _ran(tfa.launches_by_design, by_design) == "bwd_wgmma"
+    want = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True, **blocks)
+    again = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal=True, **blocks)
+    for name, g_, w_, a_ in zip(("dq", "dk", "dv"), got, want, again):
         _bwd_close(g_, w_, name)
         assert torch.equal(g_, a_), f"{name}: two calls on the same inputs differ"
 
@@ -672,7 +729,8 @@ def test_flash_backward_limit_rejects_a_dropped_d_term():
 @pytest.mark.cuda
 def test_flash_backward_kernels_a_call_fixed_in_s():
     """One backward call under ``torch.profiler`` launches the same device
-    kernels at 512 and 2048 tokens (two: the dq pass with D, the dkdv pass)."""
+    kernels at 512 and 2048 tokens (three: the dq pass with D, the dK/dV
+    pass, the sum of its head splits' partials, which runs at every split)."""
     from torch.profiler import ProfilerActivity, profile
 
     dev = _card()
@@ -686,7 +744,7 @@ def test_flash_backward_kernels_a_call_fixed_in_s():
             torch.cuda.synchronize()
         seen[S] = sorted(e.name for e in prof.events() if e.device_type.name == "CUDA"
                          and "memcpy" not in e.name.lower() and "memset" not in e.name.lower())
-    assert seen[512] == seen[2048] and len(seen[512]) == 2, seen
+    assert seen[512] == seen[2048] and len(seen[512]) == tfa.BWD_KERNELS["wgmma"], seen
 
 
 @pytest.mark.cuda
@@ -736,7 +794,7 @@ def test_flash_train_step_on_the_kernel_path_runs_no_oracle(dtype, tol):
             _, _, metrics[impl] = make_train_step(model, opt)(params, opt.init(params), batch)
             torch.cuda.synchronize()
             n_layers = model.cfg.n_layers if impl == "cuda" else 0
-            design = "bwd_mma" if dtype == "bfloat16" else "bwd_simt"
+            design = "bwd_wgmma" if dtype == "bfloat16" else "bwd_simt"
             assert tfa.bwd_launches - before == n_layers
             assert tfa.launches_by_design[design] - by_design[design] == n_layers
     finally:

@@ -268,4 +268,91 @@ def test_plain_path_counts_no_launch_of_either_design():
             tfa.launches_by_design) == before
     assert set(tmm.launches_by_design) == {"wgmma", "simt"}
     # flash attention's forward designs, and its backward's under their own keys
-    assert set(tfa.launches_by_design) == {"wgmma", "simt", "bwd_mma", "bwd_simt"}
+    assert set(tfa.launches_by_design) == {"wgmma", "simt", "bwd_wgmma", "bwd_simt"}
+
+
+# ------------------------------------------------------ flash backward
+_S8 = (8, 8, 8)  # batch, head and sequence strides that are multiples of 8 elements
+
+
+@pytest.mark.parametrize("itemsize,hd,Sq,Skv,strides,aligned,want", [
+    (2, 128, 2048, 2048, _S8, True, "wgmma"),  # qwen2-7b's layer
+    (2, 64, 4096, 4096, _S8, True, "wgmma"),  # seamless's encoder layer
+    (2, 16, 64, 192, _S8, True, "wgmma"),  # Sq != Skv, one 64-row tile
+    (2, 32, 128, 64, _S8, True, "wgmma"),
+    (4, 64, 2048, 2048, _S8, True, "simt"),  # fp32 never takes the tensor cores
+    (2, 64, 96, 96, _S8, True, "simt"),  # not multiples of 64
+    (2, 64, 128, 80, _S8, True, "simt"),
+    (2, 48, 128, 128, _S8, True, "simt"),  # head dim not instantiated
+    (2, 64, 128, 128, (8, 8, 4), True, "simt"),  # a row stride of 8 bytes
+    (2, 64, 128, 128, _S8, False, "simt"),  # a tensor off a 16-byte boundary
+])
+def test_flash_bwd_design(itemsize, hd, Sq, Skv, strides, aligned, want):
+    """The tensor-core backward takes every call the mma design took (bf16,
+    an instantiated head dim, sequences that are multiples of 64, 16-byte
+    rows and starts); everything else runs the CUDA-core design."""
+    assert tfa.bwd_design(itemsize, hd, Sq, Skv, strides, aligned) == want
+
+
+@pytest.mark.parametrize("Sq,Skv,want", [(2048, 2048, (128, 128)), (4096, 512, (128, 128)),
+                                         (64, 192, (64, 64)), (192, 256, (64, 128))])
+def test_flash_bwd_blocks(Sq, Skv, want):
+    """Two consumer warpgroups (128 rows) a block where the sequence allows,
+    else one (64)."""
+    assert tfa.bwd_blocks(Sq, Skv) == want
+
+
+@pytest.mark.parametrize("hd", tfa.HEAD_DIMS)
+@pytest.mark.parametrize("rows", [64, 128])
+def test_flash_bwd_rings_fit_the_block(hd, rows):
+    """Both passes' rings at every instantiated head dim and block: at least
+    two stages, the most up to ``MAX_STAGES`` that fit 227 KB, and the
+    shared memory the kernels compute (tiles rounded to 1024 bytes, lse and
+    D rows, mbarriers, 1024 to align)."""
+    dq_stages, kv_stages = tfa.bwd_ring_stages(hd, rows, rows)
+    tile = -(-2 * 64 * hd // 1024) * 1024
+    fixed = -(-2 * rows * hd // 1024) * 1024
+    for stages, smem, per_stage in ((dq_stages, tfa.bwd_dq_smem_bytes, 2 * tile),
+                                    (kv_stages, tfa.bwd_dkdv_smem_bytes, 2 * tile + 2 * 4 * 64)):
+        assert 2 <= stages <= tfa.MAX_STAGES
+        assert smem(hd, rows, stages) == 1024 + 2 * fixed + stages * per_stage + 8 * (1 + 2 * stages)
+        assert smem(hd, rows, stages) <= SMEM_LIMIT
+        assert stages == tfa.MAX_STAGES or smem(hd, rows, stages + 1) > SMEM_LIMIT
+
+
+@pytest.mark.parametrize("B,Kh,g,sms,want", [
+    (1, 4, 7, 132, 7),  # qwen2-7b's layer: 64 KV tiles of 128 keys at 2048 tokens, 16 at 512
+    (3, 16, 1, 132, 1),  # seamless's encoder: 1536 tiles, g = 1
+    (1, 8, 2, 132, 2),
+    (1, 2, 8, 132, 8),  # no divisor fills the card: all g
+    (4, 8, 4, 132, 1),  # the tiles alone fill it
+    (1, 1, 16, 64, 4),
+])
+def test_flash_bwd_head_splits(B, Kh, g, sms, want):
+    """The dK/dV pass's head split: 1 when the KV tiles fill the SMs, else
+    the smallest divisor of g that does (or g); the same at 512 and 2048
+    tokens for qwen2-7b's layer, and the call is three kernels at either
+    length."""
+    got = {S: tfa.bwd_head_splits(B, Kh, g, S, sms) for S in (512, 2048)}
+    tiles = {S: B * Kh * S // tfa.bwd_blocks(S, S)[1] for S in got}
+    for S, n in got.items():
+        assert g % n == 0
+        smaller = [d for d in range(1, n) if g % d == 0]
+        assert all(tiles[S] * d < sms for d in smaller)
+        assert n == g or tiles[S] * n >= sms
+        assert tfa.bwd_design(2, 128, S, S, _S8) == "wgmma"
+    assert got[2048] == want
+    if B == 1 and Kh == 4:
+        assert got[512] == got[2048] > 1
+    assert tfa.BWD_KERNELS["wgmma"] == 3 and tfa.BWD_KERNELS["simt"] == 2
+
+
+def test_flash_bwd_scratch_is_at_most_two_full_gradients():
+    """The fp32 dK/dV partials: splits x (B, Kh, Skv, hd) each, so at most
+    two (B, H, Skv, hd) fp32 arrays: 58.7 MB at qwen2-7b's layer (29.4 MB
+    each), 100.7 MB at seamless's encoder (split 1)."""
+    assert tfa.bwd_scratch_bytes(1, 4, 2048, 128, 7) == 2 * 4 * 28 * 2048 * 128 == 58720256
+    assert tfa.bwd_scratch_bytes(3, 16, 4096, 64, 1) == 2 * 4 * 3 * 16 * 4096 * 64
+    for B, Kh, g, S, hd in ((1, 4, 7, 2048, 128), (1, 8, 2, 1152, 64), (2, 2, 8, 512, 32)):
+        n = tfa.bwd_head_splits(B, Kh, g, S, 132)
+        assert tfa.bwd_scratch_bytes(B, Kh, S, hd, n) <= 2 * 4 * B * Kh * g * S * hd

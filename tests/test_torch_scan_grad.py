@@ -230,10 +230,10 @@ def test_missing_final_state_cotangent_is_zero():
 
 
 @pytest.mark.parametrize("T,hd,want", [(2048, 64, 8), (2048, 32, 32), (2048, 8, 64), (13, 64, 1),
-                                       (36, 64, 9), (16, 16, 16)])
+                                       (36, 64, 12), (16, 16, 16)])
 def test_rwkv_backward_chunk_is_derived_from_the_shape(T, hd, want):
-    """The largest divisor of T up to 64 whose block (staged rows, the
-    chunk's states, the dv partials) fits the shared memory."""
+    """The largest divisor of T up to 64 whose block (staged rows and the
+    chunk's states) fits the shared memory."""
     L = tls.rwkv_bwd_chunk(T, hd)
     assert L == want and T % L == 0
     assert tls.rwkv_bwd_smem_bytes(L, hd) <= tls.SMEM_LIMIT
@@ -243,7 +243,7 @@ def test_rwkv_backward_chunk_is_derived_from_the_shape(T, hd, want):
 
 @pytest.mark.parametrize("T,hd,seg,states", [(2048, 64, 64, (31, 7)), (4096, 64, 64, (63, 7)),
                                              (2048, 8, 64, (31, 1)), (13, 64, 13, (1, 12)),
-                                             (36, 64, 36, (1, 3)), (100, 64, 50, (1, 4))])
+                                             (36, 64, 36, (1, 2)), (100, 64, 50, (1, 4))])
 def test_rwkv_backward_checkpoints_are_derived_from_the_shape(T, hd, seg, states):
     """The checkpoint segment: the largest multiple of the chunk up to 64
     tokens that divides T; the scratch holds T / segment - 1 checkpoints and
@@ -268,3 +268,41 @@ def test_backward_work_counts():
     flops, nbytes = tls.rwkv_bwd_flops_bytes(r, r, r, lw, u, s0)
     assert flops == 14.0 * 2048 * 64 * 64 * 64
     assert nbytes == 7 * r.numel() * 2 + 2 * lw.numel() * 4 + 2 * u.numel() * 4 + 3 * s0.numel() * 4
+
+
+@pytest.mark.parametrize("B,H,hd,sms,want", [
+    (1, 64, 64, 132, 2),  # rwkv6-7b's training call: 128 blocks
+    (2, 64, 64, 132, 1), (3, 64, 64, 132, 1),  # the heads alone fill the card
+    (1, 2, 64, 132, 8),  # capped by the cluster's 8 blocks
+    (1, 2, 8, 132, 1), (1, 2, 16, 132, 2), (1, 2, 32, 132, 4),  # capped at 8 rows a slice
+    (1, 16, 64, 132, 8), (1, 32, 64, 132, 4),
+])
+def test_rwkv_backward_slices_are_derived_from_the_shape(B, H, hd, sms, want):
+    """The row slices a (head, batch row): the largest power of two with at
+    most one block per SM, at least 8 state rows a slice and at most 8
+    blocks a cluster."""
+    n = tls.rwkv_bwd_slices(B, H, hd, sms)
+    assert n == want
+    assert n & (n - 1) == 0 and hd % n == 0 and hd // n >= tls.RWKV_BWD_MIN_ROWS
+    assert n <= tls.RWKV_BWD_MAX_SLICES and (n == 1 or B * H * n <= sms)
+    assert 2 * n > min(tls.RWKV_BWD_MAX_SLICES, hd // tls.RWKV_BWD_MIN_ROWS) or B * H * 2 * n > sms
+
+
+@pytest.mark.parametrize("T,hd,slices,want", [(2048, 64, 1, 8), (2048, 64, 2, 16), (2048, 64, 4, 32),
+                                              (2048, 64, 8, 64), (2048, 32, 4, 64), (36, 64, 2, 18),
+                                              (13, 64, 2, 13)])
+def test_rwkv_backward_split_sizes(T, hd, slices, want):
+    """A slice's block holds fewer state rows, so its chunk may be longer
+    (the largest divisor of T up to 64 that fits), and its shared memory
+    shrinks with the slice; the checkpoint scratch holds hd² values per
+    (batch row, head) and state whatever the split."""
+    L = tls.rwkv_bwd_chunk(T, hd, slices)
+    assert L == want and T % L == 0
+    assert tls.rwkv_bwd_smem_bytes(L, hd, slices) <= tls.SMEM_LIMIT
+    assert all(tls.rwkv_bwd_smem_bytes(c, hd, slices) > tls.SMEM_LIMIT
+               for c in range(L + 1, min(T, tls.RWKV_BWD_MAX_CHUNK) + 1) if T % c == 0)
+    assert tls.rwkv_bwd_smem_bytes(8, hd, slices) <= tls.rwkv_bwd_smem_bytes(8, hd, 1)
+    assert tls.rwkv_bwd_slot_floats(hd, slices) * slices == hd * hd
+    seg = tls.rwkv_bwd_segment(T, L)
+    ck, sub = tls.rwkv_bwd_scratch(T, L, seg)
+    assert 4 * (ck + sub) * slices * tls.rwkv_bwd_slot_floats(hd, slices) == 4 * (ck + sub) * hd * hd
