@@ -31,14 +31,18 @@ Phases, each printing its numbers on lines of its own:
    scan with its segment count, against the exact scan and against its own
    segmented arithmetic (``lru_scan_segmented_plain``); then the scans'
    backward kernels at the trained shapes (lru a, b, g (4, 256, 2560) fp32
-   at ``rec_chunk`` 8; rwkv r, k, v, gy (1, 2048, 64, 64) bf16, its state
-   rows split over ``linear_scan.rwkv_bwd_slices`` blocks a cluster), with the
-   final-state cotangents nonzero, against their plain versions
-   (``lru_scan_bwd_plain``, ``rwkv_scan_bwd_plain``; each output by
-   ||kernel - plain|| / ||plain||, ``BWD_REL``), a planted fault (the rwkv
-   gradient's dk or dv without its u term) that the same limit must reject,
-   and one call of each under ``torch.profiler`` at two sequence lengths:
-   the same kernel count; then flash attention's backward kernel at the
+   at ``rec_chunk`` 8, one fused kernel split by ``linear_scan.lru_bwd_tiling``;
+   rwkv r, k, v, gy (1, 2048, 64, 64) bf16, its state rows split over
+   ``linear_scan.rwkv_bwd_slices`` blocks a cluster), with the final-state
+   cotangents nonzero, against their plain versions (``lru_scan_bwd_plain``,
+   ``rwkv_scan_bwd_plain``; each output by ||kernel - plain|| / ||plain||,
+   ``BWD_REL``), the lru one also against its own arithmetic
+   (``lru_scan_bwd_segmented_plain``, ``LRU_BWD_SEG_REL``), two calls of each
+   bit-identical, planted faults that the same limit must reject (the lru
+   da formed with h_t in place of h_{t-1}; the rwkv gradient's dk or dv
+   without its u term), and one call of each under ``torch.profiler`` at two
+   sequence lengths: the same kernel count, one kernel for the lru
+   backward; then flash attention's backward kernel at the
    trained shapes (``FA_BWD_CASES``: seamless-m4t-large-v2's encoder layer
    q (3, 4096, 16, 64) non-causal and qwen2-7b's layer q (1, 2048, 28, 128),
    k/v 4 heads, causal, both bf16 on the tensor-core ``wgmma`` design, whose
@@ -110,8 +114,8 @@ Phases, each printing its numbers on lines of its own:
    microbatch count over {1, 2, 4} (``DIR/train.json``) and goes on 2 steps
    past the tuning (cap 40), printing the loss per step (finite and
    falling), step wall times, tokens/s, peak memory and the launches per
-   step (``lru_scan`` 2 x 18 per microbatch: the forward and the backward's
-   recompute; ``lru_scan_bwd`` 18); run 2 on the same DB must be an exact
+   step (``lru_scan`` 18 per microbatch, the forward; ``lru_scan_bwd`` 18,
+   the backward's one kernel each); run 2 on the same DB must be an exact
    hit (4 steps).  Then, on one model and one batch with no update, the
    kernel path's loss and global gradient norm against the plain path's
    (1e-3 / 1e-2 relative), with the lru backward timed per call beside the
@@ -169,7 +173,8 @@ Phases, each printing its numbers on lines of its own:
 18. ``torchrun --standalone --nproc_per_node 1`` running the training
    launcher's ``--distributed`` path (NCCL) on recurrentgemma-2b at full
    width and depth with phase 10's arguments and tuning DB (an exact hit),
-   3 steps: 18 lru launches a step per microbatch, the first loss bit-equal
+   3 steps: 18 ``lru_scan`` and 18 ``lru_scan_bwd`` launches a step per
+   microbatch, the first loss bit-equal
    to phase 10's run 2; then ``pretune --launch --cost
    analytic --smoke`` twice on one DB (3 searched, then 3 exact hits),
    host arithmetic on the H100 data sheet that launches no kernel;
@@ -291,6 +296,11 @@ TOL = {"matmul": {"float32": 1e-5, "bfloat16": 2e-2},
 #: output rounds each element once (about 2e-3 of the norm), an fp32 one
 #: sums the same fp32 products in another order
 BWD_REL = {"float32": 1e-5, "bfloat16": 1e-2}
+#: the lru backward kernel (fp32 here) against its own arithmetic in plain
+#: PyTorch (``lru_scan_bwd_segmented_plain`` at the kernel's tiling),
+#: norm-wise: the same association, the kernel's fused multiply-adds against
+#: the plain version's multiply and add (6e-8 to 2e-7 measured on an H100)
+LRU_BWD_SEG_REL = 1e-6
 #: atol = rtol for the served model's final prefill hidden state, kernel
 #: path against plain path, both run in fp32 arithmetic on the served
 #: (bf16-stored) weights.  In bf16 the two paths round the scans' outputs
@@ -1231,10 +1241,9 @@ def train_phases(out: Path, smi: str) -> dict:
               f"(batch {TRAIN_BATCH} x {TRAIN_SEQ}); torch.cuda.max_memory_allocated {peak:.2f} GB; "
               f"(lru_scan, lru_scan_bwd) launches per step {per_step}; launches {launched}; {smi}")
         check(all(math.isfinite(x_) for x_ in losses), f"run {run}: a loss is not finite")
-        check(all(n_ == (2 * RG_LRU_LAYERS * m_, RG_LRU_LAYERS * m_) for n_, m_ in zip(per_step, mbs)),
+        check(all(n_ == (RG_LRU_LAYERS * m_, RG_LRU_LAYERS * m_) for n_, m_ in zip(per_step, mbs)),
               f"run {run}: (lru_scan, lru_scan_bwd) launches per step {per_step} are not "
-              f"(2, 1) x {RG_LRU_LAYERS} x microbatches {mbs} (the forward and the backward's "
-              f"recompute; the reverse scan)")
+              f"(1, 1) x {RG_LRU_LAYERS} x microbatches {mbs} (the forward; the backward's one kernel)")
         check(all(n_ == 0 for k_, n_ in launched.items() if k_ not in ("lru_scan", "lru_scan_bwd")),
               f"run {run}: unexpected launches {launched}")
         check(peak < 80.0, f"run {run}: peak memory {peak:.2f} GB")
@@ -1268,21 +1277,23 @@ def train_phases(out: Path, smi: str) -> dict:
           f"{gk:.6f} / {gp:.6f} (rel {abs(gk - gp) / abs(gp):.2e}, limit 1e-2) {'ok' if ok else 'FAIL'}; "
           f"forward+backward {paths['cuda_fb_ms']:.1f} ms (kernel path, {paths['bwd_calls']} lru "
           f"backward calls {paths['bwd_ms']:.1f} ms, {paths['bwd_ms'] / paths['bwd_calls']:.3f} ms a "
-          f"call, synchronized around each; the per-token oracle backward it replaced: 847.3 ms "
-          f"forward+backward, 670.1 ms in 18 calls), {paths['cuda_fb_free_ms']:.1f} ms without the per-call "
+          f"call, synchronized around each; the earlier two-kernel backward (the forward kernel's "
+          f"recompute, then a reverse scan) measured 169.2-181.5 ms forward+backward on an H100, the "
+          f"per-token oracle backward before it 847.3 ms, 670.1 ms in 18 calls), {paths['cuda_fb_free_ms']:.1f} ms without the per-call "
           f"synchronizations / {paths['xla_fb_ms']:.1f} ms (plain path); launches {launched}; {smi}")
     check(ok, f"{TRAIN_ARCH}: the kernel path's loss or gradient norm disagrees with the plain path")
-    check(launched["lru_scan"] == 2 * RG_LRU_LAYERS and launched["lru_scan_bwd"] == RG_LRU_LAYERS
+    check(launched["lru_scan"] == RG_LRU_LAYERS and launched["lru_scan_bwd"] == RG_LRU_LAYERS
           and paths["bwd_calls"] == RG_LRU_LAYERS,
           f"{TRAIN_ARCH}: one forward + backward launched lru_scan {launched['lru_scan']} times "
-          f"(expected {2 * RG_LRU_LAYERS}: the forward and the recompute) and lru_scan_bwd "
+          f"(expected {RG_LRU_LAYERS}: the forward) and lru_scan_bwd "
           f"{launched['lru_scan_bwd']} (expected {RG_LRU_LAYERS}) in {paths['bwd_calls']} backward calls")
     train_report["recurrentgemma_2b_paths"] = {
         "loss": [lk, lp], "grad_norm": [gk, gp],
         "forward_backward_ms": [paths["cuda_fb_ms"], paths["xla_fb_ms"]],
         "forward_backward_unsynchronized_ms": paths["cuda_fb_free_ms"],
         "lru_backward_ms": paths["bwd_ms"], "lru_backward_calls": paths["bwd_calls"],
-        "per_token_oracle_before": {"forward_backward_ms": 847.3, "lru_backward_ms": 670.1}}
+        "per_token_oracle_before": {"forward_backward_ms": 847.3, "lru_backward_ms": 670.1},
+        "two_kernel_backward_before": {"forward_backward_ms": [169.2, 181.5]}}
     del model, batch
     gc.collect()
     torch.cuda.empty_cache()
@@ -2747,10 +2758,34 @@ def main(argv=None) -> int:
     rb_args = rwkv_bwd_args(RWKV_BWD_SHAPE)
     bwd_calls = {"lru_scan_bwd": lambda args_: ls.lru_scan_bwd(*args_, **lb_knobs),
                  "rwkv_scan_bwd": lambda args_: ls.rwkv_scan_bwd(*args_)}
-    lb_nseg = lru_segments(lb_args[:3], lb_knobs)
-    compare_bwd(f"lru_scan_bwd fp32 a,b,g{LRU_BWD_SHAPE} g_T nonzero {lb_knobs} ({lb_nseg} segments)",
-                "lru_scan_bwd", bwd_calls["lru_scan_bwd"](lb_args),
-                ls.lru_scan_bwd_plain(*lb_args, **lb_knobs), ("da", "db", "dh0"))
+    lb_tiling = ls.lru_bwd_tiling(*LRU_BWD_SHAPE[1:], 4)
+    lb_design = (f"one fused kernel, {LRU_BWD_SHAPE[0] * LRU_BWD_SHAPE[2] // lb_tiling.cw} blocks of "
+                 f"{lb_tiling.cw} channels over T, {lb_tiling.nsub} sub-segments of "
+                 f"{-(-lb_tiling.tile // lb_tiling.nsub)} rows, {lb_tiling.tiles} tile(s) of {lb_tiling.tile} rows")
+    lb_got = bwd_calls["lru_scan_bwd"](lb_args)
+    lb_want = ls.lru_scan_bwd_plain(*lb_args, **lb_knobs)
+    compare_bwd(f"lru_scan_bwd fp32 a,b,g{LRU_BWD_SHAPE} g_T nonzero {lb_knobs} ({lb_design})",
+                "lru_scan_bwd", lb_got, lb_want, ("da", "db", "dh0"))
+    lb_seg = ls.lru_scan_bwd_segmented_plain(*lb_args, subsegments=lb_tiling.nsub,
+                                             tile=lb_tiling.tile if lb_tiling.tiles > 1 else 0)
+    lb_seg_rel = [bwd_rel(g_, s_) for g_, s_ in zip(lb_got, lb_seg)]
+    print(f"[2] lru_scan_bwd against lru_scan_bwd_segmented_plain at its tiling: ||kernel - plain|| / "
+          f"||plain|| da, db, dh0 {', '.join(f'{r_:.2e}' for r_ in lb_seg_rel)} "
+          f"(limit {LRU_BWD_SEG_REL:g})")
+    check(max(lb_seg_rel) <= LRU_BWD_SEG_REL,
+          f"lru_scan_bwd disagrees with its segmented plain version: {lb_seg_rel}")
+    lb_same = all(torch.equal(g_, a_) for g_, a_ in zip(lb_got, bwd_calls["lru_scan_bwd"](lb_args)))
+    print(f"[2] lru_scan_bwd: two calls on the same inputs bit-identical: {lb_same}")
+    check(lb_same, "lru_scan_bwd: two calls differ")
+    # a planted fault the limit must reject: da formed with h_t in place of
+    # h_{t-1} (db times the exact forward's hs)
+    lb_fault = lb_want[1] * ref.lru_scan_ref(*lb_args[:3])[0]
+    rel_ = bwd_rel(lb_fault, lb_want[0])
+    print(f"[2] planted fault: lru_scan_bwd's da formed with h_t in place of h_(t-1) against the plain "
+          f"version: ||fault - plain|| / ||plain|| {rel_:.2e} (limit {BWD_REL['float32']:g}) "
+          f"{'rejected' if rel_ > BWD_REL['float32'] else 'ACCEPTED'}")
+    check(rel_ > BWD_REL["float32"], "the backward limit accepts the lru da formed with h_t")
+    del lb_got, lb_want, lb_seg, lb_fault
     rb_slices = ls.rwkv_bwd_slices(RWKV_BWD_SHAPE[0], RWKV_BWD_SHAPE[2], RWKV_BWD_SHAPE[3], n_sm)
     rb_chunk = ls.rwkv_bwd_chunk(RWKV_BWD_SHAPE[1], RWKV_BWD_SHAPE[3], rb_slices)
     rb_seg = ls.rwkv_bwd_segment(RWKV_BWD_SHAPE[1], rb_chunk)
@@ -2794,6 +2829,8 @@ def main(argv=None) -> int:
               f"included) and busy ms by T: {seen}")
         check(len({v_["kernels"] for v_ in seen.values()}) == 1,
               f"{name}: the kernel count of one backward call depends on T: {seen}")
+        check(name != "lru_scan_bwd" or all(v_["kernels"] == 1 for v_ in seen.values()),
+              f"lru_scan_bwd: one call ran more than one device kernel: {seen}")
 
     # flash attention's backward kernel at the trained shapes, q, k, v and dO
     # as strided views (as ops.flash_attention and attn_apply pass them), o
@@ -3183,8 +3220,8 @@ def main(argv=None) -> int:
               f"{l_row[which]:.4f} ms, segmented: {nseg} segments of {LRU_SHAPE[1] // nseg} steps, "
               f"{blocks} blocks on {n_sm} SMs, {l_bytes_ms / l_row[which]:.4f} of the bytes bound "
               f"{l_bytes_ms:.4f} ms")
-    # the scans' backward kernels at the trained shapes: the kernel (the lru
-    # one with its recompute of hs), its plain version and the eager oracle
+    # the scans' backward kernels at the trained shapes: the kernel, its
+    # plain version and the eager oracle
     # the port's backward ran before (autograd through ref.*_scan_ref); no
     # single PyTorch call computes either (library: none)
     def oracle_bwd(oracle, inputs, cotangents):
@@ -3204,10 +3241,15 @@ def main(argv=None) -> int:
                "library": None, "main_path": None, "terms": terms}
         row["tuned_again"] = cuda_ms(kernel, 5)
         row["default"] = row["tuned"]
+        # the kernels' own time, without the wrapper's host work (which the
+        # events above include when it outlasts the kernel): device-busy ms
+        # a call over 20 traced calls
+        row["device_ms"] = trace_busy(out, kernel, 20, f"{name}_device")[0]
         times[name] = row
         bound_ms = terms.bound_s * 1e3
-        print(f"[7] {name} {'fp32 ' + str(LRU_BWD_SHAPE) if name == 'lru_scan_bwd' else f'bf16 {RWKV_BWD_SHAPE}, {rb_slices} slices'}: "
-              f"{row['tuned']:.4f} / {row['tuned_again']:.4f} ms, plain {row['plain']:.2f} ms, eager "
+        print(f"[7] {name} {f'fp32 {LRU_BWD_SHAPE} ({lb_design})' if name == 'lru_scan_bwd' else f'bf16 {RWKV_BWD_SHAPE}, {rb_slices} slices'}: "
+              f"{row['tuned']:.4f} / {row['tuned_again']:.4f} ms (CUDA events through the wrapper), device "
+              f"{row['device_ms']:.4f} ms a call ({bound_ms / row['device_ms']:.4f} of the roofline), plain {row['plain']:.2f} ms, eager "
               f"oracle (autograd through ref) {row['oracle']:.2f} ms, library none, bound {bound_ms:.4f} ms "
               f"by {terms.dominant} ({terms.flops / 1e9:.2f} GFLOP fp32, {terms.bytes_accessed / 1e6:.1f} "
               f"MB; {bound_ms / min(row['tuned'], row['tuned_again']):.4f} of the roofline); {smi}")
@@ -3394,11 +3436,10 @@ def main(argv=None) -> int:
     check(summary["loss"][0] == ref_loss, f"launch.train --distributed's first loss {summary['loss'][0]} "
           f"is not phase 10's {ref_loss}")
     per_run = RG_LRU_LAYERS * ref_mb * DIST_STEPS
-    check(dist_launches["lru_scan"] == 2 * per_run and dist_launches["lru_scan_bwd"] == per_run
+    check(dist_launches["lru_scan"] == per_run and dist_launches["lru_scan_bwd"] == per_run
           and all(n_ == 0 for k_, n_ in dist_launches.items() if k_ not in ("lru_scan", "lru_scan_bwd")),
-          f"launch.train --distributed launched {dist_launches}, expected lru_scan 2 x "
-          f"{RG_LRU_LAYERS} x {ref_mb} microbatches x {DIST_STEPS} steps (the forward and the "
-          f"backward's recompute), lru_scan_bwd once as many, and nothing else")
+          f"launch.train --distributed launched {dist_launches}, expected lru_scan {RG_LRU_LAYERS} x "
+          f"{ref_mb} microbatches x {DIST_STEPS} steps (the forward), lru_scan_bwd as many, and nothing else")
     for name in KERNELS:
         parallel_launches[name] += dist_launches[name]
     # pretune --launch: host arithmetic on the H100 data sheet, no kernel
@@ -3605,13 +3646,15 @@ def main(argv=None) -> int:
                          per_token_ms={str(c): t for c, t in row["per_token"].items()},
                          per_token_source="src/repro_torch/kernels/csrc/linear_scan.cu")
         if name in ("lru_scan_bwd", "rwkv_scan_bwd"):
-            entry.update(design="reverse_segmented" if name == "lru_scan_bwd" else "row_slices_cluster",
+            entry.update(design="fused_segmented" if name == "lru_scan_bwd" else "row_slices_cluster",
                          shape=list(LRU_BWD_SHAPE if name == "lru_scan_bwd" else RWKV_BWD_SHAPE),
-                         ms=min(row["tuned"], row["tuned_again"]), ms_default=None,
+                         ms=min(row["tuned"], row["tuned_again"]), ms_default=None, device_ms=row["device_ms"],
                          oracle_ms=row["oracle"], kernels_per_call_by_T=bwd_kernel_counts[name],
                          pallas_counterpart=None)
             if name == "rwkv_scan_bwd":
                 entry["slices"] = rb_slices
+            else:
+                entry["tiling"] = lb_tiling._asdict()
         if name == "flash_attention_bwd":  # seamless's encoder shape; qwen2-7b's layer beside it
             qrow = row["qwen2_7b"]
             entry.update(design=row["design"].removeprefix("bwd_"), head_splits=row["head_splits"],

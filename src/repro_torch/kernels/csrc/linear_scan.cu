@@ -52,6 +52,9 @@
 // CUDA cores against 2-4 bytes per (token, head, channel).  A chunked
 // tensor-core form is later work.
 //
+// lru_scan's backward (lru_bwd_kernel below): one kernel a call, no
+// memset, no hs in device memory.
+//
 // C interface (bound with ctypes): every function returns a cudaError_t
 // code, 0 on success.  Launches go on the stream the caller passes.
 #include <cooperative_groups.h>
@@ -59,7 +62,6 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
-#include <type_traits>
 
 namespace {
 
@@ -158,22 +160,12 @@ __device__ __forceinline__ void write_row(T* p, const float (&h)[CPT]) {
 // [rows][block_d] each, in the input dtype.
 // Every thread stages and reads only its own channels, so no barrier sits
 // between the copies and the scans.
-//
-// REV: the lru backward's reverse scan.  With g = dL/dhs and g_T = dL/dh_T,
-// G_t = g_t + a_{t+1} G_{t+1} (G_T = g_T, a_T = 1) is the same recurrence
-// read from t = T-1 down to 0 with a' = (a_1 .. a_{T-1}, 1), b' = g and
-// h0' = g_T.  Scan step s is time T-1-s; a' is read one row later in time,
-// and its first row (s = 0) is 1.  Where it writes G_t (fp32, = db_t) it
-// also writes da_t = G_t h_{t-1}, reading the forward's h_{t-1} from `hs`
-// (h0 at t = 0), and the block that ends at t = 0 writes dh0 = a_0 G_0 in
-// place of the final state.
-template <typename T, int CPT, bool REV>
+template <typename T, int CPT>
 __global__ void __launch_bounds__(1024)
 lru_segment_kernel(const T* __restrict__ a, const T* __restrict__ b, const float* __restrict__ h0,
-                   std::conditional_t<REV, float, T>* __restrict__ out, float* __restrict__ fin,
-                   int* __restrict__ flags, float* __restrict__ carry, int T_len, int D, int bd,
-                   int chunk, int rows, int nseg, int ncols, const T* __restrict__ hs,
-                   const float* __restrict__ h0_fwd, float* __restrict__ da) {
+                   T* __restrict__ hs, float* __restrict__ hT, int* __restrict__ flags,
+                   float* __restrict__ carry, int T_len, int D, int bd, int chunk, int rows, int nseg,
+                   int ncols) {
   extern __shared__ __align__(16) unsigned char lru_smem[];
   int* ticket_s = reinterpret_cast<int*>(lru_smem);  // 16 bytes, then the tiles
   T* as = reinterpret_cast<T*>(lru_smem + 16);
@@ -187,40 +179,14 @@ lru_segment_kernel(const T* __restrict__ a, const T* __restrict__ b, const float
   const int lc = CPT * threadIdx.x;               // first channel of this thread in the block
   const int ch = (col % nblk) * bd + lc;          // ... and in the row
   const long long col0 = static_cast<long long>(bi) * T_len * D + ch;
-  const int s0 = seg * rows;                      // the segment's first scan step
-  // element offset of the segment's row r: time s0 + r, or T-1-(s0 + r) in reverse
-  auto row = [&](int r) -> long long {
-    const long long s = static_cast<long long>(s0) + r;
-    return col0 + (REV ? T_len - 1 - s : s) * static_cast<long long>(D);
-  };
-  auto emit = [&](int r, const float (&h)[CPT]) {
-    const long long off = row(r);
-    if constexpr (REV) {
-      write_row<float, CPT>(out + off, h);
-      float hp[CPT];
-      if (s0 + r == T_len - 1) {
-#pragma unroll
-        for (int i = 0; i < CPT; ++i) hp[i] = h0_fwd[static_cast<long long>(bi) * D + ch + i];
-      } else {
-        read_row<T, CPT>(hs + off - D, hp);
-      }
-#pragma unroll
-      for (int i = 0; i < CPT; ++i) hp[i] *= h[i];
-      write_row<float, CPT>(da + off, hp);
-    } else {
-      write_row<T, CPT>(out + off, h);
-    }
-  };
+  const int s0 = seg * rows;                      // the segment's first step
+  // element offset of the segment's row r
+  auto row = [&](int r) -> long long { return col0 + (static_cast<long long>(s0) + r) * D; };
 
   const int nch = rows / chunk;
   for (int c = 0; c < nch; ++c) {
     for (int r = c * chunk; r < (c + 1) * chunk; ++r) {
-      if (REV && s0 + r == 0) {
-#pragma unroll
-        for (int i = 0; i < CPT; ++i) as[r * bd + lc + i] = from_float<T>(1.f);
-      } else {
-        stage<T, CPT>(as + r * bd + lc, a + row(r) + (REV ? D : 0));
-      }
+      stage<T, CPT>(as + r * bd + lc, a + row(r));
       stage<T, CPT>(bs + r * bd + lc, b + row(r));
     }
     cp_async_commit();
@@ -244,7 +210,7 @@ lru_segment_kernel(const T* __restrict__ a, const T* __restrict__ b, const float
         P[i] *= av[i];
         h[i] = fmaf(av[i], h[i], bv[i]);
       }
-      if (seg == 0) emit(r, h);
+      if (seg == 0) write_row<T, CPT>(hs + row(r), h);
     }
   }
 
@@ -278,7 +244,7 @@ lru_segment_kernel(const T* __restrict__ a, const T* __restrict__ b, const float
       read_row<T, CPT>(bs + r * bd + lc, bv);
 #pragma unroll
       for (int i = 0; i < CPT; ++i) h[i] = fmaf(av[i], h[i], bv[i]);
-      emit(r, h);
+      write_row<T, CPT>(hs + row(r), h);
     }
   } else if (nseg > 1) {
 #pragma unroll
@@ -288,25 +254,15 @@ lru_segment_kernel(const T* __restrict__ a, const T* __restrict__ b, const float
     if (threadIdx.x == 0) st_release(flags + 1 + ticket, 1);
   }
   if (seg == nseg - 1) {
-    float a0[CPT];
-    if constexpr (REV) {
-      read_row<T, CPT>(a + col0, a0);  // a at t = 0: dh0 = a_0 G_0
-    } else {
 #pragma unroll
-      for (int i = 0; i < CPT; ++i) a0[i] = 1.f;
-    }
-#pragma unroll
-    for (int i = 0; i < CPT; ++i) fin[static_cast<long long>(bi) * D + ch + i] = a0[i] * h[i];
+    for (int i = 0; i < CPT; ++i) hT[static_cast<long long>(bi) * D + ch + i] = h[i];
   }
 }
 
-// Forward: (a, b, h0) -> (out = hs, fin = hT).  REV: (a, b = g, h0 = g_T,
-// hs, h0_fwd) -> (out = G, da, fin = dh0).
-template <typename T, bool REV>
-int lru_launch(const void* a, const void* b, const void* h0, void* out, void* fin, void* flags,
+template <typename T>
+int lru_launch(const void* a, const void* b, const void* h0, void* hs, void* hT, void* flags,
                void* carry, int B, int T_len, int D, int chunk, int block_d, int nseg, int cpt,
-               void* stream, const void* hs = nullptr, const void* h0_fwd = nullptr,
-               void* da = nullptr) {
+               void* stream) {
   if (B <= 0 || T_len <= 0 || D <= 0 || chunk <= 0 || block_d <= 0 || block_d > 1024 ||
       nseg <= 0 || T_len % chunk || D % block_d || (T_len / chunk) % nseg ||
       (cpt != 1 && cpt != 4) || block_d % cpt)
@@ -321,15 +277,266 @@ int lru_launch(const void* a, const void* b, const void* h0, void* out, void* fi
   // The attribute is the block's limit, not this launch's need: the tuner launches one
   // kernel at several tiles from several threads, and a per-launch value set by one
   // thread would refuse another thread's larger launch ("invalid argument").
-  auto kernel = cpt == 4 ? lru_segment_kernel<T, 4, REV> : lru_segment_kernel<T, 1, REV>;
+  auto kernel = cpt == 4 ? lru_segment_kernel<T, 4> : lru_segment_kernel<T, 1>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, BLOCK_SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  using O = std::conditional_t<REV, float, T>;
   kernel<<<ncols * nseg, block_d / cpt, smem, s>>>(
       static_cast<const T*>(a), static_cast<const T*>(b), static_cast<const float*>(h0),
-      static_cast<O*>(out), static_cast<float*>(fin), static_cast<int*>(flags),
-      static_cast<float*>(carry), T_len, D, block_d, chunk, rows, nseg, ncols,
-      static_cast<const T*>(hs), static_cast<const float*>(h0_fwd), static_cast<float*>(da));
+      static_cast<T*>(hs), static_cast<float*>(hT), static_cast<int*>(flags),
+      static_cast<float*>(carry), T_len, D, block_d, chunk, rows, nseg, ncols);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------------------------ RG-LRU backward
+// The gradient of lru_scan with g = dL/dhs, g_T = dL/dh_T (null: zero),
+// h_{-1} = h0:
+//     G_t = g_t + a_{t+1} G_{t+1}   (G_{T-1} = g_{T-1} + g_T: a_T = 1)
+//     db_t = G_t,  da_t = G_t h_{t-1},  dh0 = a_0 G_0.
+// The JAX package's custom_vjp takes jax.vjp of its per-token lax.scan
+// (src/repro/kernels/ops.py:98); it has no Pallas kernel to replace.  What
+// bounds it: bytes, a, b and g read and da and db written once (5 passes over
+// (B, T, D)) against 5 FLOP an element; at recurrentgemma-2b's training call
+// (4, 256, 2560) fp32 that is 16 us of device memory, so the design is about
+// keeping enough copies in flight and nothing else in device memory: one
+// launch a call, no memset, hs never leaves the SM, no block waits on another.
+//
+// One block owns one batch row and `cw` channels over the whole of T; its
+// threads split each tile of `tile` rows into `nsub` sub-segments, thread
+// (q, s) owning CPT neighbouring channels of sub-segment s, so that every
+// thread stages (cp.async, 16 bytes fp32 / 8 bytes bf16 when CPT = 4) and
+// reads only its own rows: the only exchanges between threads are the
+// sub-segments' carries, through shared memory.  Per tile, last tile first:
+//  1. the forward recompute: each thread scans its rows to (P = prod a,
+//     hloc from 0); thread s's carry is the tile's start state combined with
+//     sub-segments 0 .. s-1 in order, c <- fma(P_j, c, hloc_j), which is
+//     h_{lo-1}; it rescans its rows from it and overwrites b with h in shared
+//     memory (in the input dtype, as the forward returns hs);
+//  2. the reverse scan, the same way on a' = (a_1 .. a_{T-1}, 1) read
+//     backwards (a thread's last row takes a' from the next row in device
+//     memory), its carry G from the later sub-segments and from the later
+//     tile; the rescan writes db = G and da = G h_{t-1} straight to device
+//     memory in the dtype of (a, b), and the threads of sub-segment 0 write
+//     dh0 = a_0 G_0.
+// When T fits the shared memory (tile = T) a, b and g are read once.  When it
+// does not, a first pass over the tiles scans a and b to each tile's start
+// state (the combine over all its sub-segments), kept in `hst`, (B, tiles, D)
+// fp32 scratch that this block alone writes and reads; the pass above then
+// re-stages a and b: 7 passes in all, still one launch.  Every sum runs in a
+// fixed order with no atomics, so two calls give the same bits; within a
+// sub-segment the recurrence is exact, only the carries reassociate.
+// linear_scan.py::lru_scan_bwd_segmented_plain is this arithmetic in PyTorch.
+//
+// Shared memory: P and hloc of each sub-segment, [nsub][cw] fp32 each (the
+// reverse scan's aggregates reuse them), G's tile carry [2][cw] fp32, then
+// a, b (then h) and g of the tile, [tile][cw] each in the input dtype.
+template <typename T, int CPT>
+__global__ void __launch_bounds__(1024)
+lru_bwd_kernel(const T* __restrict__ a, const T* __restrict__ b, const float* __restrict__ h0,
+               const T* __restrict__ g, const float* __restrict__ gT, T* __restrict__ da,
+               T* __restrict__ db, float* __restrict__ dh0, float* __restrict__ hst, int T_len, int D,
+               int cw, int nsub, int tile) {
+  extern __shared__ __align__(16) unsigned char lru_bwd_smem[];
+  float* aggP = reinterpret_cast<float*>(lru_bwd_smem);
+  float* aggH = aggP + nsub * cw;
+  float* gcar = aggH + nsub * cw;
+  T* as = reinterpret_cast<T*>(gcar + 2 * cw);
+  T* bs = as + static_cast<size_t>(tile) * cw;
+  T* gs = bs + static_cast<size_t>(tile) * cw;
+  const int ntiles = (T_len + tile - 1) / tile;
+  const int nq = cw / CPT;  // threads a row
+  const int q = threadIdx.x % nq, s = threadIdx.x / nq;
+  const int lc = q * CPT;  // this thread's first channel in the block ...
+  const int bi = blockIdx.y;
+  const int ch = blockIdx.x * cw + lc;  // ... and in the row
+  const long long col0 = static_cast<long long>(bi) * T_len * D + ch;
+  const long long vec0 = static_cast<long long>(bi) * D + ch;  // h0, g_T, dh0
+  auto grow = [&](int t) -> long long { return col0 + static_cast<long long>(t) * D; };
+  auto srow = [&](int r) -> int { return r * cw + lc; };
+  // this thread's rows [lo, hi) of the tile that starts at t0
+  auto rows_of = [&](int t0, int& lo, int& hi) {
+    const int n = min(tile, T_len - t0);
+    const int rp = (n + nsub - 1) / nsub;
+    lo = min(s * rp, n);
+    hi = min(lo + rp, n);
+  };
+  // the start state of tile k: h0, or the first pass's
+  auto tile_start = [&](int k, float (&c)[CPT]) {
+#pragma unroll
+    for (int i = 0; i < CPT; ++i)
+      c[i] = k == 0 ? h0[vec0 + i] : __ldcg(hst + (static_cast<long long>(bi) * ntiles + k) * D + ch + i);
+  };
+  // P = prod a and h from 0 over this thread's staged rows
+  auto fwd_local = [&](int lo, int hi) {
+    float P[CPT], H[CPT], av[CPT], bv[CPT];
+#pragma unroll
+    for (int i = 0; i < CPT; ++i) P[i] = 1.f, H[i] = 0.f;
+    for (int r = lo; r < hi; ++r) {
+      read_row<T, CPT>(as + srow(r), av);
+      read_row<T, CPT>(bs + srow(r), bv);
+#pragma unroll
+      for (int i = 0; i < CPT; ++i) {
+        P[i] *= av[i];
+        H[i] = fmaf(av[i], H[i], bv[i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < CPT; ++i) aggP[s * cw + lc + i] = P[i], aggH[s * cw + lc + i] = H[i];
+  };
+  // c <- fma(P_j, c, hloc_j) for j in [j0, j1), ascending or descending
+  auto combine = [&](float (&c)[CPT], int j0, int j1, int step) {
+    for (int j = j0; j != j1; j += step) {
+#pragma unroll
+      for (int i = 0; i < CPT; ++i) c[i] = fmaf(aggP[j * cw + lc + i], c[i], aggH[j * cw + lc + i]);
+    }
+  };
+
+  // the first pass when T is streamed: each tile's start state into hst
+  for (int k = 0; k + 1 < ntiles; ++k) {
+    const int t0 = k * tile;
+    int lo, hi;
+    rows_of(t0, lo, hi);
+    for (int r = lo; r < hi; ++r) {
+      stage<T, CPT>(as + srow(r), a + grow(t0 + r));
+      stage<T, CPT>(bs + srow(r), b + grow(t0 + r));
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    fwd_local(lo, hi);
+    __syncthreads();
+    if (s == 0) {
+      float c[CPT];
+      tile_start(k, c);
+      combine(c, 0, nsub, 1);
+#pragma unroll
+      for (int i = 0; i < CPT; ++i) hst[(static_cast<long long>(bi) * ntiles + k + 1) * D + ch + i] = c[i];
+    }
+    __syncthreads();  // hst is written; aggP and aggH are read
+  }
+
+  for (int k = ntiles - 1; k >= 0; --k) {
+    const int t0 = k * tile;
+    int lo, hi;
+    rows_of(t0, lo, hi);
+    for (int r = lo; r < hi; ++r) {
+      stage<T, CPT>(as + srow(r), a + grow(t0 + r));
+      stage<T, CPT>(bs + srow(r), b + grow(t0 + r));
+    }
+    cp_async_commit();
+    for (int r = lo; r < hi; ++r) stage<T, CPT>(gs + srow(r), g + grow(t0 + r));
+    cp_async_commit();
+    // a' of this thread's last row: a at the next row, 1 past the end of T
+    float an[CPT];
+    if (hi > lo && t0 + hi < T_len) {
+      read_row<T, CPT>(a + grow(t0 + hi), an);
+    } else {
+#pragma unroll
+      for (int i = 0; i < CPT; ++i) an[i] = 1.f;
+    }
+    cp_async_wait<1>();  // a and b; g may still be landing
+
+    // 1. the forward recompute: h over this thread's rows, into bs
+    fwd_local(lo, hi);
+    __syncthreads();
+    float hfirst[CPT];  // h_{t0 + lo - 1}: this sub-segment's carry
+    tile_start(k, hfirst);
+    combine(hfirst, 0, s, 1);
+    {
+      float h[CPT], av[CPT], bv[CPT];
+#pragma unroll
+      for (int i = 0; i < CPT; ++i) h[i] = hfirst[i];
+      for (int r = lo; r < hi; ++r) {
+        read_row<T, CPT>(as + srow(r), av);
+        read_row<T, CPT>(bs + srow(r), bv);
+#pragma unroll
+        for (int i = 0; i < CPT; ++i) h[i] = fmaf(av[i], h[i], bv[i]);
+        write_row<T, CPT>(bs + srow(r), h);
+      }
+    }
+    __syncthreads();  // every carry is formed: aggP and aggH are free
+    cp_async_wait<0>();
+
+    // 2. the reverse scan: G over this thread's rows, last row first
+    auto aprime = [&](int r, float (&ap)[CPT]) {
+      if (r + 1 < hi) {
+        read_row<T, CPT>(as + srow(r + 1), ap);
+      } else {
+#pragma unroll
+        for (int i = 0; i < CPT; ++i) ap[i] = an[i];
+      }
+    };
+    {
+      float P[CPT], G[CPT], ap[CPT], gv[CPT];
+#pragma unroll
+      for (int i = 0; i < CPT; ++i) P[i] = 1.f, G[i] = 0.f;
+      for (int r = hi - 1; r >= lo; --r) {
+        aprime(r, ap);
+        read_row<T, CPT>(gs + srow(r), gv);
+#pragma unroll
+        for (int i = 0; i < CPT; ++i) {
+          P[i] *= ap[i];
+          G[i] = fmaf(ap[i], G[i], gv[i]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < CPT; ++i) aggP[s * cw + lc + i] = P[i], aggH[s * cw + lc + i] = G[i];
+    }
+    __syncthreads();
+    float G[CPT], ap[CPT], gv[CPT], hp[CPT], d[CPT];
+#pragma unroll
+    for (int i = 0; i < CPT; ++i)
+      G[i] = k + 1 < ntiles ? gcar[(k & 1) * cw + lc + i] : (gT ? gT[vec0 + i] : 0.f);
+    combine(G, nsub - 1, s, -1);
+    if (s == 0 && k > 0) {  // G at the tile's first row, into the previous tile
+#pragma unroll
+      for (int i = 0; i < CPT; ++i) gcar[((k - 1) & 1) * cw + lc + i] = fmaf(aggP[lc + i], G[i], aggH[lc + i]);
+    }
+    for (int r = hi - 1; r >= lo; --r) {
+      aprime(r, ap);
+      read_row<T, CPT>(gs + srow(r), gv);
+      if (r > lo) {
+        read_row<T, CPT>(bs + srow(r - 1), hp);
+      } else {
+#pragma unroll
+        for (int i = 0; i < CPT; ++i) hp[i] = hfirst[i];
+      }
+#pragma unroll
+      for (int i = 0; i < CPT; ++i) {
+        G[i] = fmaf(ap[i], G[i], gv[i]);
+        d[i] = G[i] * hp[i];
+      }
+      write_row<T, CPT>(db + grow(t0 + r), G);
+      write_row<T, CPT>(da + grow(t0 + r), d);
+    }
+    if (k == 0 && s == 0) {  // G is G_0
+      float a0[CPT];
+      read_row<T, CPT>(as + srow(0), a0);
+#pragma unroll
+      for (int i = 0; i < CPT; ++i) dh0[vec0 + i] = a0[i] * G[i];
+    }
+    if (ntiles > 1) __syncthreads();  // the next tile's rows may belong to other threads
+  }
+}
+
+// smem: the block's dynamic shared memory (linear_scan.py::lru_bwd_smem_bytes)
+template <typename T>
+int lru_bwd_launch(const void* a, const void* b, const void* h0, const void* g, const void* gT,
+                   void* da, void* db, void* dh0, void* hst, int B, int T_len, int D, int cw,
+                   int nsub, int tile, int cpt, void* stream) {
+  if (B <= 0 || B > 65535 || T_len <= 0 || D <= 0 || cw <= 0 || D % cw || nsub <= 0 || tile <= 0 ||
+      (cpt != 1 && cpt != 4) || cw % cpt || (cw / cpt) * nsub > 1024 ||
+      (tile < T_len && hst == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = (2 * static_cast<size_t>(nsub) * cw + 2 * cw) * sizeof(float) +
+                      3 * static_cast<size_t>(tile) * cw * sizeof(T);
+  if (smem > static_cast<size_t>(BLOCK_SMEM)) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = cpt == 4 ? lru_bwd_kernel<T, 4> : lru_bwd_kernel<T, 1>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, BLOCK_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(D / cw, B), (cw / cpt) * nsub, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(a), static_cast<const T*>(b), static_cast<const float*>(h0),
+      static_cast<const T*>(g), static_cast<const float*>(gT), static_cast<T*>(da), static_cast<T*>(db),
+      static_cast<float*>(dh0), static_cast<float*>(hst), T_len, D, cw, nsub,
+      tile < T_len ? tile : T_len);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -704,15 +911,15 @@ extern "C" {
 int repro_lru_scan_f32(const void* a, const void* b, const void* h0, void* hs, void* hT,
                        void* flags, void* carry, int B, int T, int D, int chunk, int block_d,
                        int nseg, int cpt, void* stream) {
-  return lru_launch<float, false>(a, b, h0, hs, hT, flags, carry, B, T, D, chunk, block_d, nseg,
-                                  cpt, stream);
+  return lru_launch<float>(a, b, h0, hs, hT, flags, carry, B, T, D, chunk, block_d, nseg, cpt,
+                           stream);
 }
 
 int repro_lru_scan_bf16(const void* a, const void* b, const void* h0, void* hs, void* hT,
                         void* flags, void* carry, int B, int T, int D, int chunk, int block_d,
                         int nseg, int cpt, void* stream) {
-  return lru_launch<__nv_bfloat16, false>(a, b, h0, hs, hT, flags, carry, B, T, D, chunk, block_d,
-                                          nseg, cpt, stream);
+  return lru_launch<__nv_bfloat16>(a, b, h0, hs, hT, flags, carry, B, T, D, chunk, block_d, nseg,
+                                   cpt, stream);
 }
 
 int repro_rwkv_scan_f32(const void* r, const void* k, const void* v, const void* lw, const void* u,
@@ -727,23 +934,22 @@ int repro_rwkv_scan_bf16(const void* r, const void* k, const void* v, const void
   return rwkv_launch<__nv_bfloat16>(r, k, v, lw, u, s0, y, sT, B, T, H, hd, chunk, stream);
 }
 
-// The lru backward's reverse scan: a, g (= dL/dhs) and hs (the forward's
-// states) in the input dtype; g_T, h0, G, da and dh0 fp32; flags and carry
-// as for the forward.
-int repro_lru_scan_bwd_f32(const void* a, const void* g, const void* gT, const void* hs,
-                           const void* h0, void* G, void* da, void* dh0, void* flags, void* carry,
-                           int B, int T, int D, int chunk, int block_d, int nseg, int cpt,
-                           void* stream) {
-  return lru_launch<float, true>(a, g, gT, G, dh0, flags, carry, B, T, D, chunk, block_d, nseg, cpt,
-                                 stream, hs, h0, da);
+// The lru backward: a, b, g (= dL/dhs), da and db in the input dtype; h0,
+// g_T (= dL/dh_T, or null for zero) and dh0 fp32.  cw channels a block (a
+// divisor of D), nsub sub-segments a tile of `tile` rows; hst: B * ceil(T /
+// tile) * D fp32 scratch when tile < T, else unused.  cpt: channels a thread,
+// 4 (a, b, g, da, db on 4-element boundaries, D and cw multiples of 4) or 1.
+int repro_lru_scan_bwd_f32(const void* a, const void* b, const void* h0, const void* g, const void* gT,
+                           void* da, void* db, void* dh0, void* hst, int B, int T, int D, int cw,
+                           int nsub, int tile, int cpt, void* stream) {
+  return lru_bwd_launch<float>(a, b, h0, g, gT, da, db, dh0, hst, B, T, D, cw, nsub, tile, cpt, stream);
 }
 
-int repro_lru_scan_bwd_bf16(const void* a, const void* g, const void* gT, const void* hs,
-                            const void* h0, void* G, void* da, void* dh0, void* flags, void* carry,
-                            int B, int T, int D, int chunk, int block_d, int nseg, int cpt,
-                            void* stream) {
-  return lru_launch<__nv_bfloat16, true>(a, g, gT, G, dh0, flags, carry, B, T, D, chunk, block_d,
-                                         nseg, cpt, stream, hs, h0, da);
+int repro_lru_scan_bwd_bf16(const void* a, const void* b, const void* h0, const void* g, const void* gT,
+                            void* da, void* db, void* dh0, void* hst, int B, int T, int D, int cw,
+                            int nsub, int tile, int cpt, void* stream) {
+  return lru_bwd_launch<__nv_bfloat16>(a, b, h0, g, gT, da, db, dh0, hst, B, T, D, cw, nsub, tile, cpt,
+                                       stream);
 }
 
 // The RWKV-6 backward: in = (r, k, v, lw, u, s0, gy, gsT), out = (dr, dk, dv,

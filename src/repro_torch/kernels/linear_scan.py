@@ -35,12 +35,18 @@ are kernels too; the JAX package has no Pallas counterpart for them (its
 ``custom_vjp`` takes ``jax.vjp`` of the per-token ``lax.scan``, one device
 loop under ``jit``):
 
-* ``lru_scan_bwd`` (``csrc/linear_scan.cu``): the forward kernel recomputes
-  hs from the saved (a, b, h0), then the same segmented kernel runs in
-  reverse time, G_t = g_t + a_{t+1} G_{t+1} from G_T = g_T, writing
-  db = G, da_t = G_t h_{t−1} and dh0 = a_0 G_0 as it goes, at the forward
-  call's (chunk, block_d); :func:`lru_scan_bwd_plain` is the same reverse
-  recurrence in plain PyTorch;
+* ``lru_scan_bwd`` (``csrc/linear_scan.cu::lru_bwd_kernel``): one launch a
+  call.  A block owns one batch row and a tile of channels over the whole
+  of T, its threads splitting T into sub-segments; it stages a, b and g in
+  shared memory, recomputes hs there (each sub-segment's carry combined
+  from the earlier ones in order), then runs G_t = g_t + a_{t+1} G_{t+1}
+  from G_T = g_T the same way in reverse, writing db = G,
+  da_t = G_t h_{t−1} and dh0 = a_0 G_0.  hs never reaches device memory
+  and no block waits on another; when T does not fit, the same kernel
+  streams it in tiles.  The split is derived from the shape
+  (:func:`lru_bwd_tiling`), not from the forward's knobs;
+  :func:`lru_scan_bwd_segmented_plain` is its arithmetic in plain PyTorch
+  and :func:`lru_scan_bwd_plain` the exact reverse recurrence;
 * ``rwkv_scan_bwd`` (``csrc/linear_scan.cu``): the recurrences of the
   state and its gradient are independent per state row, so
   :func:`rwkv_bwd_slices` blocks per (head, batch row), a thread-block
@@ -64,7 +70,9 @@ charges them ``inf``).  :func:`lru_scan_plain` and
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
+from typing import NamedTuple
 
 import torch
 
@@ -87,6 +95,10 @@ __all__ = [
     "rwkv_flops_bytes",
     "lru_scan_bwd",
     "lru_scan_bwd_plain",
+    "lru_scan_bwd_segmented_plain",
+    "lru_bwd_tiling",
+    "lru_bwd_smem_bytes",
+    "LruBwdTiling",
     "rwkv_scan_bwd",
     "rwkv_scan_bwd_plain",
     "rwkv_bwd_chunk",
@@ -113,6 +125,15 @@ LRU_SEG_BYTES = 64 * 1024
 LRU_BLOCKS_PER_SM = 2
 #: the lru block's shared memory beyond its staged segment (the ticket)
 LRU_FIXED_BYTES = 16
+#: the lru backward's block (:func:`lru_bwd_tiling`, chosen by
+#: ``scripts/probe_lru.py --bwd``): at most ``LRU_BWD_CHANNELS`` channels,
+#: sub-segments of ``LRU_BWD_SUB_ROWS`` rows, at most ``LRU_BWD_MAX_SUBS``;
+#: staged tiles within ``LRU_BWD_SMEM_BYTES``, half an SM's 228 KB less the
+#: 1 KB the card reserves for a block (two blocks an SM)
+LRU_BWD_CHANNELS = 32
+LRU_BWD_SUB_ROWS = 16
+LRU_BWD_MAX_SUBS = 16
+LRU_BWD_SMEM_BYTES = 233472 // 2 - 1024
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -135,9 +156,8 @@ RWKV_BWD_SEGMENT = 64
 RWKV_BWD_MAX_SLICES = 8
 RWKV_BWD_MIN_ROWS = 8
 
-#: kernel launches so far, per kernel (the backward kernels under ``_bwd``;
-#: the lru backward's recompute of hs counts as an ``lru_scan`` launch), and
-#: the rwkv scan's by design (the plain versions do not count)
+#: kernel launches so far, per kernel (the backward kernels under ``_bwd``),
+#: and the rwkv scan's by design (the plain versions do not count)
 launches = {"lru_scan": 0, "rwkv_scan": 0, "lru_scan_bwd": 0, "rwkv_scan_bwd": 0}
 launches_by_design = {"tc": 0, "per_token": 0}
 _count_lock = threading.Lock()
@@ -198,6 +218,53 @@ def lru_channels_per_thread(D: int, block_d: int, aligned: bool) -> int:
     of 4 and a, b and hs start on 4-element boundaries, else 1 (element
     copies)."""
     return 4 if aligned and D % 4 == 0 and block_d % 4 == 0 else 1
+
+
+class LruBwdTiling(NamedTuple):
+    """How the lru backward kernel splits a call (:func:`lru_bwd_tiling`)."""
+
+    cw: int  #: channels a block (a divisor of D)
+    cpt: int  #: channels a thread: 4 (16-byte fp32 / 8-byte bf16 copies) or 1
+    nsub: int  #: sub-segments of a tile, one thread each per ``cpt`` channels
+    tile: int  #: rows staged at once: T when it fits, else T is streamed
+    tiles: int  #: ceil(T / tile)
+
+
+def lru_bwd_smem_bytes(cw: int, nsub: int, tile: int, itemsize: int) -> int:
+    """Shared memory of one lru backward block: each sub-segment's product
+    and state, (nsub, cw) fp32 each, G's tile carry (2, cw) fp32, and the
+    staged a, b (then h) and g tiles, (tile, cw) each in the input dtype."""
+    return 4 * (2 * nsub * cw + 2 * cw) + 3 * tile * cw * itemsize
+
+
+@functools.lru_cache(maxsize=256)
+def lru_bwd_tiling(T: int, D: int, itemsize: int) -> LruBwdTiling:
+    """The lru backward's split of a (B, T, D) call, a pure function of T, D
+    and the dtype's ``itemsize`` (not a knob):
+
+    * the channel tile: the widest divisor of D up to ``LRU_BWD_CHANNELS``,
+      a multiple of 4 when D is (4 channels a thread, as
+      :func:`lru_channels_per_thread`; else element copies, 1);
+    * sub-segments: ceil(T / ``LRU_BWD_SUB_ROWS``), at most
+      ``LRU_BWD_MAX_SUBS``;
+    * the tile: T when a, b and g of the whole column fit
+      ``LRU_BWD_SMEM_BYTES``; else the most rows that fit, a multiple of the
+      sub-segment count, and T is streamed in ceil(T / tile) tiles.
+
+    Measured on an H100 (``scripts/probe_lru.py --bwd``), narrower tiles
+    were slower even where the blocks do not fill the SMs (one batch row,
+    80 blocks on 132 SMs), so neither the batch nor the SM count enters.  At
+    recurrentgemma-2b's training call (4, 256, 2560): 32 channels and 16
+    sub-segments of 16 rows, one tile (320 blocks of 128 threads); at T
+    2048 in fp32, tiles of 288 rows."""
+    cpt = 4 if D % 4 == 0 else 1
+    cw = max(c for c in range(cpt, min(max(cpt, LRU_BWD_CHANNELS), D) + 1, cpt) if D % c == 0)
+    nsub = max(1, min(LRU_BWD_MAX_SUBS, -(-T // LRU_BWD_SUB_ROWS)))
+    if lru_bwd_smem_bytes(cw, nsub, T, itemsize) <= LRU_BWD_SMEM_BYTES:
+        return LruBwdTiling(cw, cpt, nsub, T, 1)
+    rows = (LRU_BWD_SMEM_BYTES - lru_bwd_smem_bytes(cw, nsub, 0, itemsize)) // (3 * cw * itemsize)
+    tile = rows // nsub * nsub
+    return LruBwdTiling(cw, cpt, nsub, tile, -(-T // tile))
 
 
 def rwkv_smem_bytes(chunk: int, hd: int) -> int:
@@ -455,6 +522,86 @@ def lru_scan_bwd_plain(a, b, h0, ghs, ghT, *, chunk: int = 128, block_d: int = L
     return (Gs * hprev).to(a.dtype), Gs.to(b.dtype), (af[:, 0] * Gs[:, 0]).to(h0.dtype)
 
 
+def lru_scan_bwd_segmented_plain(a, b, h0, ghs, ghT, *, subsegments: int, tile: int = 0):
+    """The lru backward kernel's arithmetic in plain fp32 PyTorch (tests and
+    ``chip_smoke.py`` only).  T is cut into tiles of ``tile`` rows (0: one
+    tile), each tile into ``subsegments`` sub-segments of ceil(rows /
+    subsegments) rows (the last ones shorter or empty).  Each tile's start
+    state: h0, then the previous start state combined with each of the
+    previous tile's sub-segments in order, c ← P_j·c + hloc_j (P = ∏a and
+    hloc the state from 0 over the sub-segment).  Within a tile,
+    sub-segment s reruns h from the combine over sub-segments 0 .. s−1; h
+    is kept rounded to ``a.dtype`` except at each sub-segment's carry.
+    Then, last tile first, the same on a′ = (a_1 .. a_{T−1}, 1) and g in
+    reverse, with the carry G from the later sub-segments and from the
+    later tile (G_T = g_T); db = G, da = G·h_{t−1}, dh0 = a_0·G_0.  Returns
+    (da, db, dh0) in the dtypes of (a, b, h0)."""
+    B, T, D = a.shape
+    tile = T if tile <= 0 else min(tile, T)
+    S = subsegments
+    if S < 1:
+        raise ValueError(f"subsegments={S} must be positive")
+    af, bf, g, h0f = a.float(), b.float(), ghs.float(), h0.float()
+    ap_all = torch.cat([af[:, 1:], torch.ones_like(af[:, :1])], dim=1)  # a′_t = a_{t+1}, a_T = 1
+
+    def split(x, lo, hi, fill):
+        """Rows [lo, hi) as (B, S, rows a sub-segment, D), padded with
+        ``fill`` (which passes a carry through unchanged)."""
+        n = hi - lo
+        rp = -(-n // S)
+        pad = torch.full((B, S * rp - n, D), fill, dtype=torch.float32, device=x.device)
+        return torch.cat([x[:, lo:hi], pad], dim=1).reshape(B, S, rp, D)
+
+    def local(A, X, order):
+        P, H = torch.ones_like(A[:, :, 0]), torch.zeros_like(A[:, :, 0])
+        for i in order:
+            P = P * A[:, :, i]
+            H = A[:, :, i] * H + X[:, :, i]
+        return P, H
+
+    bounds = [(lo, min(lo + tile, T)) for lo in range(0, T, tile)]
+    starts = [h0f]
+    for lo, hi in bounds[:-1]:
+        P, H = local(split(af, lo, hi, 1.0), split(bf, lo, hi, 0.0), range(-(-(hi - lo) // S)))
+        c = starts[-1]
+        for j in range(S):
+            c = P[:, j] * c + H[:, j]
+        starts.append(c)
+    da = torch.empty(B, T, D, dtype=torch.float32, device=a.device)
+    db = torch.empty_like(da)
+    G_in = torch.zeros_like(h0f) if ghT is None else ghT.float()
+    for k in range(len(bounds) - 1, -1, -1):
+        lo, hi = bounds[k]
+        n = hi - lo
+        rp = -(-n // S)
+        A, X = split(af, lo, hi, 1.0), split(bf, lo, hi, 0.0)
+        P, H = local(A, X, range(rp))
+        carries = [starts[k]]
+        for j in range(S - 1):
+            carries.append(P[:, j] * carries[-1] + H[:, j])
+        h = torch.stack(carries, dim=1)  # (B, S, D): h_{lo_s − 1}
+        hprev = torch.empty_like(A)
+        hprev[:, :, 0] = h
+        for i in range(rp):
+            h = A[:, :, i] * h + X[:, :, i]
+            if i + 1 < rp:
+                hprev[:, :, i + 1] = h.to(a.dtype).float()
+        Ap, Gx = split(ap_all, lo, hi, 1.0), split(g, lo, hi, 0.0)
+        P, H = local(Ap, Gx, range(rp - 1, -1, -1))
+        carries = [G_in]
+        for j in range(S - 1, 0, -1):
+            carries.append(P[:, j] * carries[-1] + H[:, j])
+        G = torch.stack(carries[::-1], dim=1)  # (B, S, D): G after sub-segment s
+        G_in = P[:, 0] * G[:, 0] + H[:, 0]
+        Gs = torch.empty_like(A)
+        for i in range(rp - 1, -1, -1):
+            G = Ap[:, :, i] * G + Gx[:, :, i]
+            Gs[:, :, i] = G
+        db[:, lo:hi] = Gs.reshape(B, S * rp, D)[:, :n]
+        da[:, lo:hi] = (Gs * hprev).reshape(B, S * rp, D)[:, :n]
+    return da.to(a.dtype), db.to(b.dtype), (af[:, 0] * db[:, 0]).to(h0.dtype)
+
+
 def rwkv_scan_plain(r, k, v, lw, u, s0, *, chunk: int = 64):
     """The rwkv kernel in plain PyTorch: ``chunk`` is checked as the kernel
     checks it (it does not change the arithmetic), then the exact fp32
@@ -572,36 +719,29 @@ def lru_scan_chunked(a, b, h0, *, chunk: int = 128, block_d: int = LRU_BLOCK_D,
 
 def _lru_launch(a, b, h0, chunk: int, block_d: int, nseg: int):
     """Launch the lru kernel with ``nseg`` segments on checked CUDA tensors
-    (h0 fp32).  ``scripts/probe_lru.py`` also calls it at other segment
-    counts."""
-    hs = torch.empty_like(a)  # the caching allocator's blocks start on 512-byte boundaries
-    hT = torch.empty((a.shape[0], a.shape[2]), dtype=torch.float32, device=a.device)
-    _lru_run("lru_scan", (a, b, h0, hs, hT), (a, b, hs), chunk, block_d, nseg)
-    return hs, hT
-
-
-def _lru_run(name: str, tensors, staged, chunk: int, block_d: int, nseg: int) -> None:
-    """Call ``repro_<name>_<dtype>`` of ``linear_scan.cu`` on ``tensors``
-    (the first is a) with fresh flags and carries; 4 channels a thread when
-    the ``staged`` tensors allow 16-byte (fp32) or 8-byte (bf16) copies."""
-    a = tensors[0]
+    (h0 fp32), fresh flags and carries; 4 channels a thread when a, b and hs
+    allow 16-byte (fp32) or 8-byte (bf16) copies.  ``scripts/probe_lru.py``
+    also calls it at other segment counts."""
     B, T, D = a.shape
+    hs = torch.empty_like(a)  # the caching allocator's blocks start on 512-byte boundaries
+    hT = torch.empty((B, D), dtype=torch.float32, device=a.device)
     ncols = B * (D // block_d)
     flags = torch.empty(1 + ncols * nseg, dtype=torch.int32, device=a.device)  # zeroed by the launch
     carry = torch.empty(max(1, ncols * nseg * block_d), dtype=torch.float32, device=a.device)
     vec = 4 * a.element_size()
-    cpt = lru_channels_per_thread(D, block_d, all(x.data_ptr() % vec == 0 for x in staged))
+    cpt = lru_channels_per_thread(D, block_d, all(x.data_ptr() % vec == 0 for x in (a, b, hs)))
     lib = _cuda.load("linear_scan")
-    fn = getattr(lib, f"repro_{name}_{_SUFFIX[a.dtype]}")
-    fn.argtypes = [ctypes.c_void_p] * (len(tensors) + 2) + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn = getattr(lib, f"repro_lru_scan_{_SUFFIX[a.dtype]}")
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        rc = fn(*(x.data_ptr() for x in tensors), flags.data_ptr(), carry.data_ptr(), B, T, D, chunk,
-                block_d, nseg, cpt, stream)
+        rc = fn(*(x.data_ptr() for x in (a, b, h0, hs, hT, flags, carry)), B, T, D, chunk, block_d, nseg,
+                cpt, stream)
     if rc != 0:
-        _raise_launch(lib, rc, f"{name} (chunk {chunk}, block_d {block_d}, {nseg} segments)")
-    _count(name)
+        _raise_launch(lib, rc, f"lru_scan (chunk {chunk}, block_d {block_d}, {nseg} segments)")
+    _count("lru_scan")
+    return hs, hT
 
 
 def rwkv_scan_chunked(r, k, v, lw, u, s0, *, chunk: int = 64, interpret: bool = False):
@@ -669,10 +809,11 @@ def lru_scan_bwd(a, b, h0, ghs, ghT, *, chunk: int = 128, block_d: int = LRU_BLO
                  interpret: bool = False):
     """The gradient of ``lru_scan_chunked``: (a, b, h0) as the forward took
     them, ``ghs`` = dL/dhs, ``ghT`` = dL/dhT (or None) -> (da, db, dh0) in the
-    dtypes of (a, b, h0).  CUDA tensors launch the forward kernel (hs
-    recomputed) and the reverse scan at the forward's (chunk, block_d);
-    ``interpret=True`` runs the plain version, which takes CPU tensors only.
-    Anything else raises."""
+    dtypes of (a, b, h0).  The forward's (chunk, block_d) are checked as the
+    forward checks them and shape nothing else.  CUDA tensors launch the
+    backward kernel once, split by :func:`lru_bwd_tiling`; ``interpret=True``
+    runs the plain version, which takes CPU tensors only.  Anything else
+    raises."""
     B, T, D = a.shape
     L, bd = legal_lru(T, D, chunk, block_d, on_card=not interpret, itemsize=a.element_size())
     if interpret:
@@ -681,25 +822,42 @@ def lru_scan_bwd(a, b, h0, ghs, ghT, *, chunk: int = 128, block_d: int = LRU_BLO
         return lru_scan_bwd_plain(a, b, h0, ghs, ghT, chunk=L, block_d=bd)
     h0f = h0.float().contiguous()
     g = ghs.to(a.dtype).contiguous()
-    gT = torch.zeros_like(h0f) if ghT is None else ghT.float().contiguous()
+    named = {"a": a, "b": b, "h0": h0f, "ghs": g}
+    if ghT is not None:
+        ghT = named["ghT"] = ghT.float().contiguous()
     io = (torch.float32, torch.bfloat16)
     f32 = (torch.float32,)
-    _check_cuda("lru_scan_bwd", {"a": a, "b": b, "h0": h0f, "ghs": g, "ghT": gT},
+    _check_cuda("lru_scan_bwd", named,
                 {"a": io, "b": (a.dtype,), "h0": f32, "ghs": (a.dtype,), "ghT": f32})
-    nseg = lru_segments(B, T, D, L, bd, a.element_size(), sm_count(a.device))
-    hs, _ = _lru_launch(a, b, h0f, L, bd, nseg)
-    da, G, dh0 = _lru_bwd_launch(a, g, gT, hs, h0f, L, bd, nseg)
-    return da.to(a.dtype), G.to(b.dtype), dh0.to(h0.dtype)
+    da, db, dh0 = _lru_bwd_launch(a, b, h0f, g, ghT, lru_bwd_tiling(T, D, a.element_size()))
+    return da, db, dh0.to(h0.dtype)
 
 
-def _lru_bwd_launch(a, g, gT, hs, h0, chunk: int, block_d: int, nseg: int):
-    """Launch the reverse scan on checked CUDA tensors (a, g, hs in one
-    dtype; gT, h0 fp32) -> (da, G, dh0), fp32."""
-    G = torch.empty(a.shape, dtype=torch.float32, device=a.device)
-    da = torch.empty_like(G)
+def _lru_bwd_launch(a, b, h0, g, gT, tiling: LruBwdTiling):
+    """Launch the lru backward kernel at ``tiling`` on checked CUDA tensors
+    (a, b, g in one dtype; h0 and gT fp32, gT may be None) -> (da, db in
+    a's dtype, dh0 fp32).  Element copies (1 channel a thread) when a tensor
+    does not start on a 16-byte (fp32) / 8-byte (bf16) boundary.
+    ``scripts/probe_lru.py`` also calls it at other tilings."""
+    B, T, D = a.shape
+    da, db = torch.empty_like(a), torch.empty_like(a)
     dh0 = torch.empty_like(h0)
-    _lru_run("lru_scan_bwd", (a, g, gT, hs, h0, G, da, dh0), (a, g, hs), chunk, block_d, nseg)
-    return da, G, dh0
+    hst = (torch.empty(B * tiling.tiles * D, dtype=torch.float32, device=a.device)
+           if tiling.tiles > 1 else None)
+    vec = 4 * a.element_size()
+    cpt = tiling.cpt if all(x.data_ptr() % vec == 0 for x in (a, b, g, da, db)) else 1
+    lib = _cuda.load("linear_scan")
+    fn = getattr(lib, f"repro_lru_scan_bwd_{_SUFFIX[a.dtype]}")
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    ptrs = [None if x is None else x.data_ptr() for x in (a, b, h0, g, gT, da, db, dh0, hst)]
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        rc = fn(*ptrs, B, T, D, tiling.cw, tiling.nsub, tiling.tile, cpt, stream)
+    if rc != 0:
+        _raise_launch(lib, rc, f"lru_scan_bwd ({tiling}, {cpt} channels a thread)")
+    _count("lru_scan_bwd")
+    return da, db, dh0
 
 
 def rwkv_scan_bwd(r, k, v, lw, u, s0, gy, gsT, *, interpret: bool = False):

@@ -139,6 +139,112 @@ def test_lru_backward_through_ops_under_autograd(dtype):
         assert x.dtype == w.dtype and torch.equal(x, w)
 
 
+# ---------------------------------------- the lru backward kernel's arithmetic
+_JAX_LRU_GRADS = {}
+
+
+def _lru_decays(B, T, D, decays, seed):
+    """a = sigmoid(N(0, 1)), or the long-memory a = 0.9 + 0.0999·U(0, 1)
+    (``scripts/probe_lru.py --sweep``), fp32."""
+    if decays == "long_memory":
+        return (0.9 + 0.0999 * np.random.RandomState(seed).uniform(size=(B, T, D))).astype(np.float32)
+    return (1.0 / (1.0 + np.exp(-_np(seed, (B, T, D))))).astype(np.float32)
+
+
+def _lru_seg_case(B, T, D, decays, seed=40):
+    """numpy (a, b, h0, g, g_T), g and g_T nonzero, and (da, db, dh0) from
+    ``jax.vjp`` of the JAX package's ``ops.lru_scan`` with ``interpret=True``
+    (computed once per case)."""
+    raw = (_lru_decays(B, T, D, decays, seed), _np(seed + 1, (B, T, D)), _np(seed + 2, (B, D)),
+           _np(seed + 3, (B, T, D)), _np(seed + 4, (B, D)))
+    key = (B, T, D, decays, seed)
+    if key not in _JAX_LRU_GRADS:
+        jop = lambda a, b, h0: jops.lru_scan(a, b, h0, chunk=T, interpret=True)  # noqa: E731
+        _JAX_LRU_GRADS[key] = _jax_grads(jop, [jnp.asarray(x) for x in raw[:3]], raw[3:])
+    return raw, _JAX_LRU_GRADS[key]
+
+
+@pytest.mark.parametrize("tile", [0, 24])
+@pytest.mark.parametrize("decays", ["sigmoid", "long_memory"])
+@pytest.mark.parametrize("subsegments", [1, 3, 8, "rows"])
+@pytest.mark.parametrize("B,T,D", [(2, 64, 8), (1, 96, 12)])
+def test_lru_backward_segmented_plain_matches_jax_and_plain(B, T, D, subsegments, decays, tile):
+    """The backward kernel's association (sub-segments from 1 to one row
+    each, whole or streamed in tiles of 24 rows) in plain fp32 against
+    ``jax.vjp`` of the JAX op and against the exact reverse recurrence, at
+    1e-5, both decay ranges, g and g_T nonzero."""
+    raw, jwant = _lru_seg_case(B, T, D, decays)
+    a, b, h0, g, gT = (torch.from_numpy(x) for x in raw)
+    S = (tile or T) if subsegments == "rows" else subsegments
+    got = tls.lru_scan_bwd_segmented_plain(a, b, h0, g, gT, subsegments=S, tile=tile)
+    want = tls.lru_scan_bwd_plain(a, b, h0, g, gT, chunk=T, block_d=D)
+    for name, x, w, jw in zip(("da", "db", "dh0"), got, want, jwant):
+        assert x.dtype == torch.float32 and x.shape == w.shape
+        _close(x, jw, 1e-5, f"{name} vs jax.vjp")
+        _close(x, w, 1e-5, f"{name} vs lru_scan_bwd_plain")
+
+
+@pytest.mark.parametrize("tile", [0, 16])
+@pytest.mark.parametrize("subsegments", [1, 5, 32])
+def test_lru_backward_segmented_plain_bf16_and_no_final_cotangent(subsegments, tile):
+    """bf16 inputs (h kept rounded to bf16 between rows, as the kernel keeps
+    it in shared memory) against the exact reverse recurrence at the JAX
+    tests' bf16 limit; g_T = None is zero; a ragged last tile (T 40, tiles
+    of 16) and sub-segments past the rows (32 of 16 rows: 16 empty)."""
+    B, T, D = 2, 40, 8
+    a = torch.from_numpy(_lru_decays(B, T, D, "sigmoid", 50)).to(torch.bfloat16)
+    b, g = (torch.from_numpy(_np(51 + i, (B, T, D))).to(torch.bfloat16) for i in range(2))
+    h0 = torch.from_numpy(_np(53, (B, D)))
+    got = tls.lru_scan_bwd_segmented_plain(a, b, h0, g, None, subsegments=subsegments, tile=tile)
+    want = tls.lru_scan_bwd_plain(a, b, h0, g, None, chunk=8, block_d=8)
+    assert [x.dtype for x in got] == [torch.bfloat16, torch.bfloat16, torch.float32]
+    for name, x, w in zip(("da", "db", "dh0"), got, want):
+        _close(x, w, ORACLE_TOL["lru"]["bfloat16"], name)
+    same = tls.lru_scan_bwd_segmented_plain(a, b, h0, g, torch.zeros(B, D), subsegments=subsegments, tile=tile)
+    assert all(torch.equal(x, y) for x, y in zip(got, same))
+
+
+LRU_BWD_SHAPES = [(256, 2560), (2048, 2560), (2048, 256), (64, 32), (64, 96), (96, 40), (48, 5),
+                  (13, 7), (4096, 1024), (65536, 2560), (1, 2560), (300, 6), (600, 36), (1000, 4)]
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("T,D", LRU_BWD_SHAPES)
+def test_lru_backward_tiling_properties(T, D, itemsize):
+    """The kernel's split: its shared memory within a block's (and within
+    half an SM's), a channel tile dividing D with 4 channels a thread where D
+    allows it (else element copies, as ``lru_channels_per_thread``), at most
+    1024 threads even at element copies, the tiles covering T, and T
+    streamed exactly when a, b and g of the whole column do not fit."""
+    t = tls.lru_bwd_tiling(T, D, itemsize)
+    assert t == tls.lru_bwd_tiling.__wrapped__(T, D, itemsize)  # a pure function of its arguments
+    smem = tls.lru_bwd_smem_bytes(t.cw, t.nsub, t.tile, itemsize)
+    assert smem <= tls.LRU_BWD_SMEM_BYTES <= tls.SMEM_LIMIT
+    assert D % t.cw == 0 and t.cw % t.cpt == 0 and t.cw <= max(tls.LRU_BWD_CHANNELS, t.cpt)
+    assert t.cpt == (4 if D % 4 == 0 else 1)
+    assert all(D % c for c in range(t.cw + t.cpt, min(tls.LRU_BWD_CHANNELS, D) + 1, t.cpt))  # the widest
+    assert t.cw * t.nsub <= tls.MAX_THREADS and 1 <= t.nsub <= tls.LRU_BWD_MAX_SUBS
+    assert t.tiles == -(-T // t.tile) and t.tile <= T
+    if t.tiles == 1:
+        assert t.tile == T
+    else:
+        assert tls.lru_bwd_smem_bytes(t.cw, t.nsub, T, itemsize) > tls.LRU_BWD_SMEM_BYTES
+        assert t.tile % t.nsub == 0
+        assert tls.lru_bwd_smem_bytes(t.cw, t.nsub, t.tile + t.nsub, itemsize) > tls.LRU_BWD_SMEM_BYTES
+
+
+@pytest.mark.parametrize("T,D,itemsize,want", [
+    (256, 2560, 4, (32, 4, 16, 256, 1)),  # recurrentgemma-2b's training call: 320 blocks of 128 threads
+    (256, 2560, 2, (32, 4, 16, 256, 1)),  # bf16
+    (2048, 2560, 4, (32, 4, 16, 288, 8)),  # streamed: 7 tiles of 288 rows and one of 32
+    (2048, 2560, 2, (32, 4, 16, 576, 4)),
+    (64, 32, 4, (32, 4, 4, 64, 1)), (48, 5, 4, (5, 1, 3, 48, 1)),  # element copies
+    (96, 40, 4, (20, 4, 6, 96, 1)),
+])
+def test_lru_backward_tiling_at_known_shapes(T, D, itemsize, want):
+    assert tuple(tls.lru_bwd_tiling(T, D, itemsize)) == want
+
+
 # ----------------------------------------------------------------- rwkv scan
 def _rwkv_case(B, T, H, hd, dtype, *, s0=True, only_gsT=False, strong=False, seed=10):
     raw = [_np(seed + i, (B, T, H, hd)) for i in range(3)]
