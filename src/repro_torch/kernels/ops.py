@@ -16,10 +16,18 @@ backward here runs an oracle of :mod:`ref`.
 All wrappers accept ``interpret=True``, which runs each kernel's plain
 PyTorch version on CPU tensors (the CPU tests' path).  CUDA tensors launch
 the CUDA kernel.
+
+Each ``Function``'s forward and backward runs under a span
+(``ops.<kernel>.fwd`` / ``.bwd``, :mod:`repro_torch.obs.trace`): a no-op
+unless tracing or ``torch.profiler`` is on, then a range around the
+wrapper's host time.  The backward's span opens on whichever thread autograd
+runs it on (its own on the card, so there it is a root).
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.obs.trace import span as _span
 
 from .decode_attention import decode_attention_fwd
 from .flash_attention import flash_attention_bwd, flash_attention_fwd
@@ -40,19 +48,22 @@ class _Flash(torch.autograd.Function):
         # (``grad``: forward runs with grad mode off, so the caller decides),
         # so inference launches what it launched before.
         knobs = {"causal": causal, "block_q": block_q, "block_kv": block_kv, "interpret": interpret}
-        if not grad:
-            return flash_attention_fwd(q.transpose(1, 2), k, v, **knobs).transpose(1, 2)
-        o, lse = flash_attention_fwd(q.transpose(1, 2), k, v, return_lse=True, **knobs)
+        with _span("ops.flash.fwd", cat="kernels"):
+            if not grad:
+                return flash_attention_fwd(q.transpose(1, 2), k, v, **knobs).transpose(1, 2)
+            o, lse = flash_attention_fwd(q.transpose(1, 2), k, v, return_lse=True, **knobs)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.knobs = knobs
         return o.transpose(1, 2)
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, o, lse = ctx.saved_tensors
-        if g.stride(-1) != 1:
-            g = g.contiguous()
-        dq, dk, dv = flash_attention_bwd(q.transpose(1, 2), k, v, o, lse, g.transpose(1, 2), **ctx.knobs)
+        with _span("ops.flash.bwd", cat="kernels"):
+            q, k, v, o, lse = ctx.saved_tensors
+            if g.stride(-1) != 1:
+                g = g.contiguous()
+            dq, dk, dv = flash_attention_bwd(q.transpose(1, 2), k, v, o, lse, g.transpose(1, 2),
+                                             **ctx.knobs)
         return dq.transpose(1, 2), dk, dv, None, None, None, None, None
 
 
@@ -75,11 +86,13 @@ class _Rwkv(torch.autograd.Function):
     def forward(ctx, r, k, v, lw, u, s0, chunk, interpret):
         ctx.save_for_backward(r, k, v, lw, u, s0)
         ctx.interpret = interpret
-        return rwkv_scan_chunked(r, k, v, lw, u, s0, chunk=chunk, interpret=interpret)
+        with _span("ops.rwkv.fwd", cat="kernels"):
+            return rwkv_scan_chunked(r, k, v, lw, u, s0, chunk=chunk, interpret=interpret)
 
     @staticmethod
     def backward(ctx, gy, gs):
-        grads = linear_scan.rwkv_scan_bwd(*ctx.saved_tensors, gy, gs, interpret=ctx.interpret)
+        with _span("ops.rwkv.bwd", cat="kernels"):
+            grads = linear_scan.rwkv_scan_bwd(*ctx.saved_tensors, gy, gs, interpret=ctx.interpret)
         return (*grads, None, None)
 
 
@@ -94,11 +107,13 @@ class _Lru(torch.autograd.Function):
     def forward(ctx, a, b, h0, chunk, block_d, interpret):
         ctx.save_for_backward(a, b, h0)
         ctx.knobs = {"chunk": chunk, "block_d": block_d, "interpret": interpret}
-        return lru_scan_chunked(a, b, h0, chunk=chunk, block_d=block_d, interpret=interpret)
+        with _span("ops.lru.fwd", cat="kernels"):
+            return lru_scan_chunked(a, b, h0, chunk=chunk, block_d=block_d, interpret=interpret)
 
     @staticmethod
     def backward(ctx, ghs, ghT):
-        grads = linear_scan.lru_scan_bwd(*ctx.saved_tensors, ghs, ghT, **ctx.knobs)
+        with _span("ops.lru.bwd", cat="kernels"):
+            grads = linear_scan.lru_scan_bwd(*ctx.saved_tensors, ghs, ghT, **ctx.knobs)
         return (*grads, None, None, None)
 
 

@@ -53,6 +53,7 @@ import torch
 from repro_torch import configs
 from repro_torch.core import ChoiceDim, SearchSpace
 from repro_torch.models import ExecConfig, Model
+from repro_torch.obs.trace import span
 from repro_torch.runtime import ContextRouter
 from repro_torch.tuning import TuningDB, make_key
 
@@ -159,7 +160,8 @@ class DecodeGraphs:
         """Capture ``k`` steps; returns ``run(token, states, pos) -> (token,
         states, pos, toks)``, which replays them (``toks`` (B, k) and the
         runner's ``logits`` of the last step belong to the graph: the next
-        replay overwrites them)."""
+        replay overwrites them).  A run's loads and replay are the span
+        ``graphs.replay``."""
         dev = self.model.device
         graph = torch.cuda.CUDAGraph()
         side = torch.cuda.Stream(device=dev)
@@ -185,8 +187,9 @@ class DecodeGraphs:
             self.captures += 1
 
         def run(token, states, pos):
-            self.load(token, states, pos)
-            graph.replay()
+            with span("graphs.replay", "serve", k=k):
+                self.load(token, states, pos)
+                graph.replay()
             return self.token, self.states, self.pos, toks
 
         run.logits = logits

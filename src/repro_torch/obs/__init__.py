@@ -1,10 +1,16 @@
-"""repro_torch.obs — zero-dependency observability for the tuning stack.
+"""repro_torch.obs — observability for the tuning stack and
+the port's hot paths.
 
 Four pieces, one switch:
 
-* :mod:`repro_torch.obs.trace` — nestable spans (search → round → compile /
-  measure / commit), thread-pool and fork aware, exported as Chrome trace
-  JSON (``chrome://tracing`` / Perfetto).
+* :mod:`repro_torch.obs.trace` — nestable spans, thread-pool and fork aware,
+  exported as Chrome trace JSON (``chrome://tracing`` / Perfetto): the
+  tuning search (search → round → compile / measure / commit), a training
+  step's phases (``train.step`` → ``train.forward`` / ``train.backward`` /
+  ``train.optimizer``, each with CUDA event marks on the card), each kernel
+  wrapper's forward and backward (``ops.<kernel>.fwd`` / ``.bwd``), the
+  online tuner's ``tuner.begin`` / ``tuner.observe`` and each decode
+  chunk's ``graphs.replay``.
 * :mod:`repro_torch.obs.metrics` — process-level counters / gauges / fixed-bucket
   histograms; always on (increments are too cheap to gate).
 * :mod:`repro_torch.obs.events` — a durable JSONL stream of every tuning decision,
@@ -16,7 +22,10 @@ Observability is a **sidecar**: the tuning DB schema, committed records and
 search trajectories are identical with it on or off.  Tracing and the event
 stream are opt-in via :func:`configure` — the CLIs wire ``--obs-dir`` (or
 the ``REPRO_OBS`` env var) to it — and every instrumentation site costs a
-single attribute check while disabled.
+single attribute check while disabled.  Spans are also live, without
+:func:`configure`, while a ``torch.profiler`` session records: each is then
+a ``record_function`` range in the profiler's trace, on the device's clock,
+and is kept by the tracer (:func:`tracer` ``().finished()``) as well.
 
     from repro_torch import obs
     obs.configure("artifacts/obs")      # or: REPRO_OBS=artifacts/obs
@@ -26,10 +35,11 @@ single attribute check while disabled.
 
 Serving at scale: ``REPRO_OBS_SAMPLE=0.01`` (or ``configure(...,
 sample=0.01)``) decimates the high-rate per-request artifacts — serving
-``request`` spans and ``explore_rep`` events — to 1-in-N with a
-deterministic counter stride.  Structural spans and accounting events are
-never sampled; the sink reports what it dropped in a close-time
-``sampling_summary`` so :func:`completeness` still balances.
+``tuner.begin`` spans (each ``tuner.observe`` follows its ``tuner.begin``)
+and ``explore_rep`` events — to 1-in-N with a deterministic counter stride.
+Structural spans and accounting events are never sampled; the sink reports
+what it dropped in a close-time ``sampling_summary`` so :func:`completeness`
+still balances.
 """
 from __future__ import annotations
 

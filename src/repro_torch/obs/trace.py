@@ -1,6 +1,7 @@
-"""Nestable spans over the tuning stack, exported as Chrome trace JSON.
+"""Nestable spans over the port's layers, exported as Chrome trace JSON and
+entered into any running ``torch.profiler`` trace.
 
-The span tree mirrors the search structure::
+Two span trees.  The tuning search::
 
     search                      one tune_call / pretune case
     └─ round                    one optimizer ask/tell round
@@ -8,11 +9,37 @@ The span tree mirrors the search structure::
        ├─ measure               the round's repetition racing
        └─ commit                DB keep-better commit
 
+and the hot paths of training and serving::
+
+    train.step                  one make_train_step call
+    ├─ train.forward            forward + loss, once a microbatch
+    │  └─ ops.<kernel>.fwd      each kernel wrapper's forward
+    ├─ train.backward           loss.backward(), once a microbatch
+    │  └─ ops.<kernel>.bwd      each wrapper's backward (a root where autograd
+    │                           runs it on its own thread, as on the card)
+    └─ train.optimizer          the optimizer's update
+    tuner.begin / tuner.observe one routed call's decision and its feedback,
+                                joined by the decision's ``seq``
+    graphs.replay               a decode chunk: the state loads + graph replay
+
+The four ``train.*`` spans take device marks.
+
 Design constraints, in order:
 
 * **default-off and cheap**: every instrumentation site goes through
-  :func:`span`, which returns a shared no-op context manager while the
-  tracer is disabled — no allocation, no clock read, no lock.
+  :func:`span`, which returns a shared no-op context manager unless the
+  tracer is enabled or a ``torch.profiler`` session is recording — no
+  allocation, no clock read, no lock, no ``record_function``.
+* **one span, two sinks**: a live span is kept by the tracer (``trace.json``
+  and :meth:`Tracer.finished`), and while ``torch.profiler`` records it is
+  also a ``record_function`` range, a ``user_annotation`` in the profiler's
+  trace on the same clock as the device's kernels.  The profiler's own
+  enabled flag is read once per span.
+* **device marks on phase spans only**: a span opened with ``device=True``
+  records a CUDA timing event on the current stream at entry and exit (only
+  while live, only once CUDA is initialised, never while the stream is
+  capturing a graph); :attr:`Span.device_ms` resolves them lazily, after the
+  reader's own synchronize, so no sync is added to the hot path.
 * **thread-safe and pool-aware**: each thread keeps its own span stack, so
   concurrent workers can't cross-nest.  ``ThreadPoolExecutor`` does *not*
   carry the submitting thread's context into workers, so cross-thread
@@ -30,11 +57,13 @@ Design constraints, in order:
   ``sampled=True``) can be decimated with :meth:`Tracer.set_sample_rate` —
   a deterministic 1-in-N counter stride, not an RNG, so a replayed workload
   keeps the same spans.  Sampled-out spans cost one counter tick and return
-  the shared no-op; the ``sampled_out`` counter keeps the bookkeeping
-  honest.  Structural spans (search/round/compile) are never sampled out.
+  the shared no-op.  Structural spans (search/round/compile) are never
+  sampled out.
 
-Export is the Chrome trace ("complete" ``ph: "X"`` events) consumed by
-``chrome://tracing`` and https://ui.perfetto.dev.
+Spans kept while only the profiler records stay on the tracer until
+:meth:`Tracer.reset` (``obs.configure`` resets it).  Export is the Chrome
+trace ("complete" ``ph: "X"`` events) consumed by ``chrome://tracing`` and
+https://ui.perfetto.dev.
 """
 from __future__ import annotations
 
@@ -44,6 +73,9 @@ import os
 import threading
 import time
 from typing import Any, Callable, Dict, List, Optional
+
+import torch
+from torch.autograd import profiler as _autograd_profiler
 
 __all__ = [
     "Span",
@@ -62,7 +94,7 @@ class Span:
 
     __slots__ = (
         "name", "cat", "span_id", "parent_id", "pid", "tid",
-        "t0_ns", "dur_ns", "args",
+        "t0_ns", "dur_ns", "args", "marks",
     )
 
     def __init__(
@@ -85,6 +117,16 @@ class Span:
         self.t0_ns = t0_ns
         self.dur_ns: Optional[int] = None
         self.args = args
+        self.marks = None  # (start, end) CUDA events of a device=True span
+
+    @property
+    def device_ms(self) -> Optional[float]:
+        """Milliseconds the stream took from the span's start to its end, or
+        None without device marks.  The caller synchronizes first."""
+        if self.marks is None:
+            return None
+        start, end = self.marks
+        return start.elapsed_time(end)
 
     def __repr__(self) -> str:  # debugging aid only
         state = "open" if self.dur_ns is None else f"{self.dur_ns / 1e6:.3f}ms"
@@ -106,19 +148,36 @@ class _NullSpanContext:
 _NULL_SPAN = _NullSpanContext()
 
 
-class _SpanContext:
-    __slots__ = ("_tracer", "_span", "_explicit_parent")
+def _cuda_event() -> "torch.cuda.Event":
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
 
-    def __init__(self, tracer: "Tracer", span: Span, explicit_parent: bool) -> None:
+
+class _SpanContext:
+    __slots__ = ("_tracer", "_span", "_record", "_device", "_start")
+
+    def __init__(self, tracer: "Tracer", span: Span, profiling: bool, device: bool) -> None:
         self._tracer = tracer
         self._span = span
-        self._explicit_parent = explicit_parent
+        self._record = _autograd_profiler.record_function(span.name) if profiling else None
+        self._device = device
+        self._start = None
 
     def __enter__(self) -> Span:
         self._tracer._push(self._span)
+        if self._record is not None:
+            self._record.__enter__()
+        if (self._device and torch.cuda.is_initialized()
+                and not torch.cuda.is_current_stream_capturing()):
+            self._start = _cuda_event()
         return self._span
 
     def __exit__(self, *exc) -> bool:
+        if self._start is not None:
+            self._span.marks = (self._start, _cuda_event())
+        if self._record is not None:
+            self._record.__exit__(None, None, None)
         self._tracer._pop(self._span)
         return False
 
@@ -135,12 +194,10 @@ class Tracer:
         self._pid = os.getpid()
         self._epoch_ns = time.perf_counter_ns()
         self._epoch_unix = time.time()
-        self.dropped = 0  # spans discarded after a fork
         # request-span sampling: keep 1 in _sample_stride of sampled=True
         # spans (deterministic counter, no RNG — replays keep the same spans)
         self._sample_stride = 1
         self._sample_counter = itertools.count(0)
-        self.sampled_out = 0
 
     # ----------------------------------------------------------- lifecycle
     def enable(self) -> None:
@@ -158,7 +215,6 @@ class Tracer:
         self._epoch_unix = time.time()
         self._sample_stride = 1
         self._sample_counter = itertools.count(0)
-        self.sampled_out = 0
 
     def set_sample_rate(self, rate: float) -> None:
         """Keep roughly ``rate`` of ``sampled=True`` spans (1-in-N stride,
@@ -171,7 +227,6 @@ class Tracer:
 
     def _after_fork(self) -> None:
         # the child inherits the parent's buffer; it must not re-export it
-        self.dropped += len(self._finished)
         self._finished = []
         self._local = threading.local()
         self._pid = os.getpid()
@@ -197,20 +252,25 @@ class Tracer:
         *,
         parent: Optional[Span] = None,
         sampled: bool = False,
+        device: bool = False,
         **args: Any,
     ):
         """Context manager opening a child of ``parent`` (default: this
-        thread's current span).  Returns a shared no-op while disabled.
-        ``sampled=True`` marks a high-rate per-request span subject to
-        :meth:`set_sample_rate` decimation."""
-        if not self.enabled:
+        thread's current span).  Returns a shared no-op unless the tracer is
+        enabled or ``torch.profiler`` is recording; under the profiler the
+        span is also a ``record_function`` range.  ``sampled=True`` marks a
+        high-rate per-request span subject to :meth:`set_sample_rate`
+        decimation; ``device=True`` takes CUDA event marks (:attr:`Span.device_ms`)."""
+        profiling = _autograd_profiler._is_profiler_enabled
+        if not (self.enabled or profiling):
             return _NULL_SPAN
+        return self._open(name, cat, parent, sampled, device, profiling, args)
+
+    def _open(self, name, cat, parent, sampled, device, profiling, args):
         if sampled and self._sample_stride > 1:
             if next(self._sample_counter) % self._sample_stride:
-                self.sampled_out += 1
                 return _NULL_SPAN
-        explicit = parent is not None
-        if not explicit:
+        if parent is None:
             parent = self.current()
         sid = next(self._ids)  # itertools.count: atomic under the GIL
         s = Span(
@@ -223,7 +283,7 @@ class Tracer:
             t0_ns=time.perf_counter_ns() - self._epoch_ns,
             args=args or None,
         )
-        return _SpanContext(self, s, explicit)
+        return _SpanContext(self, s, profiling, device)
 
     def wrap(
         self,
@@ -234,8 +294,8 @@ class Tracer:
     ) -> Callable:
         """Wrap ``fn`` so it runs under a child span of the *submitting*
         thread's current span — the ``pool.submit(tracer.wrap(f, "compile"))``
-        pattern.  A no-op passthrough while disabled."""
-        if not self.enabled:
+        pattern.  A no-op passthrough while spans are off."""
+        if not (self.enabled or _autograd_profiler._is_profiler_enabled):
             return fn
         parent = self.current()
 
@@ -267,10 +327,13 @@ class Tracer:
 
     def to_chrome(self) -> dict:
         """The Chrome trace JSON object (``traceEvents`` list of ``ph: "X"``
-        complete events; timestamps/durations in microseconds)."""
+        complete events; timestamps/durations in microseconds; a span with
+        device marks carries ``device_ms`` in its args)."""
         events: List[dict] = []
         with self._lock:
             spans = list(self._finished)
+        if any(s.marks is not None for s in spans):
+            torch.cuda.synchronize()
         tids = sorted({s.tid for s in spans})
         tid_map = {t: i for i, t in enumerate(tids)}  # compact, stable tids
         for i in tid_map.values():
@@ -283,6 +346,8 @@ class Tracer:
             args["span_id"] = s.span_id
             if s.parent_id is not None:
                 args["parent_id"] = s.parent_id
+            if s.marks is not None:
+                args["device_ms"] = s.device_ms
             events.append({
                 "name": s.name,
                 "cat": s.cat,
@@ -325,10 +390,16 @@ def span(
     *,
     parent: Optional[Span] = None,
     sampled: bool = False,
+    device: bool = False,
     **args,
 ):
-    """Open a span on the process tracer (no-op context while disabled)."""
-    return _TRACER.span(name, cat, parent=parent, sampled=sampled, **args)
+    """Open a span on the process tracer (no-op context while neither the
+    tracer nor ``torch.profiler`` is on).  The off check is repeated here,
+    not delegated, so an off site costs one call."""
+    profiling = _autograd_profiler._is_profiler_enabled
+    if not (_TRACER.enabled or profiling):
+        return _NULL_SPAN
+    return _TRACER._open(name, cat, parent, sampled, device, profiling, args)
 
 
 def set_sample_rate(rate: float) -> None:

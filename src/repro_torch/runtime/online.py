@@ -109,6 +109,7 @@ class Decision:
     seq: int = 0
     tuner: Optional["OnlineTuner"] = dataclasses.field(default=None, repr=False)
     tenant: Optional[str] = None  # request stream this decision was billed to
+    traced: bool = dataclasses.field(default=False, repr=False)  # tuner.begin span kept
 
 
 class OnlineTuner:
@@ -489,9 +490,13 @@ class OnlineTuner:
         executable cache (shape-exact) and are what background builds
         compile against.  ``tenant`` names the request stream for per-tenant
         ε-credit accounting (``None`` = unattributed, global budget only)."""
-        with _tracer().span("request", cat="serve", sampled=True, ctx=self.name):
+        with _tracer().span("tuner.begin", cat="serve", sampled=True, ctx=self.name) as sp:
             with self._lock:
-                return self._begin_locked(args, kwargs, tenant, _force_explore)
+                d = self._begin_locked(args, kwargs, tenant, _force_explore)
+            if sp is not None:  # kept, so the decision's tuner.observe is traced too
+                sp.args["seq"] = d.seq
+                d.traced = True
+            return d
 
     def _begin_locked(
         self, args: tuple, kwargs: dict, tenant: Optional[str], _force_explore: bool
@@ -552,7 +557,12 @@ class OnlineTuner:
         ``observe`` is discarded as stale — feeding it would attribute the
         old candidate's cost to the new one.  Returns the drift level acted
         on this call (0 = none)."""
-        cost = float(cost)
+        if not decision.traced:
+            return self._observe(decision, float(cost))
+        with _tracer().span("tuner.observe", cat="serve", ctx=self.name, seq=decision.seq):
+            return self._observe(decision, float(cost))
+
+    def _observe(self, decision: Decision, cost: float) -> int:
         with self._lock:
             at = self.at
             if decision.kind == EXPLORE:
