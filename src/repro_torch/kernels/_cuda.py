@@ -30,7 +30,7 @@ __all__ = ["SOURCES", "BUILD_DIR", "build", "load", "ptxas_report"]
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("matmul", "matmul_wgmma", "flash_attention", "flash_attention_wgmma", "flash_attention_bwd",
-           "linear_scan", "rwkv_subchunk", "decode_attention")
+           "linear_scan", "rwkv_subchunk", "decode_attention", "adamw")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -5,11 +5,13 @@ A tree is a dict of tensors (``TrainModel.params()``: name -> parameter) or
 a nested dict/list of them.  ``AdamW.update`` keeps JAX's order of
 operations (global-norm clip first, bias correction on ``step + 1``, weight
 decay inside the step on every leaf, state kept in ``state_dtype``) but
-updates the parameters and states in place under ``no_grad``, one tensor at
-a time, so its temporaries are those of the largest tensor, not of the tree.
-It returns the same ``params`` and ``state`` objects.  The step count and
-the learning rate stay 0-d tensors on the parameters' device: nothing here
-reads back to the host.
+updates the parameters and states in place under ``no_grad``, through
+:func:`repro_torch.kernels.adamw.adamw_update`: on CUDA leaves one
+hand-written multi-tensor kernel for the whole tree (three launches), on
+other devices the eager loop, one tensor at a time, so that its temporaries
+are those of the largest tensor, not of the tree.  It returns the same
+``params`` and ``state`` objects.  The step count and the learning rate stay
+0-d tensors on the parameters' device: nothing here reads back to the host.
 """
 from __future__ import annotations
 
@@ -18,6 +20,8 @@ import math
 from typing import Callable, Optional
 
 import torch
+
+from repro_torch.kernels import adamw as _adamw
 
 __all__ = ["AdamW", "cosine_schedule", "clip_by_global_norm", "global_norm", "tree_leaves"]
 
@@ -43,9 +47,7 @@ def _tree_map(fn, tree):
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in fp32 (0-d tensor)."""
-    leaves = tree_leaves(tree)
-    total = sum(torch.sum(torch.square(x.float())) for x in leaves)
-    return torch.sqrt(total)
+    return _adamw.global_norm(tree_leaves(tree))
 
 
 def clip_by_global_norm(tree, max_norm: float, *, inplace: bool = False):
@@ -53,7 +55,7 @@ def clip_by_global_norm(tree, max_norm: float, *, inplace: bool = False):
     (clipped tree, norm before clipping); ``inplace=True`` scales the leaves
     themselves and returns the same tree."""
     norm = global_norm(tree)
-    scale = torch.clamp(max_norm / (norm + 1e-12), max=1.0)
+    scale = _adamw.clip_scale(norm, max_norm)
 
     def clip(x):
         if inplace:
@@ -102,42 +104,24 @@ class AdamW:
     @torch.no_grad()
     def update(self, grads, state, params):
         """One AdamW step: writes the new parameters, ``m``, ``v`` and
-        ``step`` in place (the gradients are clipped in place too) and
-        returns (params, state, {"grad_norm", "lr"})."""
+        ``step`` in place and returns (params, state, {"grad_norm", "lr"}),
+        the norm taken before clipping.  On CUDA leaves the kernel reads the
+        gradients and does not write the clipped gradient back (no caller
+        reads a gradient after the update: the train steps drop them); on
+        other devices the eager loop clips them in place."""
         state["step"].add_(1)
         step = state["step"]
         lr = self.lr(step) if callable(self.lr) else self.lr
-        lr = torch.as_tensor(lr, dtype=torch.float32).to(step.device)
-        if self.clip_norm > 0:
-            grads, gnorm = clip_by_global_norm(grads, self.clip_norm, inplace=True)
-        else:
-            gnorm = global_norm(grads)
+        if isinstance(lr, torch.Tensor):
+            lr = lr.to(device=step.device, dtype=torch.float32)
+        else:  # a fill on the device, not a copy from the host
+            lr = torch.full((), lr, dtype=torch.float32, device=step.device)
         b1, b2 = self.b1, self.b2
         stepf = step.to(torch.float32)
-        c1 = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=step.device), stepf)
-        c2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=step.device), stepf)
-
-        for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads), tree_leaves(state["m"]),
-                              tree_leaves(state["v"])):
-            # at most two temporaries of this tensor's size at any time
-            gf = g.float()
-            mf = m if m.dtype == torch.float32 else m.float()
-            vf = v if v.dtype == torch.float32 else v.float()
-            mf.mul_(b1).add_(gf * (1 - b1))
-            vf.mul_(b2).add_(torch.square(gf).mul_(1 - b2))
-            del gf
-            denom = torch.sqrt(vf / c2).add_(self.eps)
-            upd = (mf / c1).div_(denom)
-            del denom
-            upd.add_(p.float() * self.weight_decay)
-            upd.mul_(lr)
-            if p.dtype == torch.float32:
-                p.sub_(upd)
-            else:
-                p.copy_(p.float() - upd)
-            del upd
-            if mf is not m:
-                m.copy_(mf)
-            if vf is not v:
-                v.copy_(vf)
-        return params, state, {"grad_norm": gnorm, "lr": lr.to(torch.float32)}
+        c1 = 1.0 - torch.pow(torch.full((), b1, dtype=torch.float32, device=step.device), stepf)
+        c2 = 1.0 - torch.pow(torch.full((), b2, dtype=torch.float32, device=step.device), stepf)
+        gnorm = _adamw.adamw_update(
+            tree_leaves(params), tree_leaves(grads), tree_leaves(state["m"]), tree_leaves(state["v"]),
+            lr=lr, c1=c1, c2=c2, b1=b1, b2=b2, eps=self.eps, weight_decay=self.weight_decay,
+            clip_norm=self.clip_norm)
+        return params, state, {"grad_norm": gnorm, "lr": lr}
