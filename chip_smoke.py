@@ -245,9 +245,17 @@ Phases, each printing its numbers on lines of its own:
    fp32 arithmetic the kernel path against the plain path (loss 1e-3, grad
    norm 1e-2 relative); and ``RWKV_AGREE_LAYERS`` layers trained the same
    way, kernel path against plain path in bf16 (loss 1e-3, grad norm 1e-2
-   relative).
+   relative);
+25. moonlight-16b-a3b at full width and depth (latent attention, 64
+   experts top-6 with 2 shared, drop-free grouped dispatch), the same serve
+   arguments once: 27 causal flash launches of the ``wgmma`` design a
+   prefill (q/k 192, v 128) and no other kernel, graph decode against
+   eager; then the flash kernel on the last layer's served q, k, v and at
+   the benchmark cell's prefill shape (q (32, 4096, 16, 192), k 192, v 128,
+   bf16, causal) against its plain version, one sequence at a time (the
+   rule of phase 12).
 
-Phases 10-11 with 22-24, 12-15 with 20-21, and 16-17 with 19 run after
+Phases 10-11 with 22-24, 12-15 with 20-21 and 25, and 16-17 with 19 run after
 phase 7, before serving, in three child processes (``--train-phases``,
 ``--family-phases``, ``--parallel-phases``), one after the other, each with
 the card to itself:
@@ -255,8 +263,8 @@ this process keeps what its caching allocator holds until it exits.  Each
 child reports its launch counts on its last line; phase 18's torchrun rank
 (``--distributed-train``) does the same.
 
-Phases 3-5 (the tuning loop), phase 6 (the route), phases 8-9, 12-15 and
-20 (serving), phases 10-11 and 22-24 (training) and phases 16-19 (the
+Phases 3-5 (the tuning loop), phase 6 (the route), phases 8-9, 12-15, 20
+and 25 (serving), phases 10-11 and 22-24 (training) and phases 16-19 (the
 parallel layer and the launch dry run's calibration) are the main paths:
 the kernels' launch counters are set to 0 just before each path and read
 just after, and every kernel must have launched on one of them.  Phases
@@ -335,6 +343,9 @@ RWKV_SHAPE = (8, 2048, 64, 64)  # rwkv6-7b prefill: batch, prompt, heads, head d
 SERVE = (("recurrentgemma_2b", "lru_scan", 18), ("rwkv6_7b", "rwkv_scan", 32))
 SERVE_ARGS = ["--batch", "8", "--prompt-len", "2048", "--gen", "64", "--epsilon", "0.5"]
 SEAMLESS, MOONSHOT, QWEN = "seamless_m4t_large_v2", "moonshot_v1_16b_a3b", "qwen2_7b"
+MOONLIGHT = "moonlight_16b_a3b"
+#: phase 25: the prefill of the benchmark's Moonlight cell (batch, prompt, heads)
+MOONLIGHT_PREFILL = (32, 4096, 16)
 LLAMA_V, STARCODER = "llama_3_2_vision_11b", "starcoder2_15b"
 # training (phase 10): recurrentgemma-2b at full width and depth; the batch is
 # what one card holds beside its fp32 weights, gradients and AdamW state
@@ -368,7 +379,7 @@ SDPA_REPS = 3  # timed calls of each form: (a, b, b, a) x SDPA_REPS
 #: neighbouring bf16 value, and so can the output
 SDPA_TOL = 1e-2
 TINY_SERVE_ARGS = ["--tiny", "--batch", "8", "--prompt-len", "256", "--gen", "64", "--epsilon", "0.5"]
-FAMILY_TIMEOUT_S = 1000
+FAMILY_TIMEOUT_S = 1300  # with phase 25, a 16 B model served beside the others
 FAMILY_RESULT = "family launches: "  # the child's last line: its launch counts as JSON
 # phases 16-18: the parallel layer, in a child process of its own (16-17)
 # and under torchrun (18)
@@ -747,6 +758,43 @@ def decode_profile(out: Path, phase, arch, model, batch) -> dict:
     return prof
 
 
+def flash_check(phase, label: str, q, k, v, kw: dict) -> float:
+    """The flash kernel on q (B,Sq,H,hd), k (B,Kh,Skv,hd), v (B,Kh,Skv,hd_v)
+    against its plain version, one sequence at a time: each bf16 element
+    within ``TOL``'s allclose or, where activations reach |o| ~ 3 and one
+    bf16 step (2^-6 in [2, 4)) is above atol + rtol |o| for |o| < 2.12,
+    within one bf16 rounding step of the plain value.  Returns the largest
+    |kernel - plain|; a disagreement fails the run."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    got = ops.flash_attention(q, k, v, causal=kw["causal"], block_q=kw["block_q"],
+                              block_kv=kw["block_kv"])
+    tol = TOL["flash_attention"]["bfloat16"]
+    err, mag, outside, ok = 0.0, 0.0, 0, True
+    for b in range(q.shape[0]):
+        want = fa.flash_attention_plain(q[b:b + 1].transpose(1, 2), k[b:b + 1], v[b:b + 1],
+                                        causal=kw["causal"], block_q=kw["block_q"],
+                                        block_kv=kw["block_kv"]).transpose(1, 2)
+        g32, w32 = got[b:b + 1].float(), want.float()
+        diff = (g32 - w32).abs()
+        out_ = diff > tol + tol * w32.abs()
+        step = torch.pow(2.0, torch.floor(torch.log2(w32.abs().clamp_min(2.0 ** -126))) - 7)
+        ok = ok and bool((diff[out_] <= step[out_]).all())
+        err, mag = max(err, diff.max().item()), max(mag, w32.abs().max().item())
+        outside += int(out_.sum())
+    ok = ok and math.isfinite(err) and tuple(got.shape) == q.shape[:3] + (v.shape[3],)
+    print(f"[{phase}] flash_attention on {label}: q{tuple(q.shape)} k{tuple(k.shape)} "
+          f"v{tuple(v.shape)} {str(q.dtype)[6:]} causal={kw['causal']} blocks "
+          f"{kw['block_q']}/{kw['block_kv']}: max_abs_err={err:.3e} max|plain|={mag:.4g}; "
+          f"{outside} of {got.numel()} elements outside allclose(atol={tol:g}, rtol={tol:g}), "
+          f"each within one bf16 step of the plain value: {'ok' if ok else 'FAIL'}")
+    check(ok, f"flash_attention on {label}: the kernel disagrees with its plain version")
+    return err
+
+
 def sdpa_forms(phase, smi: str) -> dict:
     """The plain attention's scores in the reference's form (the package's
     ``_sdpa``: bf16 q and k multiplied with fp32 output) against an inline
@@ -857,7 +905,7 @@ def decode_scores_trace(phase, arch, model, batch) -> dict:
 
 
 def family_phases(out: Path, smi: str) -> dict:
-    """Phases 12-15 and 20-21, serving the encoder-decoder, VLM and MoE
+    """Phases 12-15, 20-21 and 25, serving the encoder-decoder, VLM and MoE
     families, starcoder2-15b and the attention's two forms on a
     card nothing else holds memory on (``main`` runs this in a child
     process: ``--family-phases``), one model at a time.  Returns the
@@ -978,28 +1026,9 @@ def family_phases(out: Path, smi: str) -> dict:
     finally:
         ops.flash_attention = real
     (cq, ck, cv), ckw = captured["args"], captured["kw"]
-    got = real(cq, ck, cv, causal=ckw["causal"], block_q=ckw["block_q"], block_kv=ckw["block_kv"])
-    want = fa.flash_attention_plain(cq.transpose(1, 2), ck, cv, causal=ckw["causal"],
-                                    block_q=ckw["block_q"], block_kv=ckw["block_kv"]).transpose(1, 2)
-    # served activations reach |o| ~ 3, where one bf16 step (2^-6 in [2, 4))
-    # is above TOL's atol + rtol |o| for |o| < 2.12: an element outside TOL
-    # must be within one bf16 rounding step of the plain value
-    tol = TOL["flash_attention"]["bfloat16"]
-    g32, w32 = got.float(), want.float()
-    diff = (g32 - w32).abs()
-    flash_err = diff.max().item()
-    outside = diff > tol + tol * w32.abs()
-    step = torch.pow(2.0, torch.floor(torch.log2(w32.abs().clamp_min(2.0 ** -126))) - 7)
-    ok = bool((diff[outside] <= step[outside]).all()) and math.isfinite(flash_err)
-    print(f"[12] flash_attention on the last encoder layer's served inputs q{tuple(cq.shape)} "
-          f"kv{tuple(ck.shape)} {str(cq.dtype)[6:]} causal={ckw['causal']} blocks "
-          f"{ckw['block_q']}/{ckw['block_kv']}: max_abs_err={flash_err:.3e} max|plain|="
-          f"{w32.abs().max().item():.4g}; {int(outside.sum())} of {diff.numel()} elements outside "
-          f"allclose(atol={tol:g}, rtol={tol:g}), each within one bf16 step of the plain value: "
-          f"{'ok' if ok else 'FAIL'}")
-    check(ok and not ckw["causal"], f"{SEAMLESS}: the encoder's flash kernel disagrees with its plain version")
-    del g32, w32, diff, outside, step
-    del captured, cq, ck, cv, got, want
+    flash_err = flash_check(12, "the last encoder layer's served inputs", cq, ck, cv, ckw)
+    check(not ckw["causal"], f"{SEAMLESS}: the encoder's flash call is causal")
+    del captured, cq, ck, cv
     free()
     model.exec_cfg = ExecConfig(attn_impl="xla", rec_chunk=4)
     h_plain, _ = model.prefill(batch)
@@ -1062,10 +1091,10 @@ def family_phases(out: Path, smi: str) -> dict:
     # drop-free in decode
     stats, real_moe = [], blocks.moe_apply
 
-    def moe_spy(cfg_, p_, x_):
+    def moe_spy(cfg_, p_, x_, layer_=-1):
         r_ = moe.route(cfg_, p_, x_.reshape(-1, x_.shape[-1]))
         stats.append((x_.shape[0] * x_.shape[1], r_["capacity"], (~r_["keep"]).sum()))
-        return real_moe(cfg_, p_, x_)
+        return real_moe(cfg_, p_, x_, layer_)
 
     blocks.moe_apply = moe_spy
     try:
@@ -1170,6 +1199,53 @@ def family_phases(out: Path, smi: str) -> dict:
     report[STARCODER] = {"runs": runs, "params": n_params, "decode_profile": prof}
     del model, batch, tree
     free()
+
+    # 25. moonlight-16b-a3b at full width and depth: latent attention's
+    # prefill on the flash kernel at q/k 192 and v 128, causal, one launch a
+    # layer; the absorbed decode through CUDA graphs
+    res, launched, design, flags, peak = served(
+        25, MOONLIGHT, [*SERVE_ARGS, "--db", str(out / f"serve_{MOONLIGHT}.json")], 1)
+    model, batch = res["model"], res["batch"]
+    cfg = model.cfg
+    runs = [summary(res, peak)]
+    del res
+    free()
+    check(launched["flash_attention"] == cfg.n_layers == 27 and design["wgmma"] == cfg.n_layers
+          and flags == [True] * cfg.n_layers,
+          f"{MOONLIGHT}: flash launched {launched['flash_attention']} times ({design}, causal "
+          f"{flags}), expected {cfg.n_layers} causal wgmma launches")
+    check(all(n == 0 for name, n in launched.items() if name != "flash_attention"),
+          f"{MOONLIGHT}: unexpected launches {launched}")
+    n_params = weights(25, MOONLIGHT, model)
+    captured, real = {}, ops.flash_attention
+    ops.flash_attention = capture
+    try:
+        model.prefill(batch)
+    finally:
+        ops.flash_attention = real
+    (cq, ck, cv), ckw = captured["args"], captured["kw"]
+    served_err = flash_check(25, "the last layer's served inputs", cq, ck, cv, ckw)
+    del captured, cq, ck, cv
+    prof = decode_profile(out, 25, MOONLIGHT, model, batch)
+    del model, batch
+    free()
+    # the cell's prefill shape on random inputs, held against the plain
+    # version one sequence at a time (its (S, S) tiles of all 32 at once
+    # would not fit)
+    B_, S_, H_ = MOONLIGHT_PREFILL
+    gen = torch.Generator(device=dev).manual_seed(25)
+    rq = torch.randn((B_, S_, H_, 192), generator=gen, device=dev).to(torch.bfloat16)
+    rk = torch.randn((B_, H_, S_, 192), generator=gen, device=dev).to(torch.bfloat16)
+    rv = torch.randn((B_, H_, S_, 128), generator=gen, device=dev).to(torch.bfloat16)
+    cell_err = flash_check(25, "the cell's prefill shape", rq, rk, rv,
+                                {"causal": True, "block_q": 128, "block_kv": 128})
+    del rq, rk, rv
+    free()
+    print(f"[25] {MOONLIGHT} summary: prefill ms {runs[0]['prefill_ms']:.1f}, decode tok/s "
+          f"{runs[0]['decode_tok_s']:.1f}, peak {runs[0]['peak_gb']:.2f} GB (batch 8, prompt 2048, "
+          f"64 new tokens; {smi})")
+    report[MOONLIGHT] = {"runs": runs, "params": n_params, "decode_profile": prof,
+                         "flash_served_max_abs_err": served_err, "flash_cell_max_abs_err": cell_err}
 
     # 21. the plain attention's two forms, timed on the same tensors
     report["sdpa_forms"] = sdpa_forms(21, smi)
@@ -1977,10 +2053,10 @@ def family_train_phases(out: Path, smi: str) -> tuple:
     step_fn = make_train_step(model, opt)
     stats, real_moe = [], blocks.moe_apply
 
-    def moe_spy(cfg_, p_, x_):
+    def moe_spy(cfg_, p_, x_, layer_=-1):
         r_ = moe.route(cfg_, p_, x_.reshape(-1, x_.shape[-1]))
         stats.append((x_.shape[0] * x_.shape[1], r_["capacity"], int((~r_["keep"]).sum())))
-        return real_moe(cfg_, p_, x_)
+        return real_moe(cfg_, p_, x_, layer_)
 
     flags, restore = flash_spy()
     blocks.moe_apply = moe_spy

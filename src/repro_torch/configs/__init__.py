@@ -1,9 +1,14 @@
-"""Architecture registry of the port: the JAX package's ten architectures.
+"""Architecture registry of the port: the JAX package's ten architectures,
+and the architectures the port runs beyond them.
 
-Each module is a copy of the JAX package's ``repro.configs.<id>``: ``CONFIG``
-(the published config) and ``tiny()`` (a reduced same-family config for CPU
-tests).  Select with ``--arch <id>`` (or the dashed name); ``get(name)`` /
-``get_tiny(name)`` here.  ``SHAPES`` are the JAX package's workload
+Each module of ``ARCH_IDS`` is a copy of the JAX package's
+``repro.configs.<id>``: ``CONFIG`` (the published config) and ``tiny()`` (a
+reduced same-family config for CPU tests).  ``EXTRA_ARCH_IDS`` are modules
+of the same form with no JAX counterpart (``moonlight_16b_a3b``: the
+published Moonlight-16B-A3B, which the JAX package's ``moonshot_v1_16b_a3b``
+stand-in is not); ``ARCH_IDS``, ``ALIASES``, :func:`all_configs` and
+:func:`cells` stay the JAX package's.  Select with ``--arch <id>`` (or the
+dashed name); ``get(name)`` / ``get_tiny(name)`` here.  ``SHAPES`` are the JAX package's workload
 shapes (sequence length x global batch), which the launch layer
 (:mod:`repro_torch.launch.spaces`, :mod:`repro_torch.launch.input_specs`,
 :mod:`repro_torch.launch.dryrun`) reads; :func:`cells` is the dry run's
@@ -16,7 +21,7 @@ import importlib
 
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["ARCH_IDS", "ALIASES", "get", "get_tiny", "all_configs", "ShapeSpec", "SHAPES",
+__all__ = ["ARCH_IDS", "EXTRA_ARCH_IDS", "ALIASES", "get", "get_tiny", "all_configs", "ShapeSpec", "SHAPES",
            "cells"]
 
 ARCH_IDS = [
@@ -32,6 +37,9 @@ ARCH_IDS = [
     "recurrentgemma_2b",
 ]
 
+#: architectures the port runs that the JAX package does not define
+EXTRA_ARCH_IDS = ["moonlight_16b_a3b"]
+
 # canonical dashed names -> module ids
 ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}
 ALIASES.update({"llama-3.2-vision-11b": "llama_3_2_vision_11b",
@@ -41,8 +49,8 @@ ALIASES.update({"llama-3.2-vision-11b": "llama_3_2_vision_11b",
 
 def _module(name: str):
     key = ALIASES.get(name, name).replace("-", "_").replace(".", "_")
-    if key not in ARCH_IDS:
-        raise KeyError(f"unknown architecture {name!r}; known: {ARCH_IDS}")
+    if key not in ARCH_IDS and key not in EXTRA_ARCH_IDS:
+        raise KeyError(f"unknown architecture {name!r}; known: {ARCH_IDS + EXTRA_ARCH_IDS}")
     return importlib.import_module(f"repro_torch.configs.{key}")
 
 

@@ -1,6 +1,9 @@
-"""moonshot-v1-16b-a3b [moe] — kimi/moonlight: 48L d_model=2048 16H (kv=16)
-MoE 64 experts top-6 (expert d_ff=1408) vocab=163840
-[hf:moonshotai/Moonlight-16B-A3B; hf]."""
+"""moonshot-v1-16b-a3b [moe] — the JAX package's 48-layer MHA stand-in
+for a Kimi/Moonlight-sized MoE: 48L d_model=2048 16H (kv=16, full K/V
+cache), every layer MoE with 64 experts top-6 (expert d_ff=1408), softmax
+gates and capacity-factor drops, vocab=163840.  Not Moonlight-16B-A3B's
+published architecture (27 layers, latent attention, 2 shared experts, a
+sigmoid router, a leading dense layer): that is ``moonlight_16b_a3b``."""
 from repro_torch.models.config import ModelConfig
 
 CONFIG = ModelConfig(

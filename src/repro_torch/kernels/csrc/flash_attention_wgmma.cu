@@ -1,5 +1,8 @@
 // Tensor-core flash-attention forward for Hopper (sm_90a): online softmax
-// over KV tiles, bf16 q/k/v, fp32 scores and carry.
+// over KV tiles, bf16 q/k/v, fp32 scores and carry.  Query/key heads of
+// width HDQK, value and output heads of width HDV: equal at 16-128, and
+// (192, 128) for latent attention's prefill (models/mla.py: 128 + 64 rope
+// query/key dims, 128 value dims).
 //
 // Replaces the JAX package's kernels/flash_attention.py::flash_attention_fwd
 // (Pallas TPU, _kernel) for bf16 calls whose tile and strides the design can
@@ -72,20 +75,25 @@ struct Strides {
   long long b, h, s;
 };
 
-template <int HD, int BKV>
+template <int HDQK, int HDV, int BKV>
 __global__ void __launch_bounds__(384, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
                    const __grid_constant__ CUtensorMap map_v, bf16* __restrict__ o, float* __restrict__ lse,
                    Strides os, int H,
                    int Kh, int Skv, int block_q, int stages, int causal, float scale_log2) {
-  constexpr int SW = hopper::swizzle_bytes(HD), CC = SW / 2;
-  constexpr int KV_BYTES = hopper::round_up(BKV * HD * 2, 1024);
+  // q/k and v tiles share one swizzle, so a 16-column chunk of either sits
+  // at the same place in its SW-byte rows
+  static_assert(hopper::swizzle_bytes(HDQK) == hopper::swizzle_bytes(HDV), "q/k and v swizzles differ");
+  constexpr int SW = hopper::swizzle_bytes(HDQK), CC = SW / 2;
+  constexpr int K_BYTES = hopper::round_up(BKV * HDQK * 2, 1024);
+  constexpr int V_BYTES = hopper::round_up(BKV * HDV * 2, 1024);
+  constexpr int STAGE_BYTES = K_BYTES + V_BYTES;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
-  const int q_bytes = hopper::round_up(block_q * HD * 2, 1024);
+  const int q_bytes = hopper::round_up(block_q * HDQK * 2, 1024);
   unsigned char* qs = smem;
-  unsigned char* ring = smem + q_bytes;  // stage s: K at ring + 2 s KV_BYTES, V after it
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(ring + stages * 2 * KV_BYTES);
+  unsigned char* ring = smem + q_bytes;  // stage s: K at ring + s STAGE_BYTES, V after it
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(ring + stages * STAGE_BYTES);
   uint64_t* full = q_full + 1;
   uint64_t* empty = full + stages;
 
@@ -116,21 +124,22 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_const
       hopper::prefetch_map(&map_q);
       hopper::prefetch_map(&map_k);
       hopper::prefetch_map(&map_v);
-      hopper::mbar_expect_tx(q_full, static_cast<uint32_t>(block_q * HD * 2));
+      hopper::mbar_expect_tx(q_full, static_cast<uint32_t>(block_q * HDQK * 2));
 #pragma unroll
-      for (int ch = 0; ch < HD / CC; ++ch)
+      for (int ch = 0; ch < HDQK / CC; ++ch)
         hopper::tma_load_4d(qs + ch * block_q * SW, &map_q, q_full, ch * CC, q_start, h, b);
       for (int t = 0; t < n_kv; ++t) {
         const int s = t % stages;
         if (t >= stages) hopper::mbar_wait(&empty[s], ((t / stages) - 1) & 1);
-        unsigned char* ks = ring + s * 2 * KV_BYTES;
-        unsigned char* vs = ks + KV_BYTES;
-        hopper::mbar_expect_tx(&full[s], static_cast<uint32_t>(2 * BKV * HD * 2));
+        unsigned char* ks = ring + s * STAGE_BYTES;
+        unsigned char* vs = ks + K_BYTES;
+        hopper::mbar_expect_tx(&full[s], static_cast<uint32_t>(BKV * (HDQK + HDV) * 2));
 #pragma unroll
-        for (int ch = 0; ch < HD / CC; ++ch) {
+        for (int ch = 0; ch < HDQK / CC; ++ch)
           hopper::tma_load_4d(ks + ch * BKV * SW, &map_k, &full[s], ch * CC, t * BKV, kvh, b);
+#pragma unroll
+        for (int ch = 0; ch < HDV / CC; ++ch)
           hopper::tma_load_4d(vs + ch * BKV * SW, &map_v, &full[s], ch * CC, t * BKV, kvh, b);
-        }
       }
     }
   } else {
@@ -139,24 +148,24 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_const
     const int t_id = threadIdx.x % 128;
     const int lane = threadIdx.x % 32;
     const int row_base = q_start + wg * 64;  // this warpgroup's first query row
-    float oacc[HD / 2];
+    float oacc[HDV / 2];
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) oacc[i] = 0.f;
+    for (int i = 0; i < HDV / 2; ++i) oacc[i] = 0.f;
     float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
 
     hopper::mbar_wait(q_full, 0);
     for (int t = 0; t < n_kv; ++t) {
       const int s = t % stages;
       const int kv_start = t * BKV;
-      const unsigned char* ks = ring + s * 2 * KV_BYTES;
-      const unsigned char* vs = ks + KV_BYTES;
+      const unsigned char* ks = ring + s * STAGE_BYTES;
+      const unsigned char* vs = ks + K_BYTES;
       hopper::mbar_wait(&full[s], (t / stages) & 1);
 
       // S = Q K^T
       float sacc[BKV / 2];
       hopper::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
+      for (int kk = 0; kk < HDQK / 16; ++kk) {
         const int chunk = kk * 16 / CC, inner = (kk * 16 % CC) * 2;
         const uint64_t dq = hopper::desc(qs + chunk * block_q * SW + wg * 64 * SW + inner, 16, 8 * SW, SW);
         const uint64_t dk = hopper::desc(ks + chunk * BKV * SW + inner, 16, 8 * SW, SW);
@@ -214,7 +223,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_const
         l[r] = l[r] * alpha[r] + sum[r];
       }
 #pragma unroll
-      for (int i = 0; i < HD / 2; ++i) oacc[i] *= alpha[(i >> 1) & 1];
+      for (int i = 0; i < HDV / 2; ++i) oacc[i] *= alpha[(i >> 1) & 1];
       hopper::fence_regs(oacc);  // the rescale stays before the fence below
 
       // O += P V, P from registers: the k16 chunk c of S is the A fragment
@@ -233,8 +242,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_const
 #pragma unroll
       for (int c = 0; c < BKV / 16; ++c) {
         const uint64_t dv = hopper::desc(vs + c * 16 * SW, BKV * SW, 8 * SW, SW);
-        hopper::Wgmma<HD>::template rs<1>(oacc, ph[c], dv, 1);
-        hopper::Wgmma<HD>::template rs<1>(oacc, pl[c], dv, 1);
+        hopper::Wgmma<HDV>::template rs<1>(oacc, ph[c], dv, 1);
+        hopper::Wgmma<HDV>::template rs<1>(oacc, pl[c], dv, 1);
       }
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
@@ -253,7 +262,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_const
     }
     bf16* ob = o + b * os.b + h * os.h;
 #pragma unroll
-    for (int i = 0; i < HD / 2; i += 2) {
+    for (int i = 0; i < HDV / 2; i += 2) {
       const long long row = row_base + hopper::acc_row(t_id, i);
       const int col = hopper::acc_col(t_id, i);
       const float f = inv[(i >> 1) & 1];
@@ -262,13 +271,15 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_const
   }
 }
 
-template <int HD, int BKV>
+template <int HDQK, int HDV, int BKV>
 int launch_tile(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv, void* o, float* lse, Strides os,
                 int B, int H, int Kh, int Sq, int Skv, int block_q, int stages, int causal, float scale_log2,
                 void* stream) {
-  auto kernel = flash_wgmma_kernel<HD, BKV>;
-  const size_t smem = 1024 + hopper::round_up(block_q * HD * 2, 1024) +
-                      static_cast<size_t>(stages) * 2 * hopper::round_up(BKV * HD * 2, 1024) + 8 * (1 + 2 * stages);
+  auto kernel = flash_wgmma_kernel<HDQK, HDV, BKV>;
+  const size_t smem = 1024 + hopper::round_up(block_q * HDQK * 2, 1024) +
+                      static_cast<size_t>(stages) *
+                          (hopper::round_up(BKV * HDQK * 2, 1024) + hopper::round_up(BKV * HDV * 2, 1024)) +
+                      8 * (1 + 2 * stages);
   // The attribute is the block's limit, not this launch's need: the tuner launches one
   // kernel at several tiles from several threads, and a per-launch value set by one
   // thread would refuse another thread's larger launch ("invalid argument").
@@ -281,15 +292,15 @@ int launch_tile(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap&
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int HD>
+template <int HDQK, int HDV>
 int launch_hd(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv, void* o, float* lse, Strides os, int B,
               int H, int Kh, int Sq, int Skv, int block_q, int block_kv, int stages, int causal,
               float scale_log2, void* stream) {
   switch (block_kv) {
-    case 16: return launch_tile<HD, 16>(mq, mk, mv, o, lse, os, B, H, Kh, Sq, Skv, block_q, stages, causal, scale_log2, stream);
-    case 32: return launch_tile<HD, 32>(mq, mk, mv, o, lse, os, B, H, Kh, Sq, Skv, block_q, stages, causal, scale_log2, stream);
-    case 64: return launch_tile<HD, 64>(mq, mk, mv, o, lse, os, B, H, Kh, Sq, Skv, block_q, stages, causal, scale_log2, stream);
-    case 128: return launch_tile<HD, 128>(mq, mk, mv, o, lse, os, B, H, Kh, Sq, Skv, block_q, stages, causal, scale_log2, stream);
+    case 16: return launch_tile<HDQK, HDV, 16>(mq, mk, mv, o, lse, os, B, H, Kh, Sq, Skv, block_q, stages, causal, scale_log2, stream);
+    case 32: return launch_tile<HDQK, HDV, 32>(mq, mk, mv, o, lse, os, B, H, Kh, Sq, Skv, block_q, stages, causal, scale_log2, stream);
+    case 64: return launch_tile<HDQK, HDV, 64>(mq, mk, mv, o, lse, os, B, H, Kh, Sq, Skv, block_q, stages, causal, scale_log2, stream);
+    case 128: return launch_tile<HDQK, HDV, 128>(mq, mk, mv, o, lse, os, B, H, Kh, Sq, Skv, block_q, stages, causal, scale_log2, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -298,14 +309,15 @@ int launch_hd(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& m
 
 extern "C" {
 
-// q, o: (B, H, Sq, hd); k, v: (B, Kh, Skv, hd), bf16.  strides: 12 int64
-// values, (batch, head, seq) for q, k, v and o in turn, each a multiple of
-// 8 elements.  block_q 64 or 128, block_kv 16, 32, 64 or 128, hd 16, 32,
-// 64 or 128; `stages` ring stages of K and V tiles.  lse: (B, H, Sq) fp32,
-// written when not null.
+// q: (B, H, Sq, hd); k: (B, Kh, Skv, hd); v: (B, Kh, Skv, hd_v); o: (B, H,
+// Sq, hd_v), bf16.  strides: 12 int64 values, (batch, head, seq) for q, k,
+// v and o in turn, each a multiple of 8 elements.  block_q 64 or 128,
+// block_kv 16, 32, 64 or 128, (hd, hd_v) (16, 16), (32, 32), (64, 64),
+// (128, 128) or (192, 128); `stages` ring stages of K and V tiles.  lse:
+// (B, H, Sq) fp32, written when not null.
 int repro_flash_attention_wgmma_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
-                                     int Kh, int Sq, int Skv, int hd, const long long* strides, int block_q,
-                                     int block_kv, int stages, int causal, float scale,
+                                     int Kh, int Sq, int Skv, int hd, int hd_v, const long long* strides,
+                                     int block_q, int block_kv, int stages, int causal, float scale,
                                      void* stream) {
   if ((block_q != 64 && block_q != 128) || Sq % block_q || block_kv <= 0 || Skv % block_kv || Kh <= 0 ||
       H % Kh || stages < 2)
@@ -316,19 +328,23 @@ int repro_flash_attention_wgmma_bf16(const void* q, const void* k, const void* v
   CUtensorMap mq, mk, mv;
   const long long q_dims[4] = {hd, Sq, H, B}, q_strides[3] = {strides[2], strides[1], strides[0]};
   const long long k_dims[4] = {hd, Skv, Kh, B}, k_strides[3] = {strides[5], strides[4], strides[3]};
-  const long long v_strides[3] = {strides[8], strides[7], strides[6]};
+  const long long v_dims[4] = {hd_v, Skv, Kh, B}, v_strides[3] = {strides[8], strides[7], strides[6]};
+  if (hopper::swizzle_bytes(hd_v) != sw) return static_cast<int>(cudaErrorInvalidValue);
   int rc = hopper::make_map(&mq, q, 4, q_dims, q_strides, sw / 2, block_q, sw);
   if (rc) return rc;
   rc = hopper::make_map(&mk, k, 4, k_dims, k_strides, sw / 2, block_kv, sw);
   if (rc) return rc;
-  rc = hopper::make_map(&mv, v, 4, k_dims, v_strides, sw / 2, block_kv, sw);
+  rc = hopper::make_map(&mv, v, 4, v_dims, v_strides, sw / 2, block_kv, sw);
   if (rc) return rc;
   const float scale_log2 = scale * LOG2E;
+  if (hd == 192 && hd_v == 128)
+    return launch_hd<192, 128>(mq, mk, mv, o, lse, os, B, H, Kh, Sq, Skv, block_q, block_kv, stages, causal, scale_log2, stream);
+  if (hd != hd_v) return static_cast<int>(cudaErrorInvalidValue);
   switch (hd) {
-    case 16: return launch_hd<16>(mq, mk, mv, o, lse, os, B, H, Kh, Sq, Skv, block_q, block_kv, stages, causal, scale_log2, stream);
-    case 32: return launch_hd<32>(mq, mk, mv, o, lse, os, B, H, Kh, Sq, Skv, block_q, block_kv, stages, causal, scale_log2, stream);
-    case 64: return launch_hd<64>(mq, mk, mv, o, lse, os, B, H, Kh, Sq, Skv, block_q, block_kv, stages, causal, scale_log2, stream);
-    case 128: return launch_hd<128>(mq, mk, mv, o, lse, os, B, H, Kh, Sq, Skv, block_q, block_kv, stages, causal, scale_log2, stream);
+    case 16: return launch_hd<16, 16>(mq, mk, mv, o, lse, os, B, H, Kh, Sq, Skv, block_q, block_kv, stages, causal, scale_log2, stream);
+    case 32: return launch_hd<32, 32>(mq, mk, mv, o, lse, os, B, H, Kh, Sq, Skv, block_q, block_kv, stages, causal, scale_log2, stream);
+    case 64: return launch_hd<64, 64>(mq, mk, mv, o, lse, os, B, H, Kh, Sq, Skv, block_q, block_kv, stages, causal, scale_log2, stream);
+    case 128: return launch_hd<128, 128>(mq, mk, mv, o, lse, os, B, H, Kh, Sq, Skv, block_q, block_kv, stages, causal, scale_log2, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -9,7 +9,9 @@ that loops over the KV tiles up to the causal bound with the fp32 m/l/acc
 carry in registers:
 
 * ``"wgmma"`` (``csrc/flash_attention_wgmma.cu``), bf16 with block_q 64 or
-  128 and block_kv 16 to 128 at every head dim, strides TMA can describe:
+  128 and block_kv 16 to 128 at every head dim, and at query/key heads of
+  192 with value heads of 128 (latent attention's prefill,
+  ``models/mla.py``; :data:`WIDE_HEADS`), strides TMA can describe:
   K/V tiles stream through a TMA-fed ring of shared-memory stages, S = Q Kᵀ
   and O += P V run on the tensor cores (``wgmma``; P split into bf16 hi
   and lo parts), one warpgroup per 64 query rows;
@@ -58,6 +60,7 @@ from __future__ import annotations
 import ctypes
 import math
 import threading
+from typing import Optional
 
 import torch
 
@@ -76,6 +79,7 @@ __all__ = [
     "bwd_scratch_bytes",
     "bwd_flops_bytes",
     "design",
+    "WIDE_HEADS",
     "ring_stages",
     "check_blocks",
     "legal_blocks",
@@ -91,6 +95,9 @@ SMEM_LIMIT = 232448
 MAX_THREADS = 1024
 TPR = 8  # threads per query row (csrc/flash_attention.cu)
 HEAD_DIMS = (16, 32, 64, 128)
+#: (query/key width, value width) pairs of the tensor-core design besides
+#: the equal widths of ``HEAD_DIMS``; the CUDA-core design has none
+WIDE_HEADS = ((192, 128),)
 #: tiles of the tensor-core design (csrc/flash_attention_wgmma.cu): one
 #: consumer warpgroup per 64 query rows, block_kv up to what its registers
 #: hold (a thread's scores, output and P's two halves: block_kv / 2 + hd / 2
@@ -141,46 +148,64 @@ def _round1024(n: int) -> int:
     return (n + 1023) // 1024 * 1024
 
 
-def ring_smem_bytes(hd: int, block_q: int, block_kv: int, stages: int) -> int:
+def ring_smem_bytes(hd: int, block_q: int, block_kv: int, stages: int,
+                    hd_v: Optional[int] = None) -> int:
     """Shared memory of the tensor-core design: the Q tile, ``stages``
     stages of a K and a V tile (bf16, each rounded up to the 128-byte
-    swizzle's 1024-byte period), the mbarriers, and 1024 bytes to align."""
-    return (1024 + _round1024(2 * block_q * hd) + stages * 2 * _round1024(2 * block_kv * hd)
-            + 8 * (1 + 2 * stages))
+    swizzle's 1024-byte period; V ``hd_v`` wide, default ``hd``), the
+    mbarriers, and 1024 bytes to align."""
+    hd_v = hd if hd_v is None else hd_v
+    stage = _round1024(2 * block_kv * hd) + _round1024(2 * block_kv * hd_v)
+    return 1024 + _round1024(2 * block_q * hd) + stages * stage + 8 * (1 + 2 * stages)
 
 
-def ring_stages(hd: int, block_q: int, block_kv: int) -> int:
+def ring_stages(hd: int, block_q: int, block_kv: int, hd_v: Optional[int] = None) -> int:
     """Stages of the tensor-core design's K/V ring: the most, up to
     ``MAX_STAGES``, that fit ``SMEM_LIMIT`` (0 when not even one does)."""
     for stages in range(MAX_STAGES, 0, -1):
-        if ring_smem_bytes(hd, block_q, block_kv, stages) <= SMEM_LIMIT:
+        if ring_smem_bytes(hd, block_q, block_kv, stages, hd_v) <= SMEM_LIMIT:
             return stages
     return 0
 
 
-def design(itemsize: int, hd: int, block_q: int, block_kv: int, strides=(), aligned: bool = True) -> str:
+def _instantiated(hd: int, hd_v: int) -> bool:
+    return (hd == hd_v and hd in HEAD_DIMS) or (hd, hd_v) in WIDE_HEADS
+
+
+def design(itemsize: int, hd: int, block_q: int, block_kv: int, strides=(), aligned: bool = True,
+           hd_v: Optional[int] = None) -> str:
     """``"wgmma"`` when the tensor-core kernel runs this call, else
     ``"simt"``.  A pure function of the dtype (``itemsize`` 2: bf16), the
-    head dim, the (clamped) tile, the batch/head/sequence strides of q, k, v
-    and o in elements (TMA needs multiples of 16 bytes) and whether the
-    tensors start on 16-byte boundaries."""
-    if itemsize != 2 or not aligned or hd not in HEAD_DIMS:
+    query/key head dim and the value head dim ``hd_v`` (default ``hd``),
+    the (clamped) tile, the batch/head/sequence strides of q, k, v and o in
+    elements (TMA needs multiples of 16 bytes) and whether the tensors
+    start on 16-byte boundaries."""
+    hd_v = hd if hd_v is None else hd_v
+    if itemsize != 2 or not aligned or not _instantiated(hd, hd_v):
         return "simt"
     if block_q not in WGMMA_BLOCK_Q or block_kv not in WGMMA_BLOCK_KV:
         return "simt"
-    if any(st % 8 for st in strides) or ring_stages(hd, block_q, block_kv) < 2:
+    if any(st % 8 for st in strides) or ring_stages(hd, block_q, block_kv, hd_v) < 2:
         return "simt"
     return "wgmma"
 
 
 def check_blocks(hd: int, block_q: int, block_kv: int, itemsize: int, strides=(),
-                 aligned: bool = True) -> str:
+                 aligned: bool = True, hd_v: Optional[int] = None) -> str:
     """The design that runs this call; ``ValueError`` for shapes and tiles
-    neither CUDA kernel can run."""
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {hd} not instantiated (have {HEAD_DIMS})")
-    if design(itemsize, hd, block_q, block_kv, strides, aligned) == "wgmma":
+    neither CUDA kernel can run (unequal widths run only on the tensor
+    cores)."""
+    hd_v = hd if hd_v is None else hd_v
+    if not _instantiated(hd, hd_v):
+        raise ValueError(f"flash_attention: head dims ({hd}, {hd_v}) not instantiated (have "
+                         f"{HEAD_DIMS} and {WIDE_HEADS})")
+    if design(itemsize, hd, block_q, block_kv, strides, aligned, hd_v) == "wgmma":
         return "wgmma"
+    if hd_v != hd:
+        raise ValueError(f"flash_attention: head dims ({hd}, {hd_v}) run only the tensor-core "
+                         f"design (bf16, block_q {WGMMA_BLOCK_Q}, block_kv {WGMMA_BLOCK_KV}, "
+                         f"16-byte strides); got block_q={block_q} block_kv={block_kv}, "
+                         f"{itemsize}-byte elements")
     if block_q * TPR > MAX_THREADS:
         raise ValueError(
             f"block_q={block_q} needs {block_q * TPR} threads per block (max {MAX_THREADS})"
@@ -197,25 +222,26 @@ def check_blocks(hd: int, block_q: int, block_kv: int, itemsize: int, strides=()
 
 
 def legal_blocks(hd: int, Sq: int, Skv: int, block_q: int, block_kv: int, itemsize: int,
-                 on_card: bool) -> tuple:
+                 on_card: bool, hd_v: Optional[int] = None) -> tuple:
     """The blocks a call runs with (clamped to the sequences), or
     ``ValueError``: they must divide them, and on the card fit the kernel."""
     blocks = _blocks(Sq, Skv, block_q, block_kv)
     if on_card:
-        check_blocks(hd, *blocks, itemsize)
+        check_blocks(hd, *blocks, itemsize, hd_v=hd_v)
     return blocks
 
 
 def flops_bytes(q, k, v, causal: bool = True) -> tuple:
-    """(FLOP, bytes) of one call, q: (B,H,Sq,hd), k/v: (B,Kh,Skv,hd).
+    """(FLOP, bytes) of one call, q: (B,H,Sq,hd), k: (B,Kh,Skv,hd), v:
+    (B,Kh,Skv,hd_v).
 
     FLOP count the two products over the (query, key) pairs the causal mask
-    keeps (top-left: row i sees keys 0..i), 4·hd per pair; bytes read q, k,
-    v once and write o once."""
+    keeps (top-left: row i sees keys 0..i), 2·(hd + hd_v) per pair; bytes
+    read q, k, v once and write o once."""
     B, H, Sq, hd = q.shape
-    Skv = k.shape[2]
-    flops = 4.0 * B * H * _pairs(Sq, Skv, causal) * hd
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    Skv, hd_v = k.shape[2], v.shape[3]
+    flops = 2.0 * B * H * _pairs(Sq, Skv, causal) * (hd + hd_v)
+    nbytes = (q.numel() + B * H * Sq * hd_v + k.numel() + v.numel()) * q.element_size()
     return flops, float(nbytes)
 
 
@@ -240,22 +266,23 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, block_q: int = 128, b
                           return_lse: bool = False):
     """The kernel's arithmetic in plain PyTorch, tile by tile: fp32 m/l/acc
     carry, -1e30 in masked slots, causal tiles in the future skipped.  With
-    ``return_lse`` also each row's m + log l, (B,H,Sq) fp32."""
+    ``return_lse`` also each row's m + log l, (B,H,Sq) fp32.  v and the
+    output may be narrower than q and k (``hd_v``)."""
     B, H, Sq, hd = q.shape
-    Kh, Skv = k.shape[1], k.shape[2]
+    Kh, Skv, hd_v = k.shape[1], k.shape[2], v.shape[3]
     g = H // Kh
     block_q, block_kv = _blocks(Sq, Skv, block_q, block_kv)
     scale = torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32)
     qf = q.float() * scale
     kf = k.float().repeat_interleave(g, dim=1)  # query head h reads KV head h // g
     vf = v.float().repeat_interleave(g, dim=1)
-    out = torch.empty_like(q)
+    out = _output_like(q, hd_v)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     for q0 in range(0, Sq, block_q):
         qt = qf[:, :, q0:q0 + block_q]
         m = torch.full((B, H, block_q, 1), NEG_INF, dtype=torch.float32, device=q.device)
         l = torch.zeros((B, H, block_q, 1), dtype=torch.float32, device=q.device)
-        acc = torch.zeros((B, H, block_q, hd), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((B, H, block_q, hd_v), dtype=torch.float32, device=q.device)
         for kv0 in range(0, Skv, block_kv):
             if causal and kv0 > q0 + block_q - 1:
                 break  # this and every later tile lie wholly in the future
@@ -274,6 +301,18 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, block_q: int = 128, b
         l = torch.where(l == 0.0, torch.ones_like(l), l)  # fully masked rows -> 0
         out[:, :, q0:q0 + block_q] = (acc / l).to(q.dtype)
     return (out, lse) if return_lse else out
+
+
+def _output_like(q, hd_v: int):
+    """An empty output (B,H,Sq,hd_v) in q's layout: ``empty_like(q)`` at
+    q's width (it keeps q's strides when q is a transposed view), else the
+    same order of dims with the last ``hd_v`` wide."""
+    if hd_v == q.shape[3]:
+        return torch.empty_like(q)
+    order = sorted(range(3), key=lambda i: -q.stride(i)) + [3]
+    shape = [q.shape[i] for i in order[:3]] + [hd_v]
+    out = torch.empty(shape, dtype=q.dtype, device=q.device)
+    return out.permute([order.index(i) for i in range(4)])
 
 
 def _check_cuda(what: str, **named) -> None:
@@ -300,17 +339,18 @@ def _strides(q, k, v, out) -> tuple:
 def _launch(q, k, v, out, lse, causal: bool, block_q: int, block_kv: int, kind: str) -> None:
     global launches
     B, H, Sq, hd = q.shape
-    Kh, Skv = k.shape[1], k.shape[2]
+    Kh, Skv, hd_v = k.shape[1], k.shape[2], v.shape[3]
     if kind == "wgmma":
         source, fn_name = "flash_attention_wgmma", "repro_flash_attention_wgmma_bf16"
-        extra = [ring_stages(hd, block_q, block_kv)]
+        widths = [hd, hd_v]
+        extra = [ring_stages(hd, block_q, block_kv, hd_v)]
     else:
         source, fn_name = "flash_attention", f"repro_flash_attention_{_SUFFIX[q.dtype]}"
-        extra = []
+        widths, extra = [hd], []
     lib = _cuda.load(source)
     fn = getattr(lib, fn_name)
     fn.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * (5 + len(widths)) + [ctypes.c_void_p]
         + [ctypes.c_int] * (3 + len(extra)) + [ctypes.c_float, ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
@@ -319,7 +359,7 @@ def _launch(q, k, v, out, lse, causal: bool, block_q: int, block_kv: int, kind: 
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                None if lse is None else lse.data_ptr(), B, H, Kh, Sq, Skv, hd,
+                None if lse is None else lse.data_ptr(), B, H, Kh, Sq, Skv, *widths,
                 ctypes.cast(strides, ctypes.c_void_p), block_q, block_kv, *extra, int(causal), scale,
                 stream)
     if rc != 0:
@@ -338,22 +378,24 @@ def flash_attention_fwd(
     q, k, v, *, causal: bool = True, block_q: int = 128, block_kv: int = 128,
     interpret: bool = False, return_lse: bool = False,
 ):
-    """q: (B,H,Sq,hd); k/v: (B,Kh,Skv,hd) -> o: (B,H,Sq,hd) in ``q.dtype``,
-    and with ``return_lse`` (o, lse (B,H,Sq) fp32), lse the natural log of
-    each row's softmax sum of the scaled scores (``LSE_EMPTY`` where it is 0).
+    """q: (B,H,Sq,hd); k: (B,Kh,Skv,hd); v: (B,Kh,Skv,hd_v) -> o:
+    (B,H,Sq,hd_v) in ``q.dtype``, and with ``return_lse`` (o, lse (B,H,Sq)
+    fp32), lse the natural log of each row's softmax sum of the scaled
+    scores (``LSE_EMPTY`` where it is 0).  ``hd_v`` is ``hd`` or, on the
+    card, one of :data:`WIDE_HEADS`; the scale is 1/√hd.
 
     Any strides are taken as long as the last dim is contiguous; the output
     has q's layout.  CUDA tensors launch the kernel; ``interpret=True`` runs
     the plain version, which takes CPU tensors only.  Anything else raises."""
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or k.shape[:3] != v.shape[:3]:
         raise ValueError(f"flash_attention_fwd: bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}")
     B, H, Sq, hd = q.shape
-    Kh, Skv = k.shape[1], k.shape[2]
+    Kh, Skv, hd_v = k.shape[1], k.shape[2], v.shape[3]
     if k.shape[0] != B or k.shape[3] != hd or H % Kh:
         raise ValueError(f"flash_attention_fwd: q {tuple(q.shape)} and k {tuple(k.shape)} do not match")
     block_q, block_kv = legal_blocks(hd, Sq, Skv, block_q, block_kv, q.element_size(),
-                                     on_card=not interpret)
+                                     on_card=not interpret, hd_v=hd_v)
     if interpret:
         if q.is_cuda or k.is_cuda or v.is_cuda:
             raise ValueError(
@@ -362,10 +404,10 @@ def flash_attention_fwd(
         return flash_attention_plain(q, k, v, causal=causal, block_q=block_q, block_kv=block_kv,
                                      return_lse=return_lse)
     _check_cuda("flash_attention_fwd", q=q, k=k, v=v)
-    out = torch.empty_like(q)  # keeps q's strides when q is a transposed view
+    out = _output_like(q, hd_v)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) if return_lse else None
-    kind = design(q.element_size(), hd, block_q, block_kv, _strides(q, k, v, out),
-                  aligned=all(t.data_ptr() % 16 == 0 for t in (q, k, v, out)))
+    kind = check_blocks(hd, block_q, block_kv, q.element_size(), _strides(q, k, v, out),
+                        aligned=all(t.data_ptr() % 16 == 0 for t in (q, k, v, out)), hd_v=hd_v)
     _launch(q, k, v, out, lse, causal, block_q, block_kv, kind)
     return (out, lse) if return_lse else out
 

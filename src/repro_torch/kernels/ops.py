@@ -68,8 +68,12 @@ class _Flash(torch.autograd.Function):
 
 
 def flash_attention(q, k, v, *, causal=True, block_q=128, block_kv=128, interpret=False):
-    """q: (B,Sq,H,hd); k/v: (B,Kh,Skv,hd) -> (B,Sq,H,hd)."""
+    """q: (B,Sq,H,hd); k: (B,Kh,Skv,hd); v: (B,Kh,Skv,hd_v) -> (B,Sq,H,hd_v).
+    A v narrower than k (latent attention's prefill) has no backward."""
     grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    if grad and v.shape[-1] != k.shape[-1]:
+        raise ValueError("flash_attention: no backward for value heads narrower than key heads "
+                         f"({v.shape[-1]} < {k.shape[-1]})")
     return _Flash.apply(q, k, v, causal, block_q, block_kv, interpret, grad)
 
 

@@ -9,7 +9,12 @@ signature::
 ``st`` is the block's cache/state ({} for stateless full-sequence
 attention); ``ctx`` is the cross-attention context embeddings (B, N, D)
 when present; ``aux_loss`` is the MoE router's (a 0-d fp32 zero for the
-dense FFNs and the recurrent kinds).
+dense FFNs and the recurrent kinds).  ``layer`` (keyword, the block's index
+in its stack; -1 for none) names an MoE layer's load counter.
+
+The ``mla`` and ``mla_dense`` kinds (latent attention, :mod:`.mla`; the
+config's FFN or a dense SwiGLU of ``d_ff``) have no JAX counterpart; their
+norms use ``cfg.norm_eps``.
 """
 from __future__ import annotations
 
@@ -20,13 +25,14 @@ import torch
 from .attention import attn_apply, attn_init, cross_kv, init_attn_cache
 from .config import ExecConfig, ModelConfig
 from .layers import Init, ffn_apply, ffn_init, norm_apply, norm_init
+from .mla import init_mla_cache, mla_apply, mla_init
 from .moe import moe_apply, moe_init
 from .rglru import init_rglru_state, rglru_apply, rglru_init
 from .rwkv6 import init_rwkv_state, rwkv_apply, rwkv_init
 
 __all__ = ["init_block", "init_block_state", "apply_block", "BLOCK_KINDS"]
 
-BLOCK_KINDS = ("attn", "cross", "rwkv", "rglru")
+BLOCK_KINDS = ("attn", "cross", "rwkv", "rglru", "mla", "mla_dense")
 
 
 def _ffn_params(ini: Init, cfg: ModelConfig) -> dict:
@@ -35,9 +41,9 @@ def _ffn_params(ini: Init, cfg: ModelConfig) -> dict:
     return ffn_init(ini, cfg.ffn, cfg.d_model, cfg.d_ff)
 
 
-def _apply_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor):
+def _apply_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, layer: int = -1):
     if cfg.ffn == "moe":
-        return moe_apply(cfg, p, x)
+        return moe_apply(cfg, p, x, layer)
     return ffn_apply(cfg.ffn, p, x), torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -58,6 +64,13 @@ def init_block(ini: Init, kind: str, cfg: ModelConfig) -> dict:
             "xattn": attn_init(ini, cfg),
             "norm2": norm_init(ini, cfg.norm, d),
             "ffn": _ffn_params(ini, cfg),
+        }
+    if kind in ("mla", "mla_dense"):
+        return {
+            "norm1": norm_init(ini, cfg.norm, d),
+            "attn": mla_init(ini, cfg),
+            "norm2": norm_init(ini, cfg.norm, d),
+            "ffn": _ffn_params(ini, cfg) if kind == "mla" else ffn_init(ini, "swiglu", d, cfg.d_ff),
         }
     if kind == "rwkv":
         return rwkv_init(ini, cfg)
@@ -87,6 +100,8 @@ def init_block_state(kind: str, cfg: ModelConfig, batch: int, max_len: int, mode
             st["xk"] = torch.zeros(shape, dtype=dt, device=device)
             st["xv"] = torch.zeros(shape, dtype=dt, device=device)
         return st
+    if kind in ("mla", "mla_dense"):
+        return {} if mode == "train" else {"kv": init_mla_cache(cfg, batch, max_len, device=device)}
     if kind == "rwkv":
         return init_rwkv_state(cfg, batch, device)
     if kind == "rglru":
@@ -106,8 +121,21 @@ def apply_block(
     mode: str,
     causal: bool,
     exec_cfg: ExecConfig,
+    layer: int = -1,
 ) -> Tuple[torch.Tensor, dict, torch.Tensor]:
     st = st or {}
+    if kind in ("mla", "mla_dense"):
+        eps = cfg.norm_eps
+        h, new_kv = mla_apply(cfg, p["attn"], norm_apply(cfg.norm, p["norm1"], x, eps),
+                              q_pos=q_pos, cache=st.get("kv"), causal=causal, exec_cfg=exec_cfg)
+        x = x + h
+        h2 = norm_apply(cfg.norm, p["norm2"], x, eps)
+        if kind == "mla":
+            h, aux = _apply_ffn(cfg, p["ffn"], h2, layer)
+        else:
+            h, aux = ffn_apply("swiglu", p["ffn"], h2), torch.zeros(
+                (), dtype=torch.float32, device=x.device)
+        return x + h, ({"kv": new_kv} if new_kv is not None else {}), aux
     if kind in ("attn", "cross"):
         h, new_kv = attn_apply(
             cfg, p["attn"], norm_apply(cfg.norm, p["norm1"], x), q_pos=q_pos,

@@ -59,9 +59,9 @@ from .layers import Init, embed_init, norm_apply, norm_init
 
 __all__ = ["Model", "TrainModel", "ParamTree", "keeps_fp32"]
 
-_NORMS = ("norm1", "norm2", "normx", "ln1", "ln2", "final_norm", "encoder_norm")
+_NORMS = ("norm1", "norm2", "normx", "ln1", "ln2", "final_norm", "encoder_norm", "kv_norm")
 _FP32_AT_USE = {"rec": ("wa", "ba", "wi", "bi", "lam"), "tm": ("w0", "w1", "w2", "u"),
-                "ffn": ("router",)}
+                "ffn": ("router", "router_bias")}
 
 #: products without batch dims: the Linear layers (``x @ w`` lowers to
 #: ``mm``); the attention einsums (``bmm``) have a batch dim
@@ -187,10 +187,11 @@ class Model(nn.Module):
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         new_states = []
         remat = self.exec_cfg.remat if self.trainable and torch.is_grad_enabled() else "none"
-        for kind, layer, st in zip(kinds, layers, states):
+        for i, (kind, layer, st) in enumerate(zip(kinds, layers, states)):
             x = constrain(x, ("dp", "sp", None))  # a no-op outside a sharding context
             block = functools.partial(apply_block, kind, self.cfg, layer.tree(), q_pos=q_pos,
-                                      ctx=ctx, mode=mode, causal=causal, exec_cfg=self.exec_cfg)
+                                      ctx=ctx, mode=mode, causal=causal, exec_cfg=self.exec_cfg,
+                                      layer=i)
             if remat == "none":
                 x, st, a = block(x, st)
             else:
@@ -271,7 +272,7 @@ class Model(nn.Module):
         x, _, aux = self._run_stack(self.cfg.pattern, self.layers, x, states,
                                     q_pos=torch.arange(S, device=self.device), ctx=ctx,
                                     mode="train", causal=True)
-        return norm_apply(self.cfg.norm, self.final_norm.tree(), x), aux
+        return norm_apply(self.cfg.norm, self.final_norm.tree(), x, self.cfg.norm_eps), aux
 
     @torch.no_grad()
     def forward(self, batch: dict) -> torch.Tensor:
@@ -292,7 +293,7 @@ class Model(nn.Module):
         x, states, _ = self._run_stack(self.cfg.pattern, self.layers, x, states,
                                        q_pos=torch.arange(S, device=self.device), ctx=ctx,
                                        mode="prefill", causal=True)
-        x = norm_apply(self.cfg.norm, self.final_norm.tree(), x[:, -1:])
+        x = norm_apply(self.cfg.norm, self.final_norm.tree(), x[:, -1:], self.cfg.norm_eps)
         return x[:, 0], states
 
     @torch.no_grad()
@@ -311,7 +312,7 @@ class Model(nn.Module):
             q_pos = torch.arange(pos, pos + 1, device=self.device)
         x, states, _ = self._run_stack(self.cfg.pattern, self.layers, x, states, q_pos=q_pos,
                                        ctx=None, mode="decode", causal=True)
-        x = norm_apply(self.cfg.norm, self.final_norm.tree(), x)
+        x = norm_apply(self.cfg.norm, self.final_norm.tree(), x, self.cfg.norm_eps)
         return self.logits(x)[:, 0], states
 
 

@@ -19,6 +19,24 @@ with the MoE and the outputs add.  The Switch load-balance aux loss is
 returned for training.  The dispatch buffer carries the JAX package's
 expert-parallel constraint (``("ep", "dp", None)``), a no-op outside a
 sharding context (:mod:`repro_torch.parallel.api`).
+
+Sigmoid variant (``cfg.router == "sigmoid"``, Moonlight-16B-A3B's, which
+the JAX package does not define; it dispatches drop-free, ``cfg.drop_free``; :func:`route_sigmoid`,
+:func:`grouped_experts`): fp32 sigmoid scores, the top ``K`` of scores plus
+a per-expert bias (``router_bias``, used for selection only; ties go to the
+lower expert index), the chosen scores renormalised and scaled by
+``routed_scale`` as gates.  Nothing is dropped at any size: the T·K
+assignments are sorted by expert (a stable sort, on the device) and each
+expert's SwiGLU runs as three grouped products over its contiguous run of
+rows (``torch._grouped_mm`` with the runs' ends as offsets), with no
+padding, no per-expert loop and no host read of the loads, so a decode
+step captures as a CUDA graph.  The outputs go back to token order by a
+gather and are summed over the K choices in a fixed order; ``shared``, one
+SwiGLU of the shared experts' summed width, adds to every token.  Eager
+calls add each layer's per-expert assignment counts on the device to the
+registry's ``moe.expert_assignments.<layer>`` (:mod:`repro_torch.obs.metrics`,
+read after the run); a call being captured into a graph adds nothing.  The
+spans ``moe.route``, ``moe.experts`` and ``moe.combine`` cover its phases.
 """
 from __future__ import annotations
 
@@ -29,12 +47,18 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 
+from repro_torch.obs.metrics import registry
+from repro_torch.obs.trace import span
 from repro_torch.parallel.api import constrain
 
 from .config import ModelConfig
 from .layers import Init, ffn_apply, ffn_init
 
-__all__ = ["moe_init", "moe_apply", "capacity", "route"]
+__all__ = ["moe_init", "moe_apply", "capacity", "route", "route_sigmoid", "grouped_experts",
+           "LOAD_COUNTER"]
+
+#: prefix of the registry's per-layer device counters of expert assignments
+LOAD_COUNTER = "moe.expert_assignments"
 
 #: token-slot assignments up to which dispatch is drop-free (C = T·K)
 DROP_FREE_ASSIGNMENTS = 8192
@@ -50,6 +74,10 @@ def moe_init(ini: Init, cfg: ModelConfig) -> dict:
     }
     if cfg.moe_dense_residual:
         p["dense"] = ffn_init(ini, "swiglu", d, cfg.d_ff)
+    if cfg.router == "sigmoid":
+        p["router_bias"] = ini.zeros((e,))
+    if cfg.n_shared_experts:
+        p["shared"] = ffn_init(ini, "swiglu", d, cfg.n_shared_experts * f)
     return p
 
 
@@ -91,8 +119,76 @@ def route(cfg: ModelConfig, p: dict, xt: torch.Tensor, C: Optional[int] = None) 
             "slot": torch.clamp(pos_in_e, max=C - 1)}
 
 
-def moe_apply(cfg: ModelConfig, p: dict, x: torch.Tensor):
-    """x: (B, S, D) -> (y, aux_loss)."""
+def route_sigmoid(cfg: ModelConfig, p: dict, xt: torch.Tensor) -> dict:
+    """Sigmoid routing of tokens xt (T, D) in fp32: each token's ``K``
+    experts (T, K), the top of ``sigmoid(x W_r) + router_bias`` in
+    descending order with ties to the lower expert index (a stable sort),
+    and their gates (T, K): the chosen sigmoid scores (not the biased
+    ones) over their sum, times ``routed_scale``."""
+    K = cfg.top_k
+    scores = torch.sigmoid(xt.float() @ p["router"].float())  # (T, E)
+    biased = scores + p["router_bias"].float()
+    eidx = torch.sort(biased, dim=-1, descending=True, stable=True).indices[:, :K]
+    gate = scores.gather(1, eidx)
+    gate = gate / gate.sum(dim=-1, keepdim=True) * cfg.routed_scale
+    return {"expert": eidx, "gate": gate}
+
+
+def grouped_experts(p: dict, xt: torch.Tensor, expert: torch.Tensor, n_experts: int,
+                    layer: int = -1) -> torch.Tensor:
+    """Every assignment's expert SwiGLU, drop-free: xt (T, D), expert (T,
+    K) -> (T, K, D) in xt's dtype, row (t, k) the output of expert
+    ``expert[t, k]`` for token t.  Sorted by expert, grouped products over
+    the contiguous runs, gathered back to assignment order."""
+    T, K = expert.shape
+    dt = xt.dtype
+    flat = expert.reshape(T * K)
+    order = torch.sort(flat, stable=True).indices  # assignments grouped by expert
+    counts = torch.zeros(n_experts, dtype=torch.int64, device=xt.device).scatter_add_(
+        0, flat, torch.ones_like(flat))
+    _count(layer, counts)
+    offs = torch.cumsum(counts, 0).to(torch.int32)
+    xs = xt[order // K]  # (T·K, D), sorted by expert
+    h = F.silu(torch._grouped_mm(xs, p["wg"].to(dt), offs=offs))
+    h = h * torch._grouped_mm(xs, p["wi"].to(dt), offs=offs)
+    del xs
+    ys = torch._grouped_mm(h, p["wo"].to(dt), offs=offs)
+    del h
+    where = torch.empty_like(order).scatter_(0, order, torch.arange(T * K, device=xt.device))
+    return ys[where].view(T, K, -1)
+
+
+def _count(layer: int, counts: torch.Tensor) -> None:
+    """Add a layer's per-expert assignments to its device counter (not
+    while a graph is being captured)."""
+    if layer < 0 or (counts.is_cuda and torch.cuda.is_current_stream_capturing()):
+        return
+    registry().device_counter(f"{LOAD_COUNTER}.{layer}").add(counts)
+
+
+def _moe_grouped(cfg: ModelConfig, p: dict, x: torch.Tensor, layer: int):
+    """x (B, S, D) -> y (B, S, D) in x's dtype: the sigmoid router, the
+    drop-free grouped experts and the shared experts."""
+    B, S, D = x.shape
+    xt = x.reshape(B * S, D)
+    with span("moe.route", "model"):
+        r = route_sigmoid(cfg, p, xt)
+    with span("moe.experts", "model"):
+        ys = grouped_experts(p, xt, r["expert"], cfg.n_experts, layer)
+        shared = ffn_apply("swiglu", p["shared"], xt) if cfg.n_shared_experts else None
+    with span("moe.combine", "model"):
+        # the gates' sum over K, each token a (1, K) x (K, D) product
+        y = torch.bmm(r["gate"].to(x.dtype)[:, None], ys)[:, 0]
+        if shared is not None:
+            y = y + shared
+    return y.reshape(B, S, D), torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def moe_apply(cfg: ModelConfig, p: dict, x: torch.Tensor, layer: int = -1):
+    """x: (B, S, D) -> (y, aux_loss).  ``layer`` (the block's index in the
+    model, -1 for none) names the drop-free dispatch's load counter."""
+    if cfg.drop_free:
+        return _moe_grouped(cfg, p, x, layer)
     if isinstance(x, DTensor):
         return _moe_sharded(cfg, p, x)
     B, S, D = x.shape

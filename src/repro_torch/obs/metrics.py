@@ -1,4 +1,5 @@
-"""Process-level metrics registry: counters, gauges, fixed-bucket histograms.
+"""Process-level metrics registry: counters, gauges, fixed-bucket histograms,
+and device counters (tensors summed on the card, read after the work).
 
 The primitives (:class:`Counter`, :class:`Gauge`, :class:`Histogram`) are
 plain thread-safe objects that components own directly — the executable
@@ -22,6 +23,7 @@ from typing import Dict, List, Optional, Sequence, Union
 
 __all__ = [
     "Counter",
+    "DeviceCounter",
     "MirroredStats",
     "Gauge",
     "Histogram",
@@ -194,6 +196,38 @@ class Histogram:
         return f"Histogram(count={self.count}, sum={self.sum:.6g})"
 
 
+class DeviceCounter:
+    """A counter of many values kept on the device: :meth:`add` adds a
+    tensor elementwise into one held there (created at the first add, with
+    that tensor's shape, dtype and device), so a hot path counts without a
+    host synchronisation.  A tensor of another shape, dtype or device
+    starts the count over (another model in the process).  :meth:`snapshot`
+    reads it to the host (a synchronisation) as a list; call it after the
+    work."""
+
+    __slots__ = ("_lock", "_value")
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._value = None
+
+    def add(self, values) -> None:
+        with self._lock:
+            v = self._value
+            if v is None or (v.shape, v.dtype, v.device) != (values.shape, values.dtype,
+                                                             values.device):
+                self._value = values.detach().clone()
+            else:
+                v.add_(values)
+
+    def snapshot(self):
+        with self._lock:
+            return None if self._value is None else self._value.tolist()
+
+    def __repr__(self) -> str:
+        return f"DeviceCounter({self.snapshot()!r})"
+
+
 class MirroredStats(dict):
     """A stats dict whose numeric increments mirror into the process
     registry under ``<prefix>.<key>`` — existing ``stats["x"] += 1``
@@ -269,6 +303,9 @@ class MetricsRegistry:
 
     def gauge(self, name: str) -> Gauge:
         return self._get_or_create(name, Gauge, Gauge)
+
+    def device_counter(self, name: str) -> DeviceCounter:
+        return self._get_or_create(name, DeviceCounter, DeviceCounter)
 
     def histogram(
         self, name: str, buckets: Optional[Sequence[float]] = None

@@ -1608,3 +1608,113 @@ def test_tiny_family_train_step_on_the_card_kernel_path_matches_plain(arch, dtyp
     for k, t in zip(("loss", "grad_norm"), tol):
         got, want = metrics["cuda"][k].item(), metrics["xla"][k].item()
         assert abs(got - want) <= t * abs(want), (k, got, want)
+
+
+# ------------------------------------- latent attention and grouped experts
+# (B, S, H, block, causal): latent attention's widths (query/key heads 192,
+# value heads 128) on the tensor-core design, one and two consumer
+# warpgroups, the ring turning, a non-causal pass, Moonlight's 16 heads
+MLA_FLASH_SHAPES = [(1, 256, 2, 64, True), (2, 384, 3, 128, True), (1, 512, 2, 64, False),
+                    (1, 1024, 16, 128, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,block,causal", MLA_FLASH_SHAPES)
+def test_flash_wgmma_at_latent_attention_widths(B, S, H, block, causal):
+    """q and k 192 wide, v 128 wide and strided as ``models/mla.py`` hands
+    them in (k a transposed view, v the second half of each head's 256
+    up-projected values): the tensor-core design, an output 128 wide, the
+    plain version's values at the flash bf16 limit."""
+    dev = _card()
+    q = _randn(90, (B, S, H, 192), torch.bfloat16, dev)
+    k = _randn(91, (B, S, H, 192), torch.bfloat16, dev).transpose(1, 2)
+    v = _randn(92, (B, S, H, 256), torch.bfloat16, dev)[..., 128:].transpose(1, 2)
+    by_design = dict(tfa.launches_by_design)
+    got = ops.flash_attention(q, k, v, causal=causal, block_q=block, block_kv=block)
+    assert _ran(tfa.launches_by_design, by_design) == "wgmma"
+    assert got.shape == (B, S, H, 128) and got.is_contiguous()
+    want = tfa.flash_attention_plain(q.transpose(1, 2), k, v, causal=causal, block_q=block,
+                                     block_kv=block).transpose(1, 2)
+    torch.testing.assert_close(got.float().cpu(), want.float().cpu(), atol=5e-3, rtol=5e-3)
+
+
+@pytest.mark.cuda
+def test_flash_at_latent_attention_widths_refuses_what_it_cannot_run():
+    dev = _card()
+    q = _randn(93, (1, 128, 2, 192), torch.float32, dev)
+    k = _randn(94, (1, 2, 128, 192), torch.float32, dev)
+    v = _randn(95, (1, 2, 128, 128), torch.float32, dev)
+    before = tfa.launches
+    with pytest.raises(ValueError, match="tensor-core"):
+        ops.flash_attention(q, k, v)  # fp32: no design at these widths
+    with pytest.raises(ValueError, match="tensor-core"):
+        ops.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(), block_q=32, block_kv=32)
+    assert tfa.launches == before
+
+
+@pytest.mark.cuda
+def test_grouped_experts_on_the_card_match_a_per_token_loop():
+    """Drop-free grouped dispatch in bf16 at 9600 assignments (over the
+    former capacity path's 8192), uneven loads and an expert with no token:
+    every assignment's output against the expert applied to its token in
+    fp32 (norm-wise 2e-2, bf16 products), and no host synchronisation."""
+    import torch.nn.functional as F
+
+    from repro_torch.models.moe import grouped_experts
+
+    dev = _card()
+    T, K, E, D, Fe = 1600, 6, 16, 256, 128
+    x = _randn(96, (T, D), torch.bfloat16, dev)
+    p = {"wi": _randn(97, (E, D, Fe), torch.bfloat16, dev, D ** -0.5),
+         "wg": _randn(98, (E, D, Fe), torch.bfloat16, dev, D ** -0.5),
+         "wo": _randn(99, (E, Fe, D), torch.bfloat16, dev, Fe ** -0.5)}
+    logits = torch.from_numpy(np.random.RandomState(100).standard_normal((T, E))).to(dev)
+    logits[:, 3] = -1e9  # expert 3 gets no token
+    logits[:, 0] += 2.0  # expert 0 most of them
+    expert = torch.sort(logits, dim=-1, descending=True, stable=True).indices[:, :K]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = grouped_experts(p, x, expert, E)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    xf = x.float()
+    w = {n: t.float() for n, t in p.items()}
+    want = torch.empty(T, K, D, device=dev)
+    for t in range(T):
+        e = expert[t]
+        h = F.silu(xf[t] @ w["wg"][e]) * (xf[t] @ w["wi"][e])  # (K, Fe)
+        want[t] = torch.bmm(h[:, None], w["wo"][e])[:, 0]
+    rel = float((got.float() - want).norm() / want.norm())
+    assert rel < 2e-2, rel
+
+
+@pytest.mark.cuda
+def test_moonlight_decode_graphs_give_the_eager_loops_tokens():
+    """Latent attention's absorbed decode and the grouped experts capture as
+    CUDA graphs: every depth emits the eager loop's tokens from a prefill
+    on the flash kernel at (192, 128) (a 20-token prompt, padded to 64)."""
+    from repro_torch.launch.serve import DECODE_KS, DecodeGraphs
+
+    dev = _card()
+    P, n = 20, 16
+    model, prefill = _tiny_decoder("moonlight_16b_a3b", dev, P=P)
+    before = tfa.launches_by_design["wgmma"]
+    tok, states = prefill()
+    assert tfa.launches_by_design["wgmma"] == before + len(model.cfg.pattern)
+    assert states[0]["kv"]["kv"].shape[-1] == model.cfg.kv_lora_rank + model.cfg.qk_rope_dim
+    eager = []
+    for i in range(n):
+        logits, states = model.decode_step(tok, states, P + i)
+        tok = logits.argmax(-1)[:, None]
+        eager.append(tok)
+    eager = torch.cat(eager, dim=1)
+    for k in DECODE_KS:
+        tok, states = prefill()
+        graphs = DecodeGraphs(model, tok, states, P)
+        run = graphs.build(k)
+        token, states, pos = tok, states, P
+        got = []
+        for _ in range(n // k):
+            token, states, pos, toks = run(token, states, pos)
+            got.append(toks.clone())
+        assert torch.equal(torch.cat(got, dim=1), eager), k
