@@ -114,7 +114,10 @@ Phases, each printing its numbers on lines of its own:
    the 1-step and the 8-step graphs (equal tokens; logits within
    ``LOGITS_TOL``);
 9. the same for rwkv6-7b at full width and depth (32 ``rwkv_scan`` launches
-   per prefill, every one of the tensor-core design);
+   per prefill, every one of the tensor-core design; every decode step the
+   run calls, eagerly or under capture, launches the six fused decode
+   kernels of phase 26 on each of the 32 layers, and recurrentgemma-2b's
+   none);
 10. training recurrentgemma-2b at full width and depth through ``TrainJob``
    (weights from seed 0, fp32 masters and AdamW state on the card, the
    kernels with ``rec_chunk`` 8, batch 4 x 256 tokens, lr 1e-3 with no
@@ -253,7 +256,21 @@ Phases, each printing its numbers on lines of its own:
    eager; then the flash kernel on the last layer's served q, k, v and at
    the benchmark cell's prefill shape (q (32, 4096, 16, 192), k 192, v 128,
    bf16, causal) against its plain version, one sequence at a time (the
-   rule of phase 12).
+   rule of phase 12);
+26. after phase 9, rwkv6-7b's fused decode step (``kernels/rwkv_decode.py``,
+   six kernels a layer around the weight products; phase 9 counts their
+   launches on the served path): each kernel against its plain version at
+   the served cell's shapes (batch 8, d_model 4096, 64 heads of 64, mix
+   rank 32, decay rank 64, d_ff 14336) in fp32 (``FP32_DECODE_TOL``) and
+   bf16 (each element within ``FP32_DECODE_TOL`` plus one bf16 step of its
+   own size, the fp32 outputs at ``FP32_DECODE_TOL``), each timed beside
+   its bytes bound and its plain version on the card; then the model at full width and depth
+   (32 layers, batch 8, a 64-token prompt): one eager step's launches (six
+   a layer), 8 greedy steps eager against an 8-step graph replay token for
+   token, the fused path against the chain (``attn_impl="xla"``) fed the
+   same tokens in fp32 arithmetic (logits ``HIDDEN_TOL`` of the largest)
+   and in bf16 (printed), and an 8-step graph of each path replayed and
+   profiled: ms and device kernels a step.
 
 Phases 10-11 with 22-24, 12-15 with 20-21 and 25, and 16-17 with 19 run after
 phase 7, before serving, in three child processes (``--train-phases``,
@@ -270,7 +287,8 @@ the kernels' launch counters are set to 0 just before each path and read
 just after, and every kernel must have launched on one of them.  Phases
 10, 18, 22, 23 and 24 must run one AdamW update a step through the kernel:
 three launches over every leaf of the model (``adamw_updates``).
-The line before the last two is a JSON object with one entry per kernel;
+The line before the last two is a JSON object with one entry per kernel
+(``rwkv_decode``'s six as one, from phases 9 and 26);
 then ``nvidia-smi``'s name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero, and so
 does a run without a CUDA card or outside a checkout of the repository.
@@ -325,6 +343,9 @@ LRU_BWD_SEG_REL = 1e-6
 #: differently and 26-32 random layers spread the flips (printed, not held
 #: end to end; the served bf16 scan is held at TOL on the model's own inputs).
 HIDDEN_TOL = 1e-3
+#: phase 26: a fused decode kernel in fp32 against its plain version, per
+#: element of (1 + |plain|): the same fp32 arithmetic summed in another order
+FP32_DECODE_TOL = 1e-5
 #: decode as a CUDA graph against the eager loop: the same kernels on the same
 #: inputs, so the tokens must be equal and the bf16 logits agree to within the
 #: JAX tests' bf16 limit, 3e-2 of the largest |logit|
@@ -427,15 +448,22 @@ FA_BWD_CASES = (("seamless encoder", (3, 4096, 16, 16, 64), "bfloat16", False),
                 ("fp32", (1, 512, 8, 2, 64), "float32", True))
 KERNELS = ["matmul", "flash_attention", "decode_attention", "lru_scan", "rwkv_scan",
            "lru_scan_bwd", "rwkv_scan_bwd", "flash_attention_bwd", "adamw"]
-#: what ``counts()`` reads: every kernel's launches, and the leaves the AdamW
-#: kernel updated
-COUNTERS = KERNELS + ["adamw_leaves"]
+#: what ``counts()`` reads: every kernel's launches, the fused RWKV-6 decode
+#: step's (its six kernels together; phase 26 checks them), and the leaves
+#: the AdamW kernel updated
+COUNTERS = KERNELS + ["rwkv_decode", "adamw_leaves"]
 #: the AdamW kernel's launches an update (norm, finish, update), whatever the leaves
 ADAMW_LAUNCHES = 3
 #: AdamW's kernel timed at seamless-m4t-large-v2's 726 leaves (1.63 B fp32
 #: parameters: p, g, m and v are 26.1 GB; rwkv6-7b's 4.28 B do not fit
 #: beside this process's other tensors)
 ADAMW_CELL = "seamless_m4t_large_v2"
+
+
+#: phase 26: rwkv6-7b's decode step at the served cell's batch, its prompt
+#: (short: a recurrent step costs the same after any prompt) and the greedy
+#: steps compared and replayed
+RWKV_DECODE_BATCH, RWKV_DECODE_PROMPT, RWKV_DECODE_STEPS = 8, 64, 8
 
 
 class SmokeFailure(Exception):
@@ -501,16 +529,18 @@ def _tensors(x) -> list:
 
 def counts() -> dict:
     """Every kernel's launch count (each wrapper adds one where it launches;
-    AdamW's three an update) and the leaves the AdamW kernel updated."""
+    AdamW's three an update, the fused RWKV-6 decode step's six a layer) and
+    the leaves the AdamW kernel updated."""
     from repro_torch.kernels import adamw as aw
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import linear_scan as ls
     from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import rwkv_decode as rd
 
     return {"matmul": mm.launches, "flash_attention": fa.launches,
             "decode_attention": da.launches, **ls.launches, "flash_attention_bwd": fa.bwd_launches,
-            "adamw": aw.launches, "adamw_leaves": aw.leaves}
+            "adamw": aw.launches, "rwkv_decode": rd.launches, "adamw_leaves": aw.leaves}
 
 
 def reset_counts() -> None:
@@ -519,6 +549,7 @@ def reset_counts() -> None:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import linear_scan as ls
     from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import rwkv_decode as rd
 
     aw.launches = 0
     aw.leaves = 0
@@ -526,6 +557,7 @@ def reset_counts() -> None:
     fa.launches = 0
     fa.bwd_launches = 0
     da.launches = 0
+    rd.launches = 0
     for n in ls.launches:
         ls.launches[n] = 0
 
@@ -756,6 +788,297 @@ def decode_profile(out: Path, phase, arch, model, batch) -> dict:
           f"{LOGITS_TOL:g} x max |logit|) {'ok' if ok else 'FAIL'}")
     check(ok, f"{arch}: decode through CUDA graphs differs from the eager loop")
     return prof
+
+
+def graph_ms(fn, calls: int, reps: int = 5) -> float:
+    """Device-paced ms of one ``fn()``: ``calls`` of it captured in one CUDA
+    graph, replayed ``reps`` times between CUDA events (a warm-up replay
+    first)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * calls)
+
+
+@contextlib.contextmanager
+def decode_steps_counted():
+    """While the block runs, ``Model.decode_step`` records the fused RWKV-6
+    decode launches each call made: yields the list, one count a call (the
+    serving path's calls run one at a time, under the capture lock)."""
+    from repro_torch.kernels import rwkv_decode as rd
+    from repro_torch.models import Model
+
+    real, per_step = Model.decode_step, []
+
+    def counted(self, *args, **kw):
+        before = rd.launches
+        got = real(self, *args, **kw)
+        per_step.append(rd.launches - before)
+        return got
+
+    Model.decode_step = counted
+    try:
+        yield per_step
+    finally:
+        Model.decode_step = real
+
+
+def rwkv_decode_row(report: dict, serving: int) -> dict:
+    """The kernels line's ``rwkv_decode`` entry: the six kernels of one
+    layer's decode step as one row, their serving launches (phase 9) and, at
+    the served cell's shapes in bf16 (phase 26), their summed times and
+    bytes bound, each kernel's beside."""
+    from repro_torch import configs
+    from repro_torch.kernels import rwkv_decode as rd
+
+    cfg = configs.get("rwkv6_7b")
+    each = {name: report["kernels"][f"{name}.bfloat16"] for name in rd.KERNELS}
+    return {"name": "rwkv_decode", "route": "cuda", "source": "src/repro_torch/kernels/csrc/rwkv_decode.cu",
+            # no Pallas counterpart: XLA fuses the JAX package's T = 1 chain under jit
+            "replaces": "src/repro/models/rwkv6.py:193", "pallas_counterpart": None,
+            "design": "fused_step", "kernels": list(rd.KERNELS),
+            "shape": [RWKV_DECODE_BATCH, cfg.d_model, cfg.n_heads, cfg.d_head], "launches": serving,
+            "launches_by_path": {"serving": serving}, "launches_per_step": report["launches_per_step"],
+            "ms": sum(k_["us"] for k_ in each.values()) / 1e3,
+            "plain_ms": sum(k_["plain_us"] for k_ in each.values()) / 1e3,
+            "bound_ms": sum(k_["bound_us"] for k_ in each.values()) / 1e3, "bound_by": "bytes",
+            "by_kernel": {name: {"us": k_["us"], "plain_us": k_["plain_us"], "bound_us": k_["bound_us"]}
+                          for name, k_ in each.items()}}
+
+
+def decode_limit(want):
+    """Each element's limit for a fused decode kernel's output against its
+    plain version's ``want``: ``FP32_DECODE_TOL`` of (1 + |want|), the same
+    fp32 arithmetic summed in another order, and for a bf16 output one bf16
+    step of the element's own size besides (that sum may then round to the
+    neighbouring bf16 value, at most 2^-7 of |want| away)."""
+    import torch
+
+    w = want.float().abs()
+    lim = FP32_DECODE_TOL * (1 + w)
+    return lim + 2 ** -7 * w if want.dtype == torch.bfloat16 else lim
+
+
+def rwkv_decode_kernels(phase) -> dict:
+    """Phase 26 (a): each fused decode kernel against its plain version on
+    seeded inputs at the served cell's shapes, in bf16 and fp32; then each
+    kernel's and its plain version's time on the card, each as 50 calls in
+    one CUDA graph, beside the kernel's bytes bound (each input read and
+    each output written once at 3.35 TB/s)."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.core.costs import H100_SXM
+    from repro_torch.kernels import rwkv_decode as rd
+    from repro_torch.models import rwkv6
+
+    cfg = configs.get("rwkv6_7b")
+    dev = torch.device("cuda", 0)
+    B, D, H, hd, F = RWKV_DECODE_BATCH, cfg.d_model, cfg.n_heads, cfg.d_head, cfg.d_ff
+    R, L = rwkv6._LORA_MIX, rwkv6._LORA_W
+    f32 = torch.float32
+    gen = torch.Generator(device=dev).manual_seed(26)
+
+    def rn(shape, dtype, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale + shift).to(dtype)
+
+    def ru(shape, dtype):
+        return torch.rand(shape, generator=gen, device=dev).to(dtype)
+
+    report = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        row = lambda: rn((B, D), dtype)  # noqa: E731
+        args = {
+            "shift_mix": (row(), row(), rn((D,), f32, 0.1, 1.0), rn((D,), f32, 0.1), ru((D,), dtype)),
+            "lora_mix": (rn((B, 5 * R), dtype), row(), row(), rn((5, R, D), dtype, 0.02), ru((5, D), dtype)),
+            "wkv_step": (row(), row(), row(), row(), rn((B, L), f32), rn((D,), f32, 0.5, -1.0),
+                         rn((L, D), f32, 0.02), rn((H, hd), f32, 0.5), rn((B, H, hd, hd), f32, 0.5),
+                         rn((D,), dtype, 0.1, 1.0), rn((D,), dtype, 0.1)),
+            "cm_mix": (row(), row(), row(), rn((D,), f32, 0.1, 1.0), rn((D,), f32, 0.1), ru((D,), dtype),
+                       ru((D,), dtype)),
+            "relu_sq": (rn((B, F), dtype),),
+            "cm_out": (row(), row(), row()),
+        }
+        name_dt = str(dtype).replace("torch.", "")
+        for name in rd.KERNELS:
+            fn, plain = getattr(rd, name), getattr(rd, f"{name}_plain")
+            a = args[name]
+            got = fn(*a)
+            torch.cuda.synchronize()
+            want = fn(*(t.cpu() for t in a), interpret=True)
+            got, want = (_tensors(got), _tensors(want))
+            worst, outside = 0.0, 0
+            for g_, w_ in zip(got, want):
+                check(g_.dtype == w_.dtype and g_.shape == w_.shape, f"rwkv_decode.{name}: "
+                      f"{g_.dtype} {tuple(g_.shape)} against {w_.dtype} {tuple(w_.shape)}")
+                d_ = (g_.float().cpu() - w_.float()).abs()
+                scale = w_.float().abs().max().item()
+                outside += int((d_ > decode_limit(w_)).sum())
+                worst = max(worst, d_.max().item() / max(scale, 1e-30))
+            nbytes = sum(t.numel() * t.element_size() for t in (*a, *got))
+            bound_ms = nbytes / H100_SXM.hbm_bw * 1e3
+            ms = graph_ms(lambda: fn(*a), 50)
+            plain_ms = graph_ms(lambda: plain(*a), 50)
+            ok = outside == 0 and all(bool(torch.isfinite(g_.float()).all()) for g_ in got)
+            print(f"[{phase}] rwkv_decode.{name} {name_dt} at batch {B}, d_model {D}, {H} heads of {hd}: "
+                  f"max |d| / max |plain| {worst:.3e}, {outside} outside the limit; kernel "
+                  f"{ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, bytes bound {bound_ms * 1e3:.2f} us "
+                  f"({nbytes / 1e6:.3f} MB) {'ok' if ok else 'FAIL'}")
+            check(ok, f"rwkv_decode.{name} ({name_dt}) disagrees with its plain version")
+            report[f"{name}.{name_dt}"] = {"rel": worst, "us": ms * 1e3, "plain_us": plain_ms * 1e3,
+                                           "bound_us": bound_ms * 1e3, "bytes": nbytes}
+    return report
+
+
+def rwkv_decode_phase(out: Path, smi: str) -> dict:
+    """Phase 26: rwkv6-7b's fused decode step, its kernels first
+    (:func:`rwkv_decode_kernels`), then the model at full width and depth."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import rwkv_decode as rd
+    from repro_torch.launch import serve
+    from repro_torch.models import ExecConfig, Model
+
+    phase = 26
+    torch.backends.cuda.matmul.allow_tf32 = False
+    report = {"kernels": rwkv_decode_kernels(phase)}
+    cfg = configs.get("rwkv6_7b")
+    dev = torch.device("cuda", 0)
+    B, P, n = RWKV_DECODE_BATCH, RWKV_DECODE_PROMPT, RWKV_DECODE_STEPS
+    model = Model(cfg, ExecConfig(attn_impl="cuda", rec_chunk=4), device=dev, seed=0)
+    gen = torch.Generator(device=dev).manual_seed(27)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, P), generator=gen, device=dev),
+             "max_len": P + 4 * n}
+
+    def fresh():
+        h_, st_ = model.prefill(batch)
+        return model.logits(h_[:, None])[:, 0].argmax(-1)[:, None], st_
+
+    def teacher_forced(impl, tokens, states):
+        model.exec_cfg = ExecConfig(attn_impl=impl, rec_chunk=4)
+        logits = []
+        for i in range(tokens.shape[1]):
+            lg, states = model.decode_step(tokens[:, i:i + 1], states, P + i)
+            logits.append(lg.float())
+        return torch.stack(logits)
+
+    tok, st = fresh()
+    before = rd.launches
+    model.decode_step(tok, st, P)
+    torch.cuda.synchronize()
+    per_step = rd.launches - before
+    print(f"[{phase}] rwkv6_7b eager decode step: {per_step} rwkv_decode launches "
+          f"({per_step / cfg.n_layers:g} a layer, {cfg.n_layers} layers)")
+    check(per_step == len(rd.KERNELS) * cfg.n_layers,
+          f"rwkv6_7b: a decode step launched {per_step} fused kernels, not {len(rd.KERNELS)} a layer")
+    eager, t_, s_ = [], tok, st
+    for i in range(n):
+        lg, s_ = model.decode_step(t_, s_, P + i)
+        t_ = lg.argmax(-1)[:, None]
+        eager.append(t_)
+    eager = torch.cat(eager, dim=1)
+    del t_, s_, lg
+
+    runs = {}
+    for impl in ("xla", "cuda"):
+        model.exec_cfg = ExecConfig(attn_impl=impl, rec_chunk=4)
+        graphs = serve.DecodeGraphs(model, tok, st, P)
+        run = graphs.build(n)
+        runs[impl] = (graphs, run)
+    _, _, _, toks = runs["cuda"][1](runs["cuda"][0].token, runs["cuda"][0].states, runs["cuda"][0].pos)
+    same = torch.equal(toks, eager)
+    print(f"[{phase}] rwkv6_7b first {n} greedy tokens, eager vs an {n}-step graph, fused path: "
+          f"equal={same}")
+    check(same, "rwkv6_7b: the fused decode through a CUDA graph differs from the eager loop")
+
+    def replay(impl):
+        graphs, run = runs[impl]
+        return lambda: run(graphs.token, graphs.states, graphs.pos)
+
+    times = {"xla": [], "cuda": []}
+    for impl in ("xla", "cuda", "cuda", "xla"):
+        fn = replay(impl)
+        fn()
+        torch.cuda.synchronize()
+        t0_ = time.perf_counter()
+        for _ in range(4):
+            fn()
+        torch.cuda.synchronize()
+        times[impl].append((time.perf_counter() - t0_) * 1e3 / (4 * n))
+    for impl, label in (("xla", "chain"), ("cuda", "fused")):
+        busy, kernels = trace_busy(out, replay(impl), 1, f"rwkv6_7b_decode_{label}")
+        report[label] = {"graph_step_ms": times[impl], "busy_ms": busy / n, "kernels": kernels / n}
+        print(f"[{phase}] rwkv6_7b {label} decode ({'attn_impl=' + impl}), {n}-step graph at batch {B}: "
+              f"{', '.join(f'{t:.3f}' for t in times[impl])} ms a step (host clock, in turns chain, "
+              f"fused, fused, chain), device busy {busy / n:.3f} ms and {kernels / n:.1f} device "
+              f"operations a step (profiled replay)")
+    if report["chain"]["kernels"] == 0:  # CUPTI did not start in this process
+        print(f"[{phase}] rwkv6_7b: the profiler recorded no device operation; counts not held")
+    else:
+        check(report["fused"]["kernels"] < report["chain"]["kernels"] / 2,
+              "rwkv6_7b: the fused decode step does not halve the chain's device operations")
+    runs.clear()
+    del graphs, run, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the same tokens through both paths in fp32 arithmetic on the served
+    # weights (held), then in bf16 as served, each bf16 path also against
+    # the fp32 chain (printed: the fused path drops the chain's intermediate
+    # roundings, so it should lie no farther from fp32)
+    logits = {}
+    for dtype in ("float32", "bfloat16"):
+        model.cfg = dataclasses.replace(cfg, compute_dtype=dtype)
+        model.exec_cfg = ExecConfig(attn_impl="cuda", rec_chunk=4)
+        _, st = fresh()
+        for impl in ("cuda", "xla"):
+            logits[dtype, impl] = teacher_forced(impl, eager, st)
+        del st
+        gc.collect()
+    ref = logits["float32", "xla"]
+    mag = ref.abs().max().item()
+    for dtype in ("float32", "bfloat16"):
+        gap = (logits[dtype, "cuda"] - logits[dtype, "xla"]).abs().max().item() / mag
+        agree = (logits[dtype, "cuda"].argmax(-1) == logits[dtype, "xla"].argmax(-1)).float().mean().item()
+        to_fp32 = {impl: ((logits[dtype, impl] - ref).norm() / ref.norm()).item() for impl in ("cuda", "xla")}
+        report[f"against_chain_{dtype}"] = {"logits_gap": gap, "argmax_agree": agree,
+                                            "fused_to_fp32": to_fp32["cuda"], "chain_to_fp32": to_fp32["xla"]}
+        held = dtype == "float32"
+        ok = not held or gap <= HIDDEN_TOL
+        print(f"[{phase}] rwkv6_7b {dtype} arithmetic, fused vs chain fed the same {n} tokens: "
+              f"logits max |d| / max |logit| {gap:.3e} (max |logit| {mag:.3f}), same argmax "
+              f"{agree:.3f}; ||path - fp32 chain|| / ||fp32 chain||: fused {to_fp32['cuda']:.3e}, "
+              f"chain {to_fp32['xla']:.3e}" + (f"; limit {HIDDEN_TOL:g} {'ok' if ok else 'FAIL'}" if held
+                                                else " (rounding spread, not held)"))
+        check(ok, "rwkv6_7b: the fused decode step disagrees with the chain in fp32 arithmetic")
+    del logits, ref
+    model.cfg = cfg
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["launches_per_step"] = per_step
+    (out / "rwkv_decode.json").write_text(json.dumps(report, indent=1))
+    print(f"[{phase}] rwkv decode summary: {json.dumps(report)} ({smi})")
+    return report
 
 
 def flash_check(phase, label: str, q, k, v, kw: dict) -> float:
@@ -2700,6 +3023,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import linear_scan as ls
     from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import rwkv_decode as rd
     from repro_torch.kernels.autotuned import exec_cache, get_spec, roofline
     from repro_torch.launch import serve
     from repro_torch.models import ExecConfig
@@ -2719,7 +3043,8 @@ def main(argv=None) -> int:
                  *(f"serve_{arch}.json" for arch, _, _ in SERVE),
                  *(f"serve_{arch}.json" for arch in (SEAMLESS, MOONSHOT, QWEN, LLAMA_V, STARCODER)),
                  *(f"serve_{arch}_tiny.json" for arch in FAMILY_TINY),
-                 "parallel_report.json", "pretune_launch.json", "pretune_launch.json.journal"):
+                 "parallel_report.json", "pretune_launch.json", "pretune_launch.json.journal",
+                 "rwkv_decode.json"):
         (out / name).unlink(missing_ok=True)
 
     # ---------------------------------------------------------- 1. device
@@ -3135,7 +3460,8 @@ def main(argv=None) -> int:
           f"one leaf 4 bytes past a 16-byte boundary), fp32 and bf16 state, 3 steps with the clip engaged: "
           f"fp32 state within {max_err['adamw']:.2e} of each leaf's scale (limit 1e-6), bf16 within a bf16 "
           f"step, the global norm to 1e-6, {ADAMW_LAUNCHES} launches an update")
-    check(all(n > 0 for n in counts().values()), f"phase 2 did not launch every kernel: {counts()}")
+    check(all(n > 0 for name, n in counts().items() if name != "rwkv_decode"),  # phase 26's
+          f"phase 2 did not launch every kernel: {counts()}")
     print(f"[2] launches: {counts()}")
 
     # ---------------------------------------- main path 1: tuning loop, 3-5
@@ -3719,19 +4045,28 @@ def main(argv=None) -> int:
             reset_counts()
             by_design = dict(ls.launches_by_design)
             buf = io.StringIO()
-            with contextlib.redirect_stdout(buf):
-                res = serve.serve(["--arch", arch, *SERVE_ARGS, "--db", db_path])
-            launched = counts()
+            with decode_steps_counted() as per_step:
+                with contextlib.redirect_stdout(buf):
+                    res = serve.serve(["--arch", arch, *SERVE_ARGS, "--db", db_path])
+                with serve.DecodeGraphs._capture_lock:  # no capture midway through a step
+                    launched, per_step = counts(), list(per_step)
             by_design = {d: n - by_design[d] for d, n in ls.launches_by_design.items()}
             for line in buf.getvalue().splitlines():
                 print(f"[{phase}] {arch} run {run}: {line}")
+            # rwkv6-7b's decode steps take the fused kernels, six a layer
+            fused = len(rd.KERNELS) * res["model"].cfg.n_layers if scan == "rwkv_scan" else 0
             print(f"[{phase}] {arch} run {run}: prefill {res['prefill_ms']:.1f} ms, decode "
                   f"{res['decode_tok_s']:.1f} tok/s, k={res['k']}, db_hit={res['db_hit']}, "
-                  f"launches {launched}")
+                  f"launches {launched}; {len(per_step)} decode steps called (eagerly or under "
+                  f"capture), rwkv_decode launches by step {sorted(set(per_step))}")
             check(launched[scan] == per_prefill,
                   f"{arch} run {run}: {scan} launched {launched[scan]} times in one prefill, "
                   f"expected {per_prefill} (one per layer)")
-            check(all(n == 0 for name, n in launched.items() if name != scan),
+            check(len(per_step) > 0 and all(n == fused for n in per_step)
+                  and launched["rwkv_decode"] == fused * len(per_step),
+                  f"{arch} run {run}: rwkv_decode launched {launched['rwkv_decode']} times over "
+                  f"{len(per_step)} decode steps ({sorted(set(per_step))} a step), not {fused} a step")
+            check(all(n == 0 for name, n in launched.items() if name not in (scan, "rwkv_decode")),
                   f"{arch} run {run}: unexpected launches {launched}")
             if scan == "rwkv_scan":
                 print(f"[{phase}] {arch} run {run}: rwkv_scan launches by design {by_design}")
@@ -3834,6 +4169,9 @@ def main(argv=None) -> int:
 
     (out / "decode_profile.json").write_text(json.dumps(decode_profiles, indent=1))
     print(f"[9] serving launches: {serve_launches}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    rwkv_report = rwkv_decode_phase(out, smi)
 
     # what serving leaves allocated (PERF.md §7)
     live_cuda_report("9", dev)
@@ -3846,6 +4184,7 @@ def main(argv=None) -> int:
           f"decode_attention {da.launches_by_design}, rwkv_scan {ls.launches_by_design}")
     for name, n in main_launches.items():
         check(n > 0, f"no main path launched the {name} kernel")
+    check(serve_launches["rwkv_decode"] > 0, "no main path launched the rwkv_decode kernels")
 
     sources = {"matmul": ("src/repro_torch/kernels/csrc/matmul_wgmma.cu", "src/repro/kernels/matmul.py:40"),
                "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
@@ -3949,6 +4288,7 @@ def main(argv=None) -> int:
             entry["plain_ms_recurrentgemma_2b_mqa"] = row["rg_mqa"]["plain"]
             entry["library_ms_recurrentgemma_2b_mqa"] = row["rg_mqa"]["library"]
         kernels.append(entry)
+    kernels.append(rwkv_decode_row(rwkv_report, serve_launches["rwkv_decode"]))
     print(f"[11] total wall time {time.perf_counter() - t_start:.1f}s (the kernels' build included); "
           f"DBs in {out}; exec cache {exec_cache().stats()}; {smi}")
     print(json.dumps({"kernels": kernels}))

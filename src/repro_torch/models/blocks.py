@@ -9,8 +9,9 @@ signature::
 ``st`` is the block's cache/state ({} for stateless full-sequence
 attention); ``ctx`` is the cross-attention context embeddings (B, N, D)
 when present; ``aux_loss`` is the MoE router's (a 0-d fp32 zero for the
-dense FFNs and the recurrent kinds).  ``layer`` (keyword, the block's index
-in its stack; -1 for none) names an MoE layer's load counter.
+dense FFNs; None for the recurrent kinds, whose decode step then launches
+no zero fill and no add for it).  ``layer`` (keyword, the block's index in
+its stack; -1 for none) names an MoE layer's load counter.
 
 The ``mla`` and ``mla_dense`` kinds (latent attention, :mod:`.mla`; the
 config's FFN or a dense SwiGLU of ``d_ff``) have no JAX counterpart; their
@@ -122,7 +123,7 @@ def apply_block(
     causal: bool,
     exec_cfg: ExecConfig,
     layer: int = -1,
-) -> Tuple[torch.Tensor, dict, torch.Tensor]:
+) -> Tuple[torch.Tensor, dict, Optional[torch.Tensor]]:
     st = st or {}
     if kind in ("mla", "mla_dense"):
         eps = cfg.norm_eps
@@ -161,10 +162,9 @@ def apply_block(
         h, aux = _apply_ffn(cfg, p["ffn"], norm_apply(cfg.norm, p["norm2"], x))
         return x + h, new_st, aux
 
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind == "rwkv":
         y, new_st = rwkv_apply(cfg, p, x, st, exec_cfg=exec_cfg)
-        return y, new_st, zero
+        return y, new_st, None
 
     if kind == "rglru":
         h, new_st = rglru_apply(cfg, p["rec"], norm_apply(cfg.norm, p["norm1"], x), st,
@@ -172,6 +172,6 @@ def apply_block(
         x = x + h
         h = ffn_apply(cfg.ffn if cfg.ffn != "moe" else "geglu", p["ffn"],
                       norm_apply(cfg.norm, p["norm2"], x))
-        return x + h, new_st, zero
+        return x + h, new_st, None
 
     raise ValueError(f"unknown block kind {kind}")

@@ -198,7 +198,8 @@ class Model(nn.Module):
                 x, st, a = checkpoint(block, x, st, use_reentrant=False,
                                       context_fn=_REMAT_CONTEXT[remat])
             new_states.append(st)
-            aux = aux + a
+            if a is not None:
+                aux = aux + a
         return x, new_states, aux
 
     def _init_states_for(self, kinds, batch: int, max_len: int, mode: str) -> list:

@@ -9,9 +9,13 @@ S ∈ R^{hd×hd}, per-channel data-dependent decay w_t ∈ (0,1):
 Sequence paths: under ``attn_impl="cuda"`` the CUDA scan kernel
 (``kernels.ops.rwkv_scan``, the exact per-token recurrence); otherwise
 :func:`wkv_chunked`, the exact chunked form with log-space decay
-differences (all exponents ≤ 0).  Decode (T = 1), and any length that
-``rec_chunk`` does not divide, runs :func:`wkv_scan_ref`, the per-token
-oracle.
+differences (all exponents ≤ 0).  Any length that ``rec_chunk`` does not
+divide runs :func:`wkv_scan_ref`, the per-token oracle.  Decode (T = 1)
+under ``attn_impl="cuda"`` on plain tensors under ``no_grad`` (as
+``Model.decode_step`` runs it) takes
+:func:`_decode_step`: the layer's pointwise work as the six kernels of
+``kernels/rwkv_decode.py`` between its weight products; otherwise the
+chain below with the per-token oracle, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import rwkv_decode as rd
 from repro_torch.kernels.ref import rwkv_scan_ref
 from repro_torch.parallel.api import einsum, matmul, split_dim
 
@@ -164,6 +169,34 @@ def _ddlerp(x, x_prev, tm):
     return tuple(mixed[:, :, i] for i in range(5))  # xw, xk, xv, xr, xg
 
 
+def _decode_step(p: dict, x: torch.Tensor, state: dict, interpret: bool):
+    """One token (x: (B,1,D)) through the block: six fused kernels
+    (``kernels/rwkv_decode.py``) around the weight products the chain runs,
+    same weights, same library calls.  Weights are cast as the chain casts
+    them (a no-op for the served model's)."""
+    B, _, D = x.shape
+    dt = x.dtype
+    tm, cm = p["tm"], p["cm"]
+    x = x.reshape(B, D)
+    shift_tm = state["shift_tm"]
+    xn, xxx = rd.shift_mix(x, shift_tm, p["ln1"]["scale"].float(), p["ln1"]["bias"].float(),
+                           tm["mu_x"].to(dt), interpret=interpret)
+    xw, mixed = rd.lora_mix(xxx @ tm["mix_w1"].to(dt), xn, shift_tm, tm["mix_w2"].to(dt),
+                            tm["mu_5"].to(dt), interpret=interpret)
+    xk, xv, xr, xg = mixed.unbind(0)
+    gated, wkv = rd.wkv_step(xr @ tm["wr"].to(dt), xk @ tm["wk"].to(dt), xv @ tm["wv"].to(dt),
+                             xg @ tm["wg"].to(dt), xw @ tm["w1"].float(), tm["w0"].float(),
+                             tm["w2"].float(), tm["u"].float(), state["wkv"],
+                             tm["ln_x"]["scale"].to(dt), tm["ln_x"]["bias"].to(dt),
+                             interpret=interpret)
+    x1, xn2, xkr = rd.cm_mix(x, gated @ tm["wo"].to(dt), state["shift_cm"],
+                             p["ln2"]["scale"].float(), p["ln2"]["bias"].float(), cm["mu_k"].to(dt),
+                             cm["mu_r"].to(dt), interpret=interpret)
+    kk = rd.relu_sq(xkr[0] @ cm["wk"].to(dt), interpret=interpret)
+    out = rd.cm_out(x1, xkr[1] @ cm["wr"].to(dt), kk @ cm["wv"].to(dt), interpret=interpret)
+    return out[:, None], {"shift_tm": xn, "wkv": wkv, "shift_cm": xn2}
+
+
 def rwkv_apply(
     cfg: ModelConfig,
     p: dict,
@@ -175,6 +208,11 @@ def rwkv_apply(
     """Full block: time-mix (+residual) then channel-mix (+residual).
     x: (B,T,D).  ``state`` carries shift tokens + wkv state across calls."""
     B, T, D = x.shape
+    # the fused kernels take no gradient, and the dry run's DTensors come as
+    # a whole set: both keep the chain
+    if (T == 1 and exec_cfg.attn_impl == "cuda" and not torch.is_grad_enabled()
+            and not isinstance(x, DTensor)):
+        return _decode_step(p, x, state, exec_cfg.interpret)
     H, hd = cfg.n_heads, cfg.d_head
     dt = x.dtype
     tm, cm = p["tm"], p["cm"]
